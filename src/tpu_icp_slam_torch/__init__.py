@@ -1,0 +1,39 @@
+"""tpu_icp_slam_torch — the PyTorch/CUDA port of tpu_icp_slam for NVIDIA Hopper.
+
+The JAX package `tpu_icp_slam` is the reference; this package reproduces its
+3D scan-to-map main path in PyTorch, with the two Pallas kernels of that path
+(brute-force NN, Gauss-Newton accumulation) rewritten as CUDA C++ kernels for
+sm_90a (`csrc/`, built on first use by `kernels/_build.py`).
+
+Layers, mirroring the reference:
+  core/     — SE(3) algebra, padded point clouds
+  kernels/  — CUDA kernels K1 (NN) and K2 (GN) + their plain-torch versions
+  icp/      — point-to-plane Gauss-Newton step and the ICP loop
+  mapping/  — voxel map, k-NN normals
+  slam/     — scan-to-map pipeline, scan padding
+  interop   — carry pipeline state between the two packages as numpy
+
+The numpy-only reference modules (config tree, synthetic datasets, metrics)
+are shared by import; nothing here imports jax. Every constructor takes an
+explicit `device`; a CPU tensor runs the plain-torch version of each kernel,
+a CUDA tensor runs the kernel or raises.
+"""
+
+import torch
+
+from tpu_icp_slam.config import (  # noqa: F401
+    ICPConfig,
+    MappingConfig,
+    PipelineConfig,
+    SlamConfig,
+)
+from tpu_icp_slam.datasets import synthetic  # noqa: F401
+from tpu_icp_slam.eval import metrics  # noqa: F401
+
+# Pose math and the k-NN distance matrices must stay in full float32: TF32
+# keeps ~10 mantissa bits, and low-mantissa correspondence selection is how
+# the flagship lap diverged on the reference. The counterpart of the
+# reference's jax_default_matmul_precision="highest" (tpu_icp_slam/core).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")

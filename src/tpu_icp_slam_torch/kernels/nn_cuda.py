@@ -1,0 +1,73 @@
+"""K1: exact brute-force nearest neighbour — CUDA kernel and plain version.
+
+`nn_bruteforce(src, dst)` launches csrc/nn_bruteforce.cu on CUDA tensors
+(the port of tpu_icp_slam/kernels/nn_pallas.py::_nn_kernel, "highest" mode)
+and runs `nn_bruteforce_ref` on CPU tensors. Both score the exact
+difference form Σ(a-b)² and break ties toward the lowest index; see the
+kernel source for how that relates to the reference's factored form.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_icp_slam_torch.kernels import _build
+
+
+def nn_bruteforce_ref(src: torch.Tensor, dst: torch.Tensor,
+                      chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch: (M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32),
+    over (chunk, N) distance tiles."""
+    idx_out, d2_out = [], []
+    for a in torch.split(src, chunk):
+        dx = a[:, None, 0] - dst[None, :, 0]
+        dy = a[:, None, 1] - dst[None, :, 1]
+        dz = a[:, None, 2] - dst[None, :, 2]
+        d = dx * dx + dy * dy + dz * dz  # (chunk, N)
+        d2, idx = torch.min(d, dim=1)  # first minimum on ties
+        idx_out.append(idx.to(torch.int32))
+        d2_out.append(d2)
+    return torch.cat(idx_out), torch.cat(d2_out)
+
+
+def _n_split(m: int, n: int, device: torch.device) -> int:
+    """Target-axis splits so that about four blocks run per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks_x = -(-m // 256)
+    return max(1, min(-(-4 * sms // blocks_x), -(-n // 256)))
+
+
+def nn_bruteforce(src: torch.Tensor, dst: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32): the nearest dst
+    point of every src point. CPU tensors take the plain version."""
+    if src.device.type == "cpu" and dst.device.type == "cpu":
+        return nn_bruteforce_ref(src, dst)
+    for name, t in (("src", src), ("dst", dst)):
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise ValueError(f"nn_bruteforce: {name} must be float32 on CUDA, "
+                             f"got {t.dtype} on {t.device}")
+        if t.dim() != 2 or t.shape[1] != 3 or not t.is_contiguous():
+            raise ValueError(f"nn_bruteforce: {name} must be contiguous "
+                             f"(·, 3), got {tuple(t.shape)}")
+    if src.device != dst.device:
+        raise ValueError("nn_bruteforce: src and dst on different devices")
+    m, n = src.shape[0], dst.shape[0]
+    if m == 0 or n == 0:
+        raise ValueError("nn_bruteforce: empty src or dst")
+    lib = _build.load()
+    s = _n_split(m, n, src.device)
+    part_d2 = torch.empty((s, m), dtype=torch.float32, device=src.device)
+    part_idx = torch.empty((s, m), dtype=torch.int32, device=src.device)
+    d2 = torch.empty(m, dtype=torch.float32, device=src.device)
+    idx = torch.empty(m, dtype=torch.int32, device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = lib.nn_bruteforce_f32(
+        src.data_ptr(), dst.data_ptr(), m, n, s, part_d2.data_ptr(),
+        part_idx.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream)
+    _build.check(err, "nn_bruteforce_f32")
+    nn_bruteforce.launches += 1
+    return idx, d2
+
+
+nn_bruteforce.launches = 0

@@ -1,0 +1,161 @@
+"""The CUDA kernels of the torch port against their plain versions, on the card.
+
+Every test here is marked `cuda` and skips without a CUDA device. The file
+imports no jax, so it also runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_icp_slam_torch import ICPConfig, MappingConfig, PipelineConfig
+from tpu_icp_slam_torch import SlamConfig
+from tpu_icp_slam_torch.kernels import gn_cuda, nn_cuda
+from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel vs plain version on the card)")
+    return torch.device("cuda")
+
+
+def _clouds(m, n, seed, scale):
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-scale, scale, (m, 3)).astype(np.float32)
+    dst = rng.uniform(-scale, scale, (n, 3)).astype(np.float32)
+    return src, dst
+
+
+def _gn_case(m, seed):
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-20, 20, (m, 3)).astype(np.float32)
+    q = (p + 0.1 * rng.standard_normal((m, 3))).astype(np.float32)
+    n = rng.standard_normal((m, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    w = rng.uniform(0, 1, m).astype(np.float32)
+    w[m // 2:] = 0.0
+    return p, q, n, w
+
+
+@pytest.mark.parametrize("m,n", [(16384, 16384), (300, 5000), (4097, 77),
+                                 (1, 1)])
+def test_nn_kernel_matches_plain(cuda_device, m, n):
+    """Index agreement >= 99.9% (the two differ only by FMA rounding on
+    near-ties), d2 to f32 rounding, sentinel rows never picked."""
+    src, dst = _clouds(m, n, seed=m, scale=40.0)
+    n_pad = n // 8
+    if n_pad:
+        dst[-n_pad:] = 1.0e6
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    idx, d2 = nn_cuda.nn_bruteforce(s, d)
+    ridx, rd2 = nn_cuda.nn_bruteforce_ref(s, d)
+    assert idx.dtype == torch.int32 and idx.shape == (m,)
+    assert float((idx == ridx).float().mean()) >= 0.999
+    torch.testing.assert_close(d2, rd2, rtol=1e-6, atol=1e-5)
+    assert int(idx.max()) < n - n_pad
+
+
+def test_nn_kernel_ties_go_to_lowest_index(cuda_device):
+    dst = torch.zeros(5000, 3, device=cuda_device)
+    dst[:, 0] = 5.0
+    dst[[17, 1200, 2500, 4999], 0] = 1.0  # equidistant winners in 3 splits
+    idx, d2 = nn_cuda.nn_bruteforce(torch.zeros(64, 3, device=cuda_device),
+                                    dst)
+    assert torch.all(idx == 17) and torch.all(d2 == 1.0)
+
+
+def test_gn_kernel_matches_plain_and_is_reproducible(cuda_device):
+    p, q, n, w = (torch.from_numpy(a).to(cuda_device)
+                  for a in _gn_case(16384, seed=11))
+    H, g = gn_cuda.gn_accum(p, q, n, w)
+    H_ref, g_ref = gn_cuda.gn_accum_ref(p, q, n, w)
+    # rtol 1e-4 per entry plus 1e-4 of the largest entry: the summation
+    # order differs from the plain matmul, and off-diagonal sums cancel
+    torch.testing.assert_close(H, H_ref, rtol=1e-4,
+                               atol=1e-4 * float(H_ref.abs().max()))
+    torch.testing.assert_close(g, g_ref, rtol=1e-4,
+                               atol=1e-4 * float(g_ref.abs().max()))
+    assert torch.equal(H, H.T)
+    H2, g2 = gn_cuda.gn_accum(p, q, n, w)
+    assert torch.equal(H, H2) and torch.equal(g, g2)
+
+
+def test_wrappers_count_launches(cuda_device):
+    a = torch.rand(100, 3, device=cuda_device)
+    before = (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches)
+    nn_cuda.nn_bruteforce(a, a)
+    gn_cuda.gn_accum(a, a, a, torch.ones(100, device=cuda_device))
+    nn_cuda.nn_bruteforce_ref(a, a)
+    assert (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda_device):
+    a = torch.zeros(8, 3, device=cuda_device)
+    with pytest.raises(ValueError):
+        nn_cuda.nn_bruteforce(a.double(), a)
+    with pytest.raises(ValueError):
+        nn_cuda.nn_bruteforce(a, a.cpu())
+    with pytest.raises(ValueError):
+        nn_cuda.nn_bruteforce(a[:, :2].contiguous(), a)
+    with pytest.raises(ValueError):
+        gn_cuda.gn_accum(a, a, a, torch.ones(7, device=cuda_device))
+    with pytest.raises(ValueError):
+        gn_cuda.gn_accum(a, a.t().contiguous().t(), a,
+                         torch.ones(8, device=cuda_device))
+    with pytest.raises(NotImplementedError):
+        nearest_neighbor(a, a, precision="bf16")
+
+
+def test_pipeline_on_cuda_matches_cpu(cuda_device):
+    """The scan-to-map slice on the card (kernels K1/K2) against the same
+    port on the CPU (their plain versions); K1 and K2 run once per ICP
+    iteration."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
+    from tpu_icp_slam_torch.slam.runner import pad_scans
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    cfg = SlamConfig(
+        icp=ICPConfig(method="point_to_plane", max_iters=15,
+                      max_corr_dist=1.5, damping=1e-3, max_step_trans=1.0,
+                      max_step_rot=0.3, min_inliers=50, huber_delta=0.3),
+        mapping=MappingConfig(map_capacity=32768, local_model_size=4096,
+                              map_voxel=0.3),
+        pipeline=PipelineConfig(mode="scan_to_map", scan_capacity=2048,
+                                keyframe_trans=2.0, keyframe_rot=0.2),
+    )
+    scans, _ = synthetic.velodyne_log(n_frames=8, n_rings=16, n_azimuth=320,
+                                      path_fraction=0.1)
+    pts, msk = pad_scans([voxel_downsample_np(s, 0.4) for s in scans], 2048)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        pipe = ScanToMapPipeline(cfg, device=dev)
+        k0 = (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches)
+        _, infos = pipe.run_fused(pipe.init_state(pts[0], msk[0]), pts[1:],
+                                  msk[1:])
+        launches = (nn_cuda.nn_bruteforce.launches - k0[0],
+                    gn_cuda.gn_accum.launches - k0[1])
+        out[dev.type] = ({k: v.cpu().numpy() for k, v in infos.items()},
+                         launches)
+    (gpu, gpu_launches), (cpu, cpu_launches) = out["cuda"], out["cpu"]
+    n_iters = int(gpu["iters"].sum())
+    assert gpu_launches == (n_iters, n_iters) and cpu_launches == (0, 0)
+    np.testing.assert_allclose(gpu["pose"], cpu["pose"], atol=5e-3)
+    for k in ("is_keyframe", "map_inserted"):
+        np.testing.assert_array_equal(gpu[k], cpu[k])
+    cfg_xla = dataclasses.replace(
+        cfg, icp=dataclasses.replace(cfg.icp, nn_backend="xla",
+                                     gn_backend="xla"))
+    k0 = (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches)
+    pipe = ScanToMapPipeline(cfg_xla, device=cuda_device)
+    pipe.run_fused(pipe.init_state(pts[0], msk[0]), pts[1:3], msk[1:3])
+    assert (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches) == k0
