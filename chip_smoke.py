@@ -19,13 +19,32 @@ nonzero and the final line is not printed:
      to the total ICP iterations of the timed run.
   5. The same pipeline on the card and on the CPU (plain kernel versions)
      on a small log: per-frame poses agree.
+  6. K5's capability probe (the Hopper counterpart of the Mosaic probes
+     P1-P6): cooperative launch support and K5's co-resident grid, then a
+     cooperative kernel with grid syncs in a device-decided loop, a dynamic
+     gather, a running argmin and scalar math, against known answers.
+  7. K3 (nn_bf16) vs its plain version at 16,384 x 16,384, sentinel rows.
+  8. K5 (icp_fused) vs its plain version: one align at the main-path shape
+     (the first frame against the local model of the seeded map), at
+     "highest" and "bf16", with the keyword arguments the main path passes;
+     bit-reproducible across two launches; equal iterations, inliers and
+     convergence, pose and rmse within K5_BOUNDS, and each precision's
+     result rejected by the other precision's bounds.
+  9. The main path with icp.loop_backend="fused" on phase 4's log, at
+     "highest" and "bf16": finite poses, ATE < 0.15 m, one K5 launch per
+     frame and no K1/K2/K3 launch; frames/s and host syncs/frame beside the
+     steps path's.
+ 10. Ten frames of the steps path at nn_precision="bf16": one K3 launch per
+     ICP iteration, no K1.
 
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+Every kernel's launch count is read from the path that runs it, with the
+counts set to 0 just before and read just after. The line before the last
+is a JSON summary of the kernels; the last line is {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -43,14 +62,17 @@ FRAMES = 30
 SCAN_POINTS = 16384
 
 
-def slice_config():
+def slice_config(**icp):
     """The flagship KITTI-scale scan-to-map configuration (bench.py's
-    `_kitti_cfg` with its default environment)."""
+    `_kitti_cfg` with its default environment); keyword arguments replace
+    fields of its ICPConfig."""
+    import dataclasses
+
     from tpu_icp_slam_torch import (
         ICPConfig, MappingConfig, PipelineConfig, SlamConfig,
     )
 
-    return SlamConfig(
+    cfg = SlamConfig(
         icp=ICPConfig(
             method="point_to_plane", max_iters=18, max_corr_dist=1.0,
             damping=1e-3, max_step_trans=1.0, max_step_rot=0.3,
@@ -67,6 +89,7 @@ def slice_config():
             normal_approx=True, normal_oversample=8,
         ),
     )
+    return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, **icp))
 
 
 def _scans(n_frames, n_rings, n_azimuth, path_fraction, voxel, capacity):
@@ -273,6 +296,244 @@ def phase_cpu_agreement():
     assert gap < 5e-3, gap
 
 
+def _counters():
+    from tpu_icp_slam_torch.kernels import gn_cuda, icp_fused, nn_bf16, nn_cuda
+
+    return {"K1": nn_cuda.nn_bruteforce, "K2": gn_cuda.gn_accum,
+            "K3": nn_bf16.nn_bf16, "K5": icp_fused.icp_fused}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {k: fn.launches for k, fn in _counters().items()}
+
+
+def _host_syncs(fn):
+    """Synchronizing CUDA calls made by fn(), as torch's sync debug mode
+    reports them (one warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_probe():
+    from tpu_icp_slam_torch.kernels import coop_probe
+
+    coop_probe.capability_probe.launches = 0
+    t0 = time.perf_counter()
+    got = coop_probe.capability_probe("cuda")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = coop_probe.capability_probe.launches
+    print(f"[K5 probe] cooperative launch ok; co-resident K5 blocks "
+          f"{got['blocks']} (SMs "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count}); "
+          f"checked {', '.join(got['checked'])} | {ms:.3f} ms host")
+    assert launches == 1, launches
+    return {"name": "coop_probe", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/coop_probe.cu",
+            "replaces": "scripts/probe_mosaic_caps.py:38",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": None}
+
+
+def phase_k3(pts, msk):
+    from tpu_icp_slam_torch.kernels import nn_bf16
+
+    dev = torch.device("cuda")
+    src = torch.as_tensor(pts[1], device=dev).contiguous()
+    dst_np = pts[0].copy()
+    dst_np[-1024:] = 1.0e6  # sentinel-padded target rows
+    dst = torch.as_tensor(dst_np, device=dev).contiguous()
+    idx_k, d2_k = nn_bf16.nn_bf16(src, dst)
+    idx_r, d2_r = nn_bf16.nn_bf16_ref(src, dst)
+    # float32 sums of the same 13 exact products: kernel and plain differ by
+    # at most 2 * 13 * 2^-24 * sum|a_k b_k| of the picked pair
+    s, d = nn_bf16.recentre(src, dst)
+    a_aug, b_aug = nn_bf16.pack_source(s).float(), nn_bf16.pack_target(d).float()
+    mag = torch.sum(torch.abs(a_aug * b_aug[idx_r.long()]), dim=1)
+    bound = 2 * 13 * 2.0 ** -24 * mag
+    torch.cuda.synchronize()
+    agree = float((idx_k == idx_r).float().mean())
+    over = float(torch.max(torch.abs(d2_k - d2_r) / bound))
+    err = float(torch.max(torch.abs(d2_k - d2_r)))
+    assert agree >= 0.999, f"K3 index agreement {agree}"
+    assert over <= 1.0, f"K3 score gap {over:.3f} of the summation bound"
+    idx_np = idx_k.cpu().numpy()
+    assert np.all(idx_np[msk[1]] < len(dst_np) - 1024), \
+        "K3 matched a real point to a sentinel row"
+    ms = _median_ms(lambda: nn_bf16.nn_bf16(src, dst))
+    plain_ms = _median_ms(lambda: nn_bf16.nn_bf16_ref(src, dst), 10)
+    print(f"[K3 nn_bf16] M=N={len(dst_np)} idx agree {agree:.6f} "
+          f"max |d2 - plain| {err:.3e} ({over:.3f} of the float32 sum "
+          f"bound) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"name": "nn_bf16", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/nn_bf16.cu",
+            "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:111",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _first_align_problem(pts, msk):
+    """Frame 1 against the local model of the map seeded with frame 0, as
+    the main path's first align sees them."""
+    from tpu_icp_slam_torch.mapping import voxel_map
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    cfg = slice_config()
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    state = pipe.init_state(pts[0], msk[0])
+    loc, nrm, lmsk, r_cover = voxel_map.extract_local(
+        state.vmap, torch.zeros(3, device="cuda"),
+        cfg.mapping.local_model_size)
+    src = torch.as_tensor(pts[1], device="cuda")
+    smask = torch.as_tensor(msk[1], device="cuda")
+    r_gate = torch.clamp(r_cover - cfg.icp.max_corr_dist, min=0.0)
+    return (src, smask, loc, nrm, lmsk), r_gate
+
+
+# Largest gaps of K5 from its plain version that phase 8 accepts: ~100x the
+# pose gaps (4.9e-7 m at highest, 6.8e-6 m at bf16) and >= 25x the rmse gaps
+# seen at this shape on an H100. The two differ only in the order of float32
+# sums, so iterations, inliers and convergence must be equal.
+K5_BOUNDS = {"highest": {"trans_m": 5e-5, "rot_rad": 5e-5, "rmse_m": 1e-5},
+             "bf16": {"trans_m": 5e-4, "rot_rad": 5e-4, "rmse_m": 1e-4}}
+
+
+def _k5_gaps(out, ref):
+    """Translation (m), rotation (rad) and rmse gaps of one K5 result from
+    another, in float64 (arctan2 keeps small angles exact)."""
+    T, Tr = out[0].double().cpu(), ref[0].double().cpu()
+    dR = T[:3, :3].T @ Tr[:3, :3]
+    sin = 0.5 * torch.linalg.vector_norm(torch.stack(
+        [dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]))
+    cos = 0.5 * (torch.trace(dR) - 1.0)
+    return {"trans_m": float(torch.linalg.vector_norm(T[:3, 3] - Tr[:3, 3])),
+            "rot_rad": float(torch.atan2(sin, cos)),
+            "rmse_m": abs(float(out[1]) - float(ref[1]))}
+
+
+def _k5_mismatches(out, ref, prec):
+    """The checks of phase 8 at `prec` that `out` fails against `ref`."""
+    gaps = _k5_gaps(out, ref)
+    bad = [k for k, bound in K5_BOUNDS[prec].items() if not gaps[k] <= bound]
+    bad += [k for k, i in (("iters", 2), ("inliers", 3), ("converged", 4))
+            if int(out[i]) != int(ref[i])]
+    return bad
+
+
+def phase_k5(pts, msk):
+    from tpu_icp_slam_torch.kernels import icp_fused
+
+    args, r_gate = _first_align_problem(pts, msk)
+    rows, results = [], {}
+    for prec in ("highest", "bf16"):
+        precision, kw = icp_fused.fused_args(
+            slice_config(loop_backend="fused", nn_precision=prec).icp)
+        run = lambda: icp_fused.icp_fused(*args, r_gate=r_gate,
+                                          precision=precision, **kw)
+        plain = lambda: icp_fused.icp_fused_ref(*args, r_gate=r_gate,
+                                                precision=precision, **kw)
+        out = run()
+        T2 = run()[0]
+        ref = plain()
+        torch.cuda.synchronize()
+        results[prec] = out, ref
+        assert torch.equal(out[0], T2), f"K5 {prec} is not bit-reproducible"
+        assert torch.isfinite(out[0]).all(), f"K5 {prec} non-finite pose"
+        gaps = _k5_gaps(out, ref)
+        err = float(torch.max(torch.abs(out[0] - ref[0])))
+        ms = _median_ms(run, 10)
+        plain_ms = _median_ms(plain, 3)
+        print(f"[K5 icp_fused {prec}] M={args[0].shape[0]} "
+              f"N={args[2].shape[0]} iters {int(out[2])} (plain "
+              f"{int(ref[2])}) inliers {int(out[3])} ({int(ref[3])}) rmse "
+              f"{float(out[1]):.9f} ({float(ref[1]):.9f}) converged "
+              f"{bool(out[4])} ({bool(ref[4])}) | gaps "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} "
+              f"(bounds {K5_BOUNDS[prec]}), max |T - plain| {err:.3e} | "
+              f"kernel {ms:.4f} ms/align, plain {plain_ms:.4f} ms/align")
+        bad = _k5_mismatches(out, ref, prec)
+        assert not bad, f"K5 {prec} disagrees with its plain version: {bad}"
+        rows.append({"name": f"icp_fused[{prec}]", "route": "cuda",
+                     "source": "src/tpu_icp_slam_torch/csrc/icp_fused.cu",
+                     "replaces":
+                         "src/tpu_icp_slam/kernels/icp_fused_pallas.py:288",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    # the bounds tell the precisions apart: each kernel's result fails
+    # against the other precision's plain version
+    for prec, other in (("highest", "bf16"), ("bf16", "highest")):
+        bad = _k5_mismatches(results[prec][0], results[other][1], other)
+        print(f"[K5 bounds] {prec} kernel vs {other} plain at {other}'s "
+              f"bounds: rejected by {bad}")
+        assert bad, f"K5 {other} bounds accept the {prec} kernel's result"
+    return rows
+
+
+def _run_slice(cfg, pts, msk, gt, label):
+    """Warm-up run, then a timed run with every launch count set to 0
+    just before it; returns the counts, frames/s and ATE."""
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    state0 = pipe.init_state(pts[0], msk[0])
+    pipe.run_fused(state0, pts[1:], msk[1:])  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    _, infos = pipe.run_fused(state0, pts[1:], msk[1:])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    n_frames = len(pts) - 1
+    syncs = _host_syncs(lambda: pipe.run_fused(state0, pts[1:6], msk[1:6]))
+    poses = np.concatenate(
+        [np.eye(4)[None], infos["pose"].cpu().numpy().astype(np.float64)])
+    iters = infos["iters"].cpu().numpy()
+    ate = _ate(poses, gt)
+    print(f"[{label}] {n_frames} frames in {dt:.4f} s = "
+          f"{n_frames / dt:.3f} frames/s | mean ICP iters "
+          f"{iters.mean():.3f} | host syncs/frame {syncs / 5:.3f} (sync "
+          f"debug mode, frames 1-5) | keyframes "
+          f"{int(infos['is_keyframe'].sum())} | map inserts "
+          f"{int(infos['map_inserted'].sum())} | ATE {ate:.5f} m | "
+          f"launches {counts}")
+    assert np.isfinite(poses).all(), f"{label}: non-finite pose"
+    assert ate < 0.15, f"{label}: ATE {ate} m"
+    return counts, int(iters.sum()), n_frames
+
+
+def phase_fused_slice(pts, msk, gt):
+    counts = {}
+    for prec in ("highest", "bf16"):
+        c, _, n_frames = _run_slice(
+            slice_config(loop_backend="fused", nn_precision=prec), pts, msk,
+            gt, f"fused slice {prec}")
+        assert c == {"K1": 0, "K2": 0, "K3": 0, "K5": n_frames}, (prec, c)
+        counts[prec] = c["K5"]
+    _run_slice(slice_config(), pts[:6], msk[:6], gt,
+               "steps slice highest, 5 frames, for its host syncs")
+    return counts
+
+
+def phase_steps_bf16(pts, msk, gt):
+    c, iters, _ = _run_slice(slice_config(nn_precision="bf16"), pts[:11],
+                             msk[:11], gt, "steps slice bf16")
+    assert c["K3"] == c["K2"] == iters > 0 and c["K1"] == c["K5"] == 0, c
+    return c["K3"]
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -283,7 +544,15 @@ def main() -> int:
     k1, k2 = phase_slice(pts, msk, gt)
     phase_cpu_agreement()
     k1_row["launches"], k2_row["launches"] = k1, k2
-    print(json.dumps({"kernels": [k1_row, k2_row]}))
+    probe_row = phase_probe()
+    k3_row = phase_k3(pts, msk)
+    k5_rows = phase_k5(pts, msk)
+    k5_launches = phase_fused_slice(pts, msk, gt)
+    for row, prec in zip(k5_rows, ("highest", "bf16")):
+        row["launches"] = k5_launches[prec]
+    k3_row["launches"] = phase_steps_bf16(pts, msk, gt)
+    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, *k5_rows,
+                                  probe_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

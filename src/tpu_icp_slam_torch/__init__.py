@@ -1,13 +1,16 @@
 """tpu_icp_slam_torch — the PyTorch/CUDA port of tpu_icp_slam for NVIDIA Hopper.
 
 The JAX package `tpu_icp_slam` is the reference; this package reproduces its
-3D scan-to-map main path in PyTorch, with the two Pallas kernels of that path
-(brute-force NN, Gauss-Newton accumulation) rewritten as CUDA C++ kernels for
-sm_90a (`csrc/`, built on first use by `kernels/_build.py`).
+3D scan-to-map path in PyTorch, on both ICP loop backends, with the Pallas
+kernels of that path rewritten as CUDA C++ kernels for sm_90a (`csrc/`,
+built on first use by `kernels/_build.py`).
 
 Layers, mirroring the reference:
   core/     — SE(3) algebra, padded point clouds
-  kernels/  — CUDA kernels K1 (NN) and K2 (GN) + their plain-torch versions
+  kernels/  — CUDA kernels and their plain-torch versions: K1 exact NN, K2
+              GN accumulation (the steps loop), K3 bf16 packed NN
+              (nn_precision="bf16"), K5 the whole fused ICP loop
+              (icp.loop_backend="fused") and its capability probe
   icp/      — point-to-plane Gauss-Newton step and the ICP loop
   mapping/  — voxel map, k-NN normals
   slam/     — scan-to-map pipeline, scan padding

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "nn_fold.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -88,25 +90,6 @@ nn_split_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     part_d2[(size_t)split * m + row] = best;
     part_idx[(size_t)split * m + row] = best_idx;
   }
-}
-
-__global__ void nn_fold_kernel(const float* __restrict__ part_d2,
-                               const int* __restrict__ part_idx, int m,
-                               int n_split, float* __restrict__ d2,
-                               int* __restrict__ idx) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  float best = part_d2[row];
-  int best_idx = part_idx[row];
-  for (int s = 1; s < n_split; ++s) {
-    const float d = part_d2[(size_t)s * m + row];
-    if (d < best) {
-      best = d;
-      best_idx = part_idx[(size_t)s * m + row];
-    }
-  }
-  d2[row] = best;
-  idx[row] = best_idx;
 }
 
 }  // namespace

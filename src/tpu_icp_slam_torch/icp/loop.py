@@ -24,7 +24,7 @@ from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
 class ICPResult:
     T: torch.Tensor  # (4, 4) transform: dst_frame <- src_frame
     rmse: torch.Tensor  # inlier RMS correspondence distance at convergence
-    iters: int  # iterations executed
+    iters: int | torch.Tensor  # iterations executed (a tensor from K5)
     n_inliers: torch.Tensor  # gated correspondences in the final iteration
     converged: torch.Tensor  # bool: tol reached before max_iters
 
@@ -95,13 +95,14 @@ def align_with_correspondence(src: PointCloud, corr_fn: Callable,
     use_prior = cfg.prior_trans_weight > 0.0 or cfg.prior_rot_weight > 0.0
     T0_inv = (torch.linalg.inv_ex(T0)[0]
               if (use_prior or trust_region) else None)
-    prior_scale = torch.tensor(
-        [cfg.prior_trans_weight] * 3 + [cfg.prior_rot_weight] * 3,
-        dtype=dtype, device=dev)
+    # filled on the device: a tensor from a host list would sync the stream
+    prior_scale = torch.full((6,), cfg.prior_trans_weight, dtype=dtype,
+                             device=dev)
+    prior_scale[3:] = cfg.prior_rot_weight
     min_inl = max(cfg.min_inliers, 4)
 
     T = T0
-    prev_rmse = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    prev_rmse = torch.full((), float("inf"), dtype=dtype, device=dev)
     n_inl = torch.zeros((), dtype=torch.int32, device=dev)
     converged = torch.zeros((), dtype=torch.bool, device=dev)
     it = 0

@@ -3,10 +3,10 @@
 All `csrc/*.cu` files are compiled by nvcc for sm_90a into one shared
 library with a plain C interface, loaded with ctypes (no PyTorch headers, so
 the build takes seconds). The library lands in
-`build/tpu_icp_slam_torch/<sha256 of sources and flags>/libkernels.so` at
-the checkout root and is reused while the sources are unchanged. A missing
-nvcc or a failed build raises with the compiler's output: nothing runs
-without the kernels.
+`build/tpu_icp_slam_torch/<sha256 of sources, headers and flags>/libkernels.so`
+at the checkout root and is reused while the sources and the shared headers
+(`csrc/*.cuh`) are unchanged. A missing nvcc or a failed build raises
+with the compiler's output: nothing runs without the kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -51,7 +53,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *_CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_ROOT / h.hexdigest() / "libkernels.so"
@@ -89,6 +91,18 @@ def load() -> ctypes.CDLL:
             lib.gn_accum_f32.argtypes = [
                 ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr]
             lib.gn_accum_f32.restype = i32
+            lib.nn_bf16_f32.argtypes = [
+                ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+            lib.nn_bf16_f32.restype = i32
+            lib.icp_fused_max_blocks.argtypes = [i32, ptr]
+            lib.icp_fused_max_blocks.restype = i32
+            lib.icp_fused_f32.argtypes = [
+                ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr,
+                ptr, ptr]
+            lib.icp_fused_f32.restype = i32
+            lib.coop_probe_f32.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
+                                           ptr]
+            lib.coop_probe_f32.restype = i32
             _lib = lib
         return _lib
 
@@ -97,3 +111,20 @@ def check(err: int, name: str) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def require_points(name: str, **clouds: torch.Tensor) -> None:
+    """Raise unless every cloud is a non-empty contiguous (·, 3) float32
+    tensor on one CUDA device: what the kernels take."""
+    device = next(iter(clouds.values())).device
+    for arg, t in clouds.items():
+        if t.device.type != "cuda" or t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be float32 on CUDA, "
+                             f"got {t.dtype} on {t.device}")
+        if t.dim() != 2 or t.shape[1] != 3 or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous (·, 3), got "
+                             f"{tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name}: inputs on different devices")
+        if t.shape[0] == 0:
+            raise ValueError(f"{name}: {arg} is empty")

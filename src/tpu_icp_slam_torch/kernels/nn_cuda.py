@@ -43,18 +43,8 @@ def nn_bruteforce(src: torch.Tensor, dst: torch.Tensor
     point of every src point. CPU tensors take the plain version."""
     if src.device.type == "cpu" and dst.device.type == "cpu":
         return nn_bruteforce_ref(src, dst)
-    for name, t in (("src", src), ("dst", dst)):
-        if t.device.type != "cuda" or t.dtype != torch.float32:
-            raise ValueError(f"nn_bruteforce: {name} must be float32 on CUDA, "
-                             f"got {t.dtype} on {t.device}")
-        if t.dim() != 2 or t.shape[1] != 3 or not t.is_contiguous():
-            raise ValueError(f"nn_bruteforce: {name} must be contiguous "
-                             f"(·, 3), got {tuple(t.shape)}")
-    if src.device != dst.device:
-        raise ValueError("nn_bruteforce: src and dst on different devices")
+    _build.require_points("nn_bruteforce", src=src, dst=dst)
     m, n = src.shape[0], dst.shape[0]
-    if m == 0 or n == 0:
-        raise ValueError("nn_bruteforce: empty src or dst")
     lib = _build.load()
     s = _n_split(m, n, src.device)
     part_d2 = torch.empty((s, m), dtype=torch.float32, device=src.device)

@@ -8,8 +8,11 @@ Per frame:
     → on map inserts only: k-NN normals + voxel-dedup insert of the scan.
 
 The reference's two `lax.cond`s (re-extract with hysteresis, map insert)
-become host branches, and its ICP `lax.while_loop` a host loop: one host
-sync per ICP iteration plus one per frame (two with extract hysteresis).
+become host branches. Its ICP runs one of two ways, as in the reference:
+`icp.loop_backend="steps"` is a host loop (one host sync per ICP iteration);
+`"fused"` (for point-to-plane without degen_eps or corr_range_rate) is one
+launch of the whole-loop kernel K5 with no host sync. Either way one more
+host sync per frame decides the map insert (two with extract hysteresis).
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ from tpu_icp_slam.config import SlamConfig
 from tpu_icp_slam_torch.core import se3
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD, PointCloud
 from tpu_icp_slam_torch.icp.loop import (
+    ICPResult,
     _nn_correspondence,
     align_with_correspondence,
 )
+from tpu_icp_slam_torch.kernels.icp_fused import fused_args, icp_fused
 from tpu_icp_slam_torch.mapping import voxel_map
 from tpu_icp_slam_torch.mapping.normals import normals_knn
 
@@ -47,10 +52,6 @@ class MapOdomState:
 
 
 def _check_supported(cfg: SlamConfig) -> None:
-    if cfg.icp.loop_backend == "fused":
-        raise NotImplementedError(
-            "icp.loop_backend='fused' needs the whole-loop ICP kernel, which "
-            "is not ported yet")
     if cfg.mapping.insert_backend == "hash":
         raise NotImplementedError("mapping.insert_backend='hash' is not "
                                   "ported yet")
@@ -127,9 +128,8 @@ def _predict(state: MapOdomState, cfg: SlamConfig) -> torch.Tensor:
         return state.pose @ state.T_rel
     if alpha <= 0.0 and alpha_r <= 0.0:
         return state.pose
-    scale = torch.tensor([alpha] * 3 + [alpha_r] * 3, dtype=torch.float32,
-                         device=state.pose.device)
-    return state.pose @ se3.exp(scale * se3.log(state.T_rel))
+    xi = se3.log(state.T_rel)
+    return state.pose @ se3.exp(torch.cat([alpha * xi[:3], alpha_r * xi[3:]]))
 
 
 def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
@@ -163,19 +163,29 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
     loc_local = torch.where(loc_msk[:, None], loc_local,
                             torch.full_like(loc_local, PAD_COORD))
     nrm_local = loc_nrm @ init_inv[:3, :3].T
-    dst = PointCloud(points=loc_local, mask=loc_msk, normals=nrm_local)
-    src = PointCloud(points=points, mask=mask)
     # coverage gate: scan points beyond the model's guaranteed radius have
     # no genuine counterpart and would latch onto its boundary
     r_gate = torch.clamp(r_cover - stale_off - ic.max_corr_dist, min=0.0)
-    nn_corr = _nn_correspondence(ic, dst)
+    if (ic.loop_backend == "fused" and ic.method == "point_to_plane"
+            and ic.degen_eps == 0.0 and ic.corr_range_rate == 0.0):
+        # whole-loop kernel K5: one launch per align
+        precision, kw = fused_args(ic)
+        T, rmse, iters, n_inl, conv = icp_fused(
+            points, mask, loc_local, nrm_local, loc_msk, init_T=None,
+            r_gate=r_gate, precision=precision, **kw)
+        res = ICPResult(T=T, rmse=rmse, iters=iters, n_inliers=n_inl,
+                        converged=conv)
+    else:
+        dst = PointCloud(points=loc_local, mask=loc_msk, normals=nrm_local)
+        nn_corr = _nn_correspondence(ic, dst)
 
-    def corr(cur_pts):
-        q, n, gate, d2 = nn_corr(cur_pts)
-        in_cover = torch.sum(cur_pts * cur_pts, dim=-1) <= r_gate * r_gate
-        return q, n, gate * in_cover.to(gate.dtype), d2
+        def corr(cur_pts):
+            q, n, gate, d2 = nn_corr(cur_pts)
+            in_cover = torch.sum(cur_pts * cur_pts, dim=-1) <= r_gate * r_gate
+            return q, n, gate * in_cover.to(gate.dtype), d2
 
-    res = align_with_correspondence(src, corr, None, ic)
+        res = align_with_correspondence(PointCloud(points=points, mask=mask),
+                                        corr, None, ic)
     pose = init @ res.T  # world pose = prediction ∘ sensor-frame correction
     T_rel = se3.inverse(state.pose) @ pose
 

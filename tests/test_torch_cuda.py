@@ -14,7 +14,13 @@ import torch
 
 from tpu_icp_slam_torch import ICPConfig, MappingConfig, PipelineConfig
 from tpu_icp_slam_torch import SlamConfig
-from tpu_icp_slam_torch.kernels import gn_cuda, nn_cuda
+from tpu_icp_slam_torch.kernels import (
+    coop_probe,
+    gn_cuda,
+    icp_fused,
+    nn_bf16,
+    nn_cuda,
+)
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
 
 pytestmark = pytest.mark.cuda
@@ -111,8 +117,144 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):
         gn_cuda.gn_accum(a, a.t().contiguous().t(), a,
                          torch.ones(8, device=cuda_device))
-    with pytest.raises(NotImplementedError):
-        nearest_neighbor(a, a, precision="bf16")
+    with pytest.raises(ValueError):
+        nn_bf16.nn_bf16(a, a.cpu())
+    with pytest.raises(ValueError):
+        nn_bf16.nn_bf16(a.t().contiguous().t(), a)
+    with pytest.raises(NotImplementedError):  # K4 is not ported
+        nearest_neighbor(a, a, backend="pallas", precision="rescore")
+    ones = torch.ones(8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        icp_fused.icp_fused(a, ones, a.cpu(), a, ones)
+    with pytest.raises(ValueError):
+        icp_fused.icp_fused(a, ones.cpu(), a, a, ones)
+    with pytest.raises(ValueError):
+        icp_fused.icp_fused(a, ones, a, a.t().contiguous().t(), ones)
+
+
+@pytest.mark.parametrize("m,n", [(16384, 16384), (300, 5000), (1, 1)])
+def test_nn_bf16_kernel_matches_plain(cuda_device, m, n):
+    """K3 and its plain version sum the same exact bf16 products in float32
+    in different orders: scores within 2·13·2⁻²⁴·Σ|a_k·b_k|, indices equal
+    but for near-ties, sentinel rows never picked."""
+    src, dst = _clouds(m, n, seed=m, scale=40.0)
+    n_pad = n // 8
+    if n_pad:
+        dst[-n_pad:] = 1.0e6
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    idx, d2 = nn_bf16.nn_bf16(s, d)
+    ridx, rd2 = nn_bf16.nn_bf16_ref(s, d)
+    assert idx.dtype == torch.int32 and idx.shape == (m,)
+    assert float((idx == ridx).float().mean()) >= 0.999
+    sc, dc = nn_bf16.recentre(s, d)
+    mag = torch.sum(torch.abs(nn_bf16.pack_source(sc).float()
+                              * nn_bf16.pack_target(dc).float()[ridx.long()]),
+                    dim=1)
+    assert torch.all(torch.abs(d2 - rd2) <= 2 * 13 * 2.0 ** -24 * mag)
+    assert int(idx.max()) < n - n_pad
+
+
+def _align_problem(device, seed=0, m=4096, n=6144):
+    """Two walls and a floor (tests/test_icp_fused.py's _problem, larger),
+    the scan a noisy subset moved by a known transform."""
+    rng = np.random.default_rng(seed)
+    k = n // 3
+    dst = np.concatenate([
+        np.c_[rng.uniform(-8, 8, k), rng.uniform(-8, 8, k), np.zeros(k)],
+        np.c_[np.full(k, 8.0), rng.uniform(-8, 8, k), rng.uniform(0, 4, k)],
+        np.c_[rng.uniform(-8, 8, n - 2 * k), np.full(n - 2 * k, -8.0),
+              rng.uniform(0, 4, n - 2 * k)]]).astype(np.float32)
+    nrm = np.zeros_like(dst)
+    nrm[:k, 2] = 1.0
+    nrm[k:2 * k, 0] = -1.0
+    nrm[2 * k:, 1] = 1.0
+    ang = 0.05
+    R = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0],
+                  [0, 0, 1]], np.float32)
+    t = np.array([0.3, -0.2, 0.1], np.float32)
+    src = (dst[rng.permutation(n)[:m]] - t) @ R  # = R^T (x - t)
+    src += rng.normal(size=src.shape).astype(np.float32) * 0.005
+    smask = np.ones(m, bool)
+    smask[-m // 8:] = False
+    dst[-32:] = 1.0e6  # padded model rows
+    dmask = np.ones(n, bool)
+    dmask[-32:] = False
+    args = tuple(torch.from_numpy(a).to(device)
+                 for a in (src, smask, dst, nrm, dmask))
+    kw = dict(max_iters=18, tol=1e-5, tol_update=0.01, max_corr_dist=1.0,
+              huber_delta=0.3, damping=1e-3, step_scale=1.4,
+              max_step_trans=1.0, max_step_rot=0.3, min_inliers=100,
+              prior_trans_weight=0.004, prior_rot_weight=0.04,
+              max_total_trans=1.5, max_total_rot=0.5)
+    return args, kw
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_icp_fused_kernel_matches_plain(cuda_device, precision):
+    """K5 against its plain version on the card: the same pose up to float32
+    summation order (5e-4 m / rad), one launch per align, bit-reproducible
+    across launches."""
+    args, kw = _align_problem(cuda_device)
+    r_gate = torch.tensor(30.0, device=cuda_device)
+    before = icp_fused.icp_fused.launches
+    T, rmse, it, inl, conv = icp_fused.icp_fused(
+        *args, r_gate=r_gate, precision=precision, **kw)
+    T2, rmse2, *_ = icp_fused.icp_fused(*args, r_gate=r_gate,
+                                        precision=precision, **kw)
+    assert icp_fused.icp_fused.launches == before + 2
+    Tr, rmse_r, it_r, inl_r, conv_r = icp_fused.icp_fused_ref(
+        *args, r_gate=r_gate, precision=precision, **kw)
+    assert torch.equal(T, T2) and torch.equal(rmse, rmse2)
+    assert it.dtype == torch.int32 and conv.dtype == torch.bool
+    assert float(torch.max(torch.abs(T - Tr))) < 5e-4
+    assert abs(float(rmse) - float(rmse_r)) < 1e-4
+    assert abs(int(inl) - int(inl_r)) <= 0.01 * int(inl_r)
+    assert abs(int(it) - int(it_r)) <= 1
+
+
+def test_capability_probe(cuda_device):
+    got = coop_probe.capability_probe(cuda_device)
+    assert got["blocks"]["highest"] >= 1 and got["blocks"]["bf16"] >= 1
+
+
+def test_fused_pipeline_on_cuda_matches_cpu(cuda_device):
+    """loop_backend="fused" on the card (K5) against the port on the CPU
+    (its plain version): one K5 launch per frame and no K1, K2 or K3."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
+    from tpu_icp_slam_torch.slam.runner import pad_scans
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    cfg = SlamConfig(
+        icp=ICPConfig(method="point_to_plane", max_iters=15,
+                      max_corr_dist=1.5, damping=1e-3, max_step_trans=1.0,
+                      max_step_rot=0.3, min_inliers=50, huber_delta=0.3,
+                      loop_backend="fused"),
+        mapping=MappingConfig(map_capacity=32768, local_model_size=4096,
+                              map_voxel=0.3),
+        pipeline=PipelineConfig(mode="scan_to_map", scan_capacity=2048,
+                                keyframe_trans=2.0, keyframe_rot=0.2),
+    )
+    scans, _ = synthetic.velodyne_log(n_frames=8, n_rings=16, n_azimuth=320,
+                                      path_fraction=0.1)
+    pts, msk = pad_scans([voxel_downsample_np(s, 0.4) for s in scans], 2048)
+    out = {}
+    kernels = (nn_cuda.nn_bruteforce, gn_cuda.gn_accum, nn_bf16.nn_bf16,
+               icp_fused.icp_fused)
+    for dev in (cuda_device, torch.device("cpu")):
+        pipe = ScanToMapPipeline(cfg, device=dev)
+        k0 = [k.launches for k in kernels]
+        _, infos = pipe.run_fused(pipe.init_state(pts[0], msk[0]), pts[1:],
+                                  msk[1:])
+        out[dev.type] = ({k: v.cpu().numpy() for k, v in infos.items()},
+                         [k.launches - b for k, b in zip(kernels, k0)])
+    (gpu, gpu_launches), (cpu, cpu_launches) = out["cuda"], out["cpu"]
+    assert gpu_launches == [0, 0, 0, len(pts) - 1]
+    assert cpu_launches == [0, 0, 0, 0]
+    assert gpu["iters"].dtype.kind == "i"
+    np.testing.assert_allclose(gpu["pose"], cpu["pose"], atol=5e-3)
+    for k in ("is_keyframe", "map_inserted"):
+        np.testing.assert_array_equal(gpu[k], cpu[k])
 
 
 def test_pipeline_on_cuda_matches_cpu(cuda_device):

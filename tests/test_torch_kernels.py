@@ -147,15 +147,22 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(tmp_path, monkeypatch):
     assert path.name == "libkernels.so"
     assert path.parent.parent.name == "tpu_icp_slam_torch"
     assert path.parents[2].name == "build"
-    assert {s.name for s in _build.sources()} == {"nn_bruteforce.cu",
-                                                  "gn_accum.cu"}
+    assert {s.name for s in _build.sources()} == {
+        "nn_bruteforce.cu", "gn_accum.cu", "nn_bf16.cu", "icp_fused.cu",
+        "coop_probe.cu"}
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "k.cu").write_text("// a\n")
+    (src / "shared.cuh").write_text("// a\n")
     monkeypatch.setattr(_build, "_CSRC", src)
     a = _build.library_path()
     (src / "k.cu").write_text("// b\n")
-    assert _build.library_path() != a
+    b = _build.library_path()
+    assert b != a
+    # a shared header is not compiled on its own, but keys the library
+    assert [s.name for s in _build.sources()] == ["k.cu"]
+    (src / "shared.cuh").write_text("// b\n")
+    assert _build.library_path() != b
     monkeypatch.setattr(_build, "_BUILD_ROOT", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)

@@ -155,7 +155,6 @@ def test_streaming_steps_equal_run_fused():
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("icp", "loop_backend", "fused"),
     ("mapping", "insert_backend", "hash"),
     ("mapping", "extract_approx", True),
 ])
@@ -194,7 +193,7 @@ def test_port_imports_without_jax():
 
 def test_port_sources_never_import_jax():
     files = list((ROOT / "src" / "tpu_icp_slam_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
     ref_import = re.compile(r"^\s*(import|from)\s+tpu_icp_slam\b(?!_)", re.M)
     assert len(files) > 10
@@ -216,6 +215,48 @@ def test_chip_smoke_refuses_to_run_without_cuda(where, tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_ab_refuses_to_run_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_ab.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"done"' not in proc.stdout
+
+
+@pytest.mark.parametrize("change", ["none", "trans", "rot", "rmse", "iters",
+                                    "inliers", "converged"])
+def test_chip_smoke_k5_checks_reject_each_mismatch(change):
+    """Phase 8's comparison of K5 with its plain version fails on a gap
+    just past each bound, and on any difference in the counts."""
+    from tpu_icp_slam_torch.core import se3
+
+    smoke = _load_module("chip_smoke_for_k5_test", ROOT / "chip_smoke.py")
+    ref = (torch.eye(4), torch.tensor(0.15), torch.tensor(4, dtype=torch.int32),
+           torch.tensor(16199, dtype=torch.int32), torch.tensor(True))
+    for prec, b in smoke.K5_BOUNDS.items():
+        xi = torch.zeros(6, dtype=torch.float64)
+        rmse, iters, inl, conv = ref[1], ref[2], ref[3], ref[4]
+        if change == "trans":
+            xi[0] = 2 * b["trans_m"]
+        elif change == "rot":
+            xi[5] = 2 * b["rot_rad"]
+        elif change == "rmse":
+            rmse = rmse + 2 * b["rmse_m"]
+        elif change == "iters":
+            iters = iters + 1
+        elif change == "inliers":
+            inl = inl - 1
+        elif change == "converged":
+            conv = ~conv
+        out = (se3.exp(xi).float(), rmse, iters, inl, conv)
+        bad = smoke._k5_mismatches(out, ref, prec)
+        expected = [] if change == "none" else [
+            {"trans": "trans_m", "rot": "rot_rad", "rmse": "rmse_m"}.get(
+                change, change)]
+        assert bad == expected, (prec, bad)
 
 
 def test_chip_smoke_config_is_the_bench_flagship(monkeypatch):
