@@ -36,6 +36,17 @@ nonzero and the final line is not printed:
      steps path's.
  10. Ten frames of the steps path at nn_precision="bf16": one K3 launch per
      ICP iteration, no K1.
+ 11. K4 (nn_rescore) vs its plain version at 16,384 x 16,384, sentinel rows.
+ 12. K1's batched form (loop-closure verification) vs its plain version at
+     B = 16 (two targets, eight yaws each), M = N = 16,384, and B = 1 bit
+     for bit equal to phase 2's unbatched call.
+ 13. The slice of full SLAM: Slam3D.run(mode="fused") with
+     configs/kitti_full_res.json at nn_precision="rescore" (front end, loop
+     closure, pose graph) on a 180-frame loop log at full width; finite
+     poses, >= 1 accepted closure, ATE < 0.5 m, K4 launches = the front
+     end's ICP iterations, K3 = K5 = 0, and every K1 launch a batched
+     verification launch, as many as the batched iterations verification
+     ran.
 
 Every kernel's launch count is read from the path that runs it, with the
 counts set to 0 just before and read just after. The line before the last
@@ -46,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -60,6 +72,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 FRAMES = 30
 SCAN_POINTS = 16384
+# The compact loop route of scripts/exp_loop.py: ~100 m, back to the start.
+LOOP_WAYPOINTS = [(-36, -4), (-12, -4), (-4, -4), (-2, 2), (-4, 13),
+                  (-20, 13), (-34, 12), (-38, 4), (-35, -3.6), (-28, -4)]
+# 0.56 m/frame. At 90 frames (1.13 m/frame) the route's first corner turns
+# 29.5 degrees in one frame and the preset's front end (1.0 m gate, no
+# range-rate allowance) loses track there at "highest" and "rescore" alike
+# (front-end ATE 2.5 m and 3.0 m on an H100); at 180 frames it tracks.
+LOOP_FRAMES = 180
 
 
 def slice_config(**icp):
@@ -92,14 +112,15 @@ def slice_config(**icp):
     return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, **icp))
 
 
-def _scans(n_frames, n_rings, n_azimuth, path_fraction, voxel, capacity):
+def _scans(n_frames, n_rings, n_azimuth, path_fraction, voxel, capacity,
+           waypoints=None):
     from tpu_icp_slam_torch import synthetic
     from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
     from tpu_icp_slam_torch.slam.runner import pad_scans
 
     scans, gt = synthetic.velodyne_log(
         n_frames=n_frames, n_rings=n_rings, n_azimuth=n_azimuth,
-        path_fraction=path_fraction)
+        path_fraction=path_fraction, waypoints=waypoints)
     scans = [voxel_downsample_np(s, voxel) for s in scans]
     pts, msk = pad_scans(scans, capacity)
     return pts, msk, gt
@@ -188,7 +209,7 @@ def phase_k1(pts, msk):
     return {"name": "nn_bruteforce", "route": "cuda",
             "source": "src/tpu_icp_slam_torch/csrc/nn_bruteforce.cu",
             "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:111",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, src
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}, src, dst
 
 
 def phase_k2(p, valid):
@@ -297,15 +318,19 @@ def phase_cpu_agreement():
 
 
 def _counters():
-    from tpu_icp_slam_torch.kernels import gn_cuda, icp_fused, nn_bf16, nn_cuda
+    from tpu_icp_slam_torch.kernels import (
+        gn_cuda, icp_fused, nn_bf16, nn_cuda, nn_rescore,
+    )
 
     return {"K1": nn_cuda.nn_bruteforce, "K2": gn_cuda.gn_accum,
-            "K3": nn_bf16.nn_bf16, "K5": icp_fused.icp_fused}
+            "K3": nn_bf16.nn_bf16, "K4": nn_rescore.nn_rescore,
+            "K5": icp_fused.icp_fused}
 
 
 def _zero_counts():
     for fn in _counters().values():
         fn.launches = 0
+    _counters()["K1"].batched_launches = 0
 
 
 def _counts():
@@ -520,7 +545,8 @@ def phase_fused_slice(pts, msk, gt):
         c, _, n_frames = _run_slice(
             slice_config(loop_backend="fused", nn_precision=prec), pts, msk,
             gt, f"fused slice {prec}")
-        assert c == {"K1": 0, "K2": 0, "K3": 0, "K5": n_frames}, (prec, c)
+        assert c == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": n_frames}, \
+            (prec, c)
         counts[prec] = c["K5"]
     _run_slice(slice_config(), pts[:6], msk[:6], gt,
                "steps slice highest, 5 frames, for its host syncs")
@@ -530,8 +556,155 @@ def phase_fused_slice(pts, msk, gt):
 def phase_steps_bf16(pts, msk, gt):
     c, iters, _ = _run_slice(slice_config(nn_precision="bf16"), pts[:11],
                              msk[:11], gt, "steps slice bf16")
-    assert c["K3"] == c["K2"] == iters > 0 and c["K1"] == c["K5"] == 0, c
+    assert c["K3"] == c["K2"] == iters > 0, c
+    assert c["K1"] == c["K4"] == c["K5"] == 0, c
     return c["K3"]
+
+
+def phase_k4(pts, msk):
+    from tpu_icp_slam_torch.kernels import nn_cuda, nn_rescore
+
+    dev = torch.device("cuda")
+    src = torch.as_tensor(pts[1], device=dev).contiguous()
+    dst_np = pts[0].copy()
+    dst_np[-1024:] = 1.0e6  # sentinel-padded target rows
+    dst = torch.as_tensor(dst_np, device=dev).contiguous()
+    tn, n_slots = nn_rescore.slots(len(dst_np))
+    idx_k, d2_k = nn_rescore.nn_rescore(src, dst)
+    idx_r, d2_r = nn_rescore.nn_rescore_ref(src, dst)
+    torch.cuda.synchronize()
+    same = idx_k == idx_r
+    agree = float(same.float().mean())
+    err = float(torch.max(torch.abs(d2_k - d2_r)))
+    # the rescore's d2 is the same float32 arithmetic on both sides
+    assert agree >= 0.999, f"K4 index agreement {agree}"
+    assert torch.equal(d2_k[same], d2_r[same]), "K4 picked d2 != plain"
+    idx_np = idx_k.cpu().numpy()
+    assert np.all(idx_np[msk[1]] < len(dst_np) - 1024), \
+        "K4 matched a real point to a sentinel row"
+    # measured, not held: how often the pick is at the exact search's
+    # distance (K1's plain version). The packed score drops the lo·lo terms
+    # (~1e-2 m² at scene extent), so two near-tied points of one slot can
+    # swap; the reference's design accepts that (nn_pallas.py header)
+    _, d2_exact = nn_cuda.nn_bruteforce_ref(src, dst)
+    real = torch.as_tensor(msk[1], device=dev)
+    excess = (d2_k - d2_exact)[real]
+    exact_share = float((excess <= 1e-6 * (1.0 + d2_exact[real])).float()
+                        .mean())
+    excess = float(torch.max(excess))
+    ms = _median_ms(lambda: nn_rescore.nn_rescore(src, dst))
+    plain_ms = _median_ms(lambda: nn_rescore.nn_rescore_ref(src, dst), 10)
+    print(f"[K4 nn_rescore] M=N={len(dst_np)} TN={tn} S={n_slots} idx agree "
+          f"{agree:.6f} max |d2 - plain| {err:.3e} | exact search's "
+          f"distance on {exact_share:.6f} of the rows, max excess "
+          f"{excess:.3e} m^2 | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"name": "nn_rescore", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/nn_shortlist.cu",
+            "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:142",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _yawed(points, yaws):
+    """(M, 3) numpy points turned about z by each yaw -> (Y, M, 3)."""
+    c, s = np.cos(yaws), np.sin(yaws)
+    R = np.zeros((len(yaws), 3, 3), np.float32)
+    R[:, 0, 0], R[:, 0, 1], R[:, 1, 0], R[:, 1, 1] = c, -s, s, c
+    R[:, 2, 2] = 1.0
+    return np.einsum("yij,mj->ymi", R, points).astype(np.float32)
+
+
+def phase_k1_batched(pts, src1, dst1):
+    """src1, dst1: phase 2's unbatched inputs."""
+    from tpu_icp_slam_torch.kernels import nn_cuda
+
+    dev = torch.device("cuda")
+    yaws = np.linspace(-np.pi, np.pi, 8, endpoint=False)
+    # the verification shape: 2 candidates x 8 yaw hypotheses of one query
+    src = torch.as_tensor(_yawed(pts[-1], yaws), device=dev)
+    src = src.repeat(2, 1, 1).contiguous()  # (16, M, 3)
+    dst = torch.as_tensor(np.stack([pts[0], pts[1]]), device=dev)
+    idx_k, d2_k = nn_cuda.nn_bruteforce(src, dst)
+    idx_r, d2_r = nn_cuda.nn_bruteforce_ref(src, dst)
+    one = nn_cuda.nn_bruteforce(src1[None], dst1[None])
+    ref1 = nn_cuda.nn_bruteforce(src1, dst1)
+    torch.cuda.synchronize()
+    agree = float((idx_k == idx_r).float().mean())
+    err = float(torch.max(torch.abs(d2_k - d2_r)))
+    assert idx_k.shape == (16, src.shape[1]), idx_k.shape
+    assert agree >= 0.999, f"batched K1 index agreement {agree}"
+    torch.testing.assert_close(d2_k, d2_r, rtol=1e-6, atol=1e-5)
+    assert torch.equal(one[0][0], ref1[0]) and torch.equal(one[1][0],
+                                                           ref1[1]), \
+        "batched K1 at B = 1 differs from the unbatched call"
+    ms = _median_ms(lambda: nn_cuda.nn_bruteforce(src, dst))
+    plain_ms = _median_ms(lambda: nn_cuda.nn_bruteforce_ref(src, dst), 3)
+    print(f"[K1 batched] B={src.shape[0]} (G=8) M=N={src.shape[1]} idx agree "
+          f"{agree:.6f} max |d2 - plain| {err:.3e}; B=1 equal to phase 2's "
+          f"call bit for bit | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"name": "nn_bruteforce[batched]", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/nn_bruteforce.cu",
+            "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:111",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def full_slam_config():
+    """configs/kitti_full_res.json (the full-width preset, backend on) at
+    nn_precision="rescore"."""
+    from tpu_icp_slam_torch import from_json
+
+    with open(os.path.join(ROOT, "configs", "kitti_full_res.json")) as f:
+        cfg = from_json(f.read())
+    return dataclasses.replace(cfg, icp=dataclasses.replace(
+        cfg.icp, nn_precision="rescore"))
+
+
+def phase_full_slam():
+    from tpu_icp_slam_torch.kernels import nn_cuda
+    from tpu_icp_slam_torch.slam.slam3d import Slam3D
+
+    cfg = full_slam_config()
+    assert cfg.backend.enabled and cfg.icp.loop_backend == "steps"
+    pts, msk, gt = _scans(LOOP_FRAMES, 48, 1024, 1.0,
+                          cfg.pipeline.downsample_voxel,
+                          cfg.pipeline.scan_capacity, LOOP_WAYPOINTS)
+    slam = Slam3D(cfg, device="cuda")
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    poses, rep = slam.run(pts, msk, mode="fused")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = _counts()
+    batched = nn_cuda.nn_bruteforce.batched_launches
+    iters = int(slam.frontend_iters.sum())
+    n_frames = len(pts) - 1
+    fe_s = sum(x[2] for x in slam.chunk_stats)
+    ate = _ate(poses, gt)
+    ate_fe = _ate(slam.frontend_poses, gt)
+    # each kept closure's own error: its measured T_ij against ground truth
+    kf = slam.kf_frames
+    lc_err = [np.linalg.norm(lc.T_ij[:3, 3] - (np.linalg.inv(gt[kf[lc.i]])
+                                               @ gt[kf[lc.j]])[:3, 3])
+              for lc in slam.closures_kept] or [math.nan]
+    print(f"[full slam] {len(pts)} frames of {int(msk.sum(1).max())} points "
+          f"| front end {n_frames / fe_s:.3f} frames/s ({fe_s:.3f} s, mean "
+          f"ICP iters {iters / n_frames:.3f}) | backend {slam.backend_s:.3f} "
+          f"s | end to end {n_frames / dt:.3f} frames/s ({dt:.3f} s) | "
+          f"keyframes {rep.n_keyframes} candidates {rep.n_loop_candidates} "
+          f"closures {rep.n_loop_closures} (rejected {rep.n_loops_rejected}) "
+          f"| kept closures' translation error vs ground truth median "
+          f"{np.median(lc_err):.4f} m, max {np.max(lc_err):.4f} m | ATE "
+          f"{ate:.5f} m (front end only {ate_fe:.5f} m) | launches "
+          f"{c}, K1 batched {batched}, verify iterations "
+          f"{slam.detector.verify_iters}")
+    assert np.isfinite(poses).all(), "non-finite pose"
+    assert rep.n_loop_closures >= 1, "no accepted closure"
+    assert ate < 0.5, f"ATE {ate} m"
+    assert c["K4"] == c["K2"] == iters > 0, (c, iters)
+    assert c["K3"] == c["K5"] == 0, c
+    assert c["K1"] == batched == slam.detector.verify_iters > 0, \
+        (c["K1"], batched, slam.detector.verify_iters)
+    return c["K4"], c["K1"]
 
 
 def main() -> int:
@@ -539,7 +712,7 @@ def main() -> int:
     phase_build()
     pts, msk, gt = _scans(FRAMES, 48, 1024, FRAMES / 110.0, 0.15,
                           SCAN_POINTS)
-    k1_row, src = phase_k1(pts, msk)
+    k1_row, src, dst = phase_k1(pts, msk)
     k2_row = phase_k2(src, msk[1])
     k1, k2 = phase_slice(pts, msk, gt)
     phase_cpu_agreement()
@@ -551,8 +724,11 @@ def main() -> int:
     for row, prec in zip(k5_rows, ("highest", "bf16")):
         row["launches"] = k5_launches[prec]
     k3_row["launches"] = phase_steps_bf16(pts, msk, gt)
-    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, *k5_rows,
-                                  probe_row]}))
+    k4_row = phase_k4(pts, msk)
+    k1b_row = phase_k1_batched(pts, src, dst)
+    k4_row["launches"], k1b_row["launches"] = phase_full_slam()
+    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row, *k5_rows,
+                                  probe_row, k1b_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

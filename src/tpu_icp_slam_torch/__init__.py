@@ -1,20 +1,26 @@
 """tpu_icp_slam_torch — the PyTorch/CUDA port of tpu_icp_slam for NVIDIA Hopper.
 
 The JAX package `tpu_icp_slam` is the reference; this package reproduces its
-3D scan-to-map path in PyTorch, on both ICP loop backends, with the Pallas
-kernels of that path rewritten as CUDA C++ kernels for sm_90a (`csrc/`,
-built on first use by `kernels/_build.py`).
+3D scan-to-map path (both ICP loop backends, every NN precision) and full
+config-4 SLAM (loop closure, pose graph) in PyTorch, with the Pallas kernels
+rewritten as CUDA C++ kernels for sm_90a (`csrc/`, built on first use by
+`kernels/_build.py`).
 
 Layers, mirroring the reference:
   core/     — SE(3) algebra, padded point clouds
   kernels/  — CUDA kernels and their plain-torch versions: K1 exact NN, K2
               GN accumulation (the steps loop), K3 bf16 packed NN
-              (nn_precision="bf16"), K5 the whole fused ICP loop
+              (nn_precision="bf16"), K4 the rescore shortlist NN
+              (nn_precision="rescore"), K5 the whole fused ICP loop
               (icp.loop_backend="fused") and its capability probe
-  icp/      — point-to-plane Gauss-Newton step and the ICP loop
+  icp/      — point-to-plane Gauss-Newton step, point-to-point Umeyama,
+              the ICP loop and its batched form (loop verification)
   mapping/  — voxel map, k-NN normals
-  slam/     — scan-to-map pipeline, scan padding
-  interop   — carry pipeline state between the two packages as numpy
+  backend/  — loop closure (scan context, candidates, batched
+              verification) and the float64 pose graph
+  slam/     — scan-to-map pipeline, full 3D SLAM (Slam3D), scan padding
+  interop   — carry state (pipeline, loop detector store, pose graph)
+              between the two packages as numpy
 
 The numpy-only reference modules (config tree, synthetic datasets, metrics)
 are shared by import; nothing here imports jax. Every constructor takes an
@@ -25,10 +31,12 @@ a CUDA tensor runs the kernel or raises.
 import torch
 
 from tpu_icp_slam.config import (  # noqa: F401
+    BackendConfig,
     ICPConfig,
     MappingConfig,
     PipelineConfig,
     SlamConfig,
+    from_json,
 )
 from tpu_icp_slam.datasets import synthetic  # noqa: F401
 from tpu_icp_slam.eval import metrics  # noqa: F401

@@ -160,3 +160,27 @@ def rotation_geodesic(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     M = Ra.transpose(-1, -2) @ Rb
     trace = M[..., 0, 0] + M[..., 1, 1] + M[..., 2, 2]
     return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 6, 6) adjoint for the [rho, phi] tangent order:
+    Ad(T) = [[R, [t]x R], [0, R]], so T exp(xi) T⁻¹ = exp(Ad(T) xi)."""
+    R, t = rotation(T), translation(T)
+    top = torch.cat([R, hat(t) @ R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def ad(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) little adjoint: ad(xi) = [[phi^, rho^], [0, phi^]] (..., 6, 6)."""
+    px, rx = hat(xi[..., 3:]), hat(xi[..., :3])
+    top = torch.cat([px, rx], dim=-1)
+    bottom = torch.cat([torch.zeros_like(px), px], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
+    """Second-order Jr⁻¹(xi) ≈ I + ad(xi)/2 + ad(xi)²/12, as the reference
+    (exact enough for pose-graph Gauss-Newton, whose residuals are small)."""
+    A = ad(xi)
+    return _eye(6, xi) + 0.5 * A + (A @ A) / 12.0

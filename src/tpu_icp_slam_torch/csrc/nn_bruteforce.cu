@@ -31,6 +31,12 @@
 //    (ascending index ranges) uses strict `<` too.
 //  - Padded targets carry the 1e6 sentinel: (a - 1e6)² ~ 1e12 is finite in
 //    float32 and always loses, so no mask is read.
+//  - Batched form (loop-closure verification: candidates x yaw hypotheses,
+//    the reference's nested vmap over align): gridDim.z is the batch.
+//    Source b is searched in target b / group, so `group` consecutive batch
+//    rows (the yaw hypotheses of one candidate) share one target scan. Each
+//    batch element runs exactly the unbatched computation: B = 1 is the
+//    unbatched call, bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,11 +50,16 @@ constexpr int kTile = 1024;
 
 __global__ void __launch_bounds__(kThreads)
 nn_split_kernel(const float* __restrict__ src, const float* __restrict__ dst,
-                int m, int n, int split_len, float* __restrict__ part_d2,
-                int* __restrict__ part_idx) {
+                int m, int n, int group, int split_len,
+                float* __restrict__ part_d2, int* __restrict__ part_idx) {
   __shared__ float4 tile[kTile];
   const int row = blockIdx.x * kThreads + threadIdx.x;
   const int split = blockIdx.y;
+  const size_t batch_i = blockIdx.z;
+  src += batch_i * m * 3;
+  dst += (batch_i / group) * n * 3;
+  part_d2 += batch_i * gridDim.y * m;
+  part_idx += batch_i * gridDim.y * m;
   const int begin = split * split_len;
   const int end = min(n, begin + split_len);
 
@@ -94,21 +105,25 @@ nn_split_kernel(const float* __restrict__ src, const float* __restrict__ dst,
 
 }  // namespace
 
-// src (m, 3), dst (n, 3) float32 contiguous; scratch part_d2/part_idx
-// (n_split, m); outputs d2 (m,) float32 and idx (m,) int32.
+// src (batch, m, 3) and dst (batch / group, n, 3) float32 contiguous;
+// scratch part_d2/part_idx (batch, n_split, m); outputs d2 (batch, m)
+// float32 and idx (batch, m) int32. batch = group = 1 is the unbatched call.
 extern "C" cudaError_t nn_bruteforce_f32(const float* src, const float* dst,
-                                         int m, int n, int n_split,
-                                         float* part_d2, int* part_idx,
-                                         float* d2, int* idx,
+                                         int batch, int group, int m, int n,
+                                         int n_split, float* part_d2,
+                                         int* part_idx, float* d2, int* idx,
                                          cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || n_split <= 0) return cudaErrorInvalidValue;
+  if (m <= 0 || n <= 0 || n_split <= 0 || batch <= 0 || group <= 0 ||
+      batch % group != 0 || batch > 65535)
+    return cudaErrorInvalidValue;
   const int split_len = (n + n_split - 1) / n_split;
-  const dim3 grid((m + kThreads - 1) / kThreads, n_split);
-  nn_split_kernel<<<grid, kThreads, 0, stream>>>(src, dst, m, n, split_len,
-                                                 part_d2, part_idx);
+  const dim3 grid((m + kThreads - 1) / kThreads, n_split, batch);
+  nn_split_kernel<<<grid, kThreads, 0, stream>>>(src, dst, m, n, group,
+                                                 split_len, part_d2, part_idx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nn_fold_kernel<<<(m + 255) / 256, 256, 0, stream>>>(part_d2, part_idx, m,
-                                                      n_split, d2, idx);
+  const dim3 fold_grid((m + 255) / 256, batch);
+  nn_fold_kernel<<<fold_grid, 256, 0, stream>>>(part_d2, part_idx, m, n_split,
+                                                d2, idx);
   return cudaGetLastError();
 }

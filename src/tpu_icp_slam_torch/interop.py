@@ -1,11 +1,15 @@
-"""Carry scan-to-map state between the JAX package and this port as numpy.
+"""Carry state between the JAX package and this port as numpy.
 
 The system has no weights: what a run carries is its state (pose, motion,
-voxel map, carried local model). `state_to_numpy` flattens a port state
-into a dict of numpy arrays, with the map under "vmap" as a dict of
-points/normals/mask; `state_from_numpy` builds a port state from such a
-dict. A reference `MapOdomState` converted field by field with
-`np.asarray` has the same layout, so both packages can start from one map.
+voxel map, carried local model), the loop detector's keyframe store and the
+pose graph. `state_to_numpy` flattens a port state into a dict of numpy
+arrays, with the map under "vmap" as a dict of points/normals/mask;
+`state_from_numpy` builds a port state from such a dict. A reference
+`MapOdomState` converted field by field with `np.asarray` has the same
+layout, so both packages can start from one map. `load_detector_store`
+gives a port LoopDetector the host store (descriptors, positions) of a
+reference detector, and `pose_graph_from_numpy` builds a port PoseGraph from
+a reference one, so both packages can work on identical inputs.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_icp_slam_torch.backend.loop_closure import LoopDetector
+from tpu_icp_slam_torch.backend.pose_graph import PoseGraph
 from tpu_icp_slam_torch.mapping.voxel_map import VoxelMap
 from tpu_icp_slam_torch.slam.scan_to_map import MapOdomState
 
@@ -51,3 +57,28 @@ def state_from_numpy(d: dict, device: torch.device | str = "cpu"
     return MapOdomState(**{
         f.name: vm if f.name == "vmap" else conv(d[f.name])
         for f in dataclasses.fields(MapOdomState)})
+
+
+def load_detector_store(det: LoopDetector, descs, positions) -> None:
+    """Replace det's keyframe store with (descs: list of (R, S) arrays,
+    positions: list of (D,) arrays or None) — a reference detector's
+    `_descs` and `_positions` — and rebuild its device store."""
+    det._descs = [np.asarray(d, np.float32) for d in descs]
+    det._positions = [None if p is None else np.asarray(p, np.float64)
+                      for p in positions]
+    det._sync_device_store()
+
+
+def pose_graph_from_numpy(g, dtype=torch.float64,
+                          device: torch.device | str = "cpu") -> PoseGraph:
+    """Port PoseGraph from any object with PoseGraph's fields as arrays (a
+    reference PoseGraph), poses/T_meas/weight as `dtype`."""
+    def conv(name, dt):
+        return torch.as_tensor(np.asarray(getattr(g, name)),
+                               device=device).to(dt)
+
+    return PoseGraph(poses=conv("poses", dtype),
+                     pose_mask=conv("pose_mask", torch.bool),
+                     fi=conv("fi", torch.int64), fj=conv("fj", torch.int64),
+                     T_meas=conv("T_meas", dtype),
+                     weight=conv("weight", dtype))

@@ -86,8 +86,11 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.nn_bruteforce_f32.argtypes = [
-                ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
             lib.nn_bruteforce_f32.restype = i32
+            lib.nn_rescore_f32.argtypes = [
+                ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+            lib.nn_rescore_f32.restype = i32
             lib.gn_accum_f32.argtypes = [
                 ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr]
             lib.gn_accum_f32.restype = i32
@@ -128,3 +131,23 @@ def require_points(name: str, **clouds: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs on different devices")
         if t.shape[0] == 0:
             raise ValueError(f"{name}: {arg} is empty")
+
+
+def require_batched_points(name: str, src: torch.Tensor,
+                           dst: torch.Tensor) -> None:
+    """Raise unless src (B, M, 3) and dst (B/G, N, 3) are non-empty
+    contiguous float32 tensors on one CUDA device with B a multiple of
+    dst's batch: what the batched kernels take."""
+    if src.dim() != 3 or dst.dim() != 3:
+        raise ValueError(f"{name}: batched src and dst must both be "
+                         f"(·, ·, 3), got {tuple(src.shape)}, "
+                         f"{tuple(dst.shape)}")
+    if 0 in (src.shape[0], dst.shape[0]) or src.shape[0] % dst.shape[0]:
+        raise ValueError(f"{name}: src batch {src.shape[0]} is not a "
+                         f"multiple of dst batch {dst.shape[0]}")
+    if src.shape[0] > 65535:
+        raise ValueError(f"{name}: batch {src.shape[0]} > 65535")
+    require_points(name, src=src[0], dst=dst[0])
+    for arg, t in (("src", src), ("dst", dst)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")

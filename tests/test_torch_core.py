@@ -106,3 +106,17 @@ def test_host_helpers_match_reference():
         b = trunner.pad_scans(scans, cap)
         for x, y in zip(a, b):
             np.testing.assert_array_equal(y, x)
+
+
+@pytest.mark.parametrize("fn", ["adjoint", "ad", "right_jacobian_inv"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_se3_backend_jacobians_match_reference(fn, dtype):
+    """The pose graph's Jacobian pieces, in float32 and in the float64 the
+    pose graph runs in (the reference's tests run with x64 on)."""
+    xi = _twists("generic", seed=6).astype(dtype)
+    x = np.asarray(jse3.exp(jnp.asarray(xi))) if fn == "adjoint" else xi
+    a, b = _both(fn, x)
+    assert b.dtype == a.dtype == dtype
+    np.testing.assert_allclose(b, a, atol=ATOL if dtype == np.float32
+                               else 1e-12)
+

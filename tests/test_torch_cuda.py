@@ -20,6 +20,7 @@ from tpu_icp_slam_torch.kernels import (
     icp_fused,
     nn_bf16,
     nn_cuda,
+    nn_rescore,
 )
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
 
@@ -121,8 +122,15 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
         nn_bf16.nn_bf16(a, a.cpu())
     with pytest.raises(ValueError):
         nn_bf16.nn_bf16(a.t().contiguous().t(), a)
-    with pytest.raises(NotImplementedError):  # K4 is not ported
-        nearest_neighbor(a, a, backend="pallas", precision="rescore")
+    with pytest.raises(NotImplementedError):  # no batched K4
+        nearest_neighbor(a[None], a[None], backend="pallas",
+                         precision="rescore")
+    with pytest.raises(ValueError):
+        nn_rescore.nn_rescore(a, a.cpu())
+    with pytest.raises(ValueError):
+        nn_rescore.nn_rescore(a.double(), a)
+    with pytest.raises(ValueError):
+        nn_rescore.nn_rescore(a.t().contiguous().t(), a)
     ones = torch.ones(8, dtype=torch.bool, device=cuda_device)
     with pytest.raises(ValueError):
         icp_fused.icp_fused(a, ones, a.cpu(), a, ones)
@@ -152,6 +160,134 @@ def test_nn_bf16_kernel_matches_plain(cuda_device, m, n):
                     dim=1)
     assert torch.all(torch.abs(d2 - rd2) <= 2 * 13 * 2.0 ** -24 * mag)
     assert int(idx.max()) < n - n_pad
+
+
+@pytest.mark.parametrize("m,n", [(16384, 16384), (300, 5000), (1000, 100)])
+def test_nn_rescore_kernel_matches_plain(cuda_device, m, n):
+    """K4 against its plain version: the same packed operands and the same
+    float32 rescore, so indices agree but for packed-score near-ties inside
+    one slot (>= 99.9%) and the picked d² is equal wherever they do;
+    (1000, 100) is a single slot (S = 1), sentinel rows never picked."""
+    src, dst = _clouds(m, n, seed=m + 1, scale=40.0)
+    n_pad = n // 8
+    dst[-n_pad:] = 1.0e6
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    idx, d2 = nn_rescore.nn_rescore(s, d)
+    ridx, rd2 = nn_rescore.nn_rescore_ref(s, d)
+    assert idx.dtype == torch.int32 and idx.shape == (m,)
+    same = idx == ridx
+    assert float(same.float().mean()) >= 0.999
+    assert torch.equal(d2[same], rd2[same])
+    assert int(idx.max()) < n - n_pad
+    if (m, n) == (1000, 100):
+        assert nn_rescore.slots(n)[1] == 1
+
+
+def test_nn_rescore_kernel_ties_go_to_the_lowest_slot(cuda_device):
+    """An exact duplicate at indices 3 and 8 (slots 3 and 0 of 8): the
+    kernel takes the lower slot, 8, as the reference does."""
+    rng = np.random.default_rng(5)
+    dst = rng.uniform(-20, 20, (1024, 3)).astype(np.float32)
+    dst[8] = dst[3] = [0.5, 0.25, -0.125]
+    src = (dst[3] + rng.uniform(-0.01, 0.01, (40, 3))).astype(np.float32)
+    idx, _ = nn_rescore.nn_rescore(torch.from_numpy(src).to(cuda_device),
+                                   torch.from_numpy(dst).to(cuda_device))
+    assert torch.all(idx == 8)
+
+
+def test_batched_nn_kernel_matches_plain(cuda_device):
+    """K1's batched form: B = 16 sources over 2 targets (G = 8) against the
+    plain version element by element; B = 1 is the unbatched call bit for
+    bit."""
+    rng = np.random.default_rng(3)
+    src = rng.uniform(-40, 40, (16, 4096, 3)).astype(np.float32)
+    dst = rng.uniform(-40, 40, (2, 5000, 3)).astype(np.float32)
+    dst[:, -100:] = 1.0e6
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    idx, d2 = nn_cuda.nn_bruteforce(s, d)
+    ridx, rd2 = nn_cuda.nn_bruteforce_ref(s, d)
+    assert idx.shape == (16, 4096) and idx.dtype == torch.int32
+    assert float((idx == ridx).float().mean()) >= 0.999
+    torch.testing.assert_close(d2, rd2, rtol=1e-6, atol=1e-5)
+    for b in (0, 9):  # each element is its own unbatched search
+        one = nn_cuda.nn_bruteforce(s[b].contiguous(), d[b // 8].contiguous())
+        assert torch.equal(one[0], idx[b]) and torch.equal(one[1], d2[b])
+    one = nn_cuda.nn_bruteforce(s[:1], d[:1])
+    ref = nn_cuda.nn_bruteforce(s[0].contiguous(), d[0].contiguous())
+    assert torch.equal(one[0][0], ref[0]) and torch.equal(one[1][0], ref[1])
+
+
+def test_batched_wrappers_raise_and_count(cuda_device):
+    a = torch.zeros(4, 8, 3, device=cuda_device)
+    with pytest.raises(ValueError):  # 4 sources over 3 targets
+        nn_cuda.nn_bruteforce(a, a[:3])
+    with pytest.raises(ValueError):
+        nn_cuda.nn_bruteforce(a, a[:2].cpu())
+    with pytest.raises(ValueError):
+        nn_cuda.nn_bruteforce(a.transpose(0, 1), a[:1])
+    with pytest.raises(NotImplementedError):
+        nearest_neighbor(a, a[:2], backend="pallas", precision="bf16")
+    before = (nn_cuda.nn_bruteforce.launches,
+              nn_cuda.nn_bruteforce.batched_launches,
+              nn_rescore.nn_rescore.launches)
+    nn_cuda.nn_bruteforce(a, a[:2])
+    nn_cuda.nn_bruteforce(a[0], a[0])
+    nn_rescore.nn_rescore(a[0], a[0])
+    nn_rescore.nn_rescore_ref(a[0], a[0])
+    nn_cuda.nn_bruteforce_ref(a, a[:2])
+    assert (nn_cuda.nn_bruteforce.launches,
+            nn_cuda.nn_bruteforce.batched_launches,
+            nn_rescore.nn_rescore.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+
+
+def test_slam3d_on_cuda_matches_cpu(cuda_device):
+    """Full SLAM at nn_precision="rescore" on the card (K4 and K2 in the
+    front end, batched K1 in verification) against the port on the CPU
+    (their plain versions): the same keyframes and closures, poses within
+    3 cm; one K4 launch per front-end ICP iteration, one K1 launch per
+    batched verification iteration. K4 and its plain version add the 13
+    packed products in different orders (a float32 ulp of the packed score
+    is ~6e-5 m² at these extents), so near-tied points of one slot can swap;
+    each swap moves a 768-point scan's pose by a few mm, and the map carries
+    it on (observed 9.7e-3 m on an H100)."""
+    from tpu_icp_slam_torch import BackendConfig, synthetic
+    from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
+    from tpu_icp_slam_torch.slam.runner import pad_scans
+    from tpu_icp_slam_torch.slam.slam3d import Slam3D
+
+    cfg = SlamConfig(
+        icp=ICPConfig(method="point_to_plane", max_iters=15,
+                      max_corr_dist=1.5, damping=1e-3, max_step_trans=1.0,
+                      max_step_rot=0.3, min_inliers=50, huber_delta=0.3,
+                      nn_precision="rescore"),
+        mapping=MappingConfig(map_capacity=8192, local_model_size=2048,
+                              map_voxel=0.3),
+        pipeline=PipelineConfig(mode="scan_to_map", scan_capacity=768,
+                                keyframe_trans=1.6, keyframe_rot=0.2),
+        backend=BackendConfig(enabled=True, min_loop_separation=2,
+                              candidate_topk=1, verify_yaws=4,
+                              verify_max_rmse=0.6, gating_radius=10.0),
+    )
+    scans, _ = synthetic.velodyne_log(n_frames=8, n_rings=10, n_azimuth=192,
+                                      path_fraction=0.1)
+    scans = [voxel_downsample_np(s, 0.5) for s in scans]
+    pts, msk = pad_scans(scans + scans[::-1][1:], 768)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        slam = Slam3D(cfg, device=dev)
+        k0 = (nn_rescore.nn_rescore.launches, nn_cuda.nn_bruteforce.launches)
+        poses, rep = slam.run(pts, msk, mode="fused")
+        out[dev.type] = (poses, rep, slam, (
+            nn_rescore.nn_rescore.launches - k0[0],
+            nn_cuda.nn_bruteforce.launches - k0[1]))
+    (gp, g_rep, gslam, gl), (cp, crep, _, cl) = out["cuda"], out["cpu"]
+    assert crep.n_loop_closures >= 1
+    assert (g_rep.n_keyframes, g_rep.n_loop_closures) == (
+        crep.n_keyframes, crep.n_loop_closures)
+    np.testing.assert_allclose(gp[:, :3, 3], cp[:, :3, 3], atol=3e-2)
+    assert gl == (int(gslam.frontend_iters.sum()),
+                  gslam.detector.verify_iters) and cl == (0, 0)
 
 
 def _align_problem(device, seed=0, m=4096, n=6144):

@@ -114,7 +114,7 @@ def test_align_max_iters_cap_matches_reference():
 
 
 @pytest.mark.parametrize("override", [
-    {"method": "point_to_point"}, {"anderson": True}, {"unroll_iters": 4},
+    {"method": "projective"}, {"anderson": True}, {"unroll_iters": 4},
     {"degen_eps": 0.01}, {"nn_backend": "voxel"},
 ])
 def test_unported_icp_options_raise(override):

@@ -149,7 +149,7 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(tmp_path, monkeypatch):
     assert path.parents[2].name == "build"
     assert {s.name for s in _build.sources()} == {
         "nn_bruteforce.cu", "gn_accum.cu", "nn_bf16.cu", "icp_fused.cu",
-        "coop_probe.cu"}
+        "coop_probe.cu", "nn_shortlist.cu"}
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "k.cu").write_text("// a\n")

@@ -28,6 +28,7 @@ from tpu_icp_slam.kernels.nn_pallas import nn_bruteforce_pallas
 from tpu_icp_slam_torch.kernels import nn as dispatch
 from tpu_icp_slam_torch.kernels import nn_bf16 as k3
 from tpu_icp_slam_torch.kernels.nn_cuda import nn_bruteforce_ref
+from tpu_icp_slam_torch.kernels.nn_rescore import nn_rescore_ref
 
 GAMMA = 13 * 2.0 ** -24  # float32 sum of 13 exact products
 REF_REL = 2e-5  # 10x the reference's observed score error, relative
@@ -149,9 +150,13 @@ def test_nn_dispatch_precisions_on_cpu(caplog, monkeypatch):
     got = dispatch.nearest_neighbor(src, dst, backend="pallas",
                                     precision="bf16")
     assert torch.equal(got[0], packed[0]) and torch.equal(got[1], packed[1])
-    # rescore promises exact selection, which the exact version gives
+    # rescore runs K4's plain version (the reference's interpret-mode
+    # shortlist), not the exact search; on these clouds both pick the same
+    # points, and K4's d² is the exact difference form too
+    rescore = nn_rescore_ref(src, dst)
     got = dispatch.nearest_neighbor(src, dst, backend="pallas",
                                     precision="rescore")
+    assert torch.equal(got[0], rescore[0]) and torch.equal(got[1], rescore[1])
     assert torch.equal(got[0], exact[0])
     with pytest.raises(ValueError):
         dispatch.nearest_neighbor(src, dst, precision="fp8")
