@@ -1,23 +1,51 @@
 #!/usr/bin/env python3
 """A/B of the port's four scan-to-map cells on one card, or of two
-builds of kernels K1 and K2.
+builds of the kernels K1, K4 and K5.
 
     python3 chip_ab.py [--rounds 5]
     python3 chip_ab.py --old-csrc DIR
+    python3 chip_ab.py --profiler-effect
+    python3 chip_ab.py --sass
+
+With --sass, the kernels are built anew with ptxas's register, shared-memory
+and spill report, the library is disassembled with cuobjdump, and for K4's
+shortlist, K5 at both precisions and K1 the innermost loop that holds the
+work (the mma, or the FMNMX of a pair) is counted: static instructions, and
+lane-instructions per score or pair (SASS_LOOPS).
 
 With --old-csrc, only the kernels are compared: DIR holds an earlier
-csrc/ (its nn_bruteforce.cu, nn_fold.cuh and gn_accum.cu, with the same C
-entry points), for example that of commit dd3ff56, unpacked from git with
+csrc/ with the same C entry points (nn_bruteforce_f32,
+nn_bruteforce_blocks_per_sm, nn_rescore_f32 taking host-packed operands,
+icp_fused_f32 and icp_fused_max_blocks without the (n, 3) model), for
+example that of commit 4ced90d, unpacked from git with
 
-    mkdir -p build/pr3_csrc
-    git archive dd3ff56 src/tpu_icp_slam_torch/csrc \
-        | tar -x -C build/pr3_csrc --strip-components=3
+    mkdir -p build/pr4_csrc
+    git archive 4ced90d src/tpu_icp_slam_torch/csrc \
+        | tar -x -C build/pr4_csrc --strip-components=3
 
 It is compiled into build/ beside the current kernels. On the inputs of
-chip_smoke's phases 2 (K1, 16,384 x 16,384), 12 (batched K1, B = 16, G = 8)
-and 3 (K2, M = 16,384), the current outputs must equal the old ones bit for
-bit; then each kernel is timed old, new, new, old (chip_smoke._device_ms,
-and one call alone as call_ms).
+chip_smoke's phases 2 (K1, 16,384 x 16,384), 12 (batched K1, B = 16, G = 8),
+11 (K4) and 8 (K5, one align of the first frame at "highest" and "bf16"):
+
+  K1       outputs bit-equal to the old;
+  K4       the old kernel gets the plain packing (its wrapper packed with
+           torch ops), the new packs on the device: the packed operands must
+           be bit-equal, every candidate that differs a near-tie
+           (kernels/packed_mma.near_ties), indices equal on >= 0.999 of the
+           rows and d2 equal where they are;
+  K5       both kernels at the same grid: at "highest" T, rmse, iterations,
+           inliers and convergence bit-equal; at "bf16" equal iterations,
+           inliers and convergence, pose and rmse within
+           chip_smoke.K5_BOUNDS["bf16"];
+
+then each is timed old, new, new, old (chip_smoke._device_ms, one call
+alone as call_ms, and the port's own kernels' device time from a
+torch.profiler run as kernel_ms).
+
+With --profiler-effect, the fused "highest" and steps "highest" cells run
+--rounds times each, then one torch.profiler run traces one frame-loop of
+each, then they run --rounds times again in the same process: frames/s
+before and after the process has used the profiler.
 
 The cells are chip_smoke.slice_config() on chip_smoke.py's 30-frame
 KITTI-scale log (29 timed frames), at icp.loop_backend "steps" and "fused"
@@ -46,6 +74,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -135,34 +164,47 @@ def _k5_per_align(pts, msk):
 
 
 def _old_library(csrc):
-    """The K1 and K2 entry points of an earlier csrc/, built by nvcc."""
+    """The kernel entry points of an earlier csrc/, built by nvcc."""
     from tpu_icp_slam_torch.kernels import _build
 
     out = Path(chip_smoke.ROOT) / "build" / "ab_old" / "libold.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(csrc / "nn_bruteforce.cu"), str(csrc / "gn_accum.cu")],
-                   check=True)
+                    *(str(f) for f in sorted(csrc.glob("*.cu")))], check=True)
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.nn_bruteforce_f32.argtypes = [
         ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
     lib.nn_bruteforce_f32.restype = i32
-    lib.gn_accum_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,
-                                 ptr]
-    lib.gn_accum_f32.restype = i32
+    lib.nn_bruteforce_blocks_per_sm.argtypes = [ptr]
+    lib.nn_bruteforce_blocks_per_sm.restype = i32
+    lib.nn_rescore_f32.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+    lib.nn_rescore_f32.restype = i32
+    lib.icp_fused_max_blocks.argtypes = [i32, ptr]
+    lib.icp_fused_max_blocks.restype = i32
+    lib.icp_fused_f32.argtypes = [
+        ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
+    lib.icp_fused_f32.restype = i32
     return lib
 
 
+def _int_out(fn):
+    out = ctypes.c_int(0)
+    fn(ctypes.addressof(out))
+    return out.value
+
+
 def _old_k1(lib, src, dst):
-    """K1 of the earlier build, split as its wrapper split it."""
-    from tpu_icp_slam_torch.kernels import _build
+    """K1 of the earlier build, split as the current wrapper splits it for
+    the earlier kernel's occupancy."""
+    from tpu_icp_slam_torch.kernels import _build, nn_cuda
 
     batch = src.shape[0] if src.dim() == 3 else 1
     group = batch // dst.shape[0] if src.dim() == 3 else 1
     m, n = src.shape[-2], dst.shape[-2]
-    splits = max(1, min(-(-4 * _build.sm_count(src.device.index)
-                          // (-(-m // 256) * batch)), -(-n // 256)))
+    splits = nn_cuda.n_split(m, n, batch, _build.sm_count(src.device.index),
+                             _int_out(lib.nn_bruteforce_blocks_per_sm))
     part_d2 = torch.empty((batch, splits, m), device=src.device)
     part_idx = torch.empty((batch, splits, m), dtype=torch.int32,
                            device=src.device)
@@ -175,57 +217,268 @@ def _old_k1(lib, src, dst):
     return idx, d2
 
 
-def _old_k2(lib, p, q, n, w):
-    """K2 of the earlier build: two launches through a (blocks, 27)
-    partial."""
-    from tpu_icp_slam_torch.kernels import _build
+def _old_k4(lib, src, dst):
+    """K4 of the earlier build with its wrapper's work: recentring and
+    packing in torch ops, then its shortlist and rescore kernels. Returns
+    (idx, d2, cand)."""
+    from tpu_icp_slam_torch.kernels import _build, nn_rescore
+    from tpu_icp_slam_torch.kernels.nn_bf16 import pack_source, pack_target
 
-    m = p.shape[0]
-    blocks = max(1, min(-(-m // 256), 2 * _build.sm_count(p.device.index)))
-    partial = torch.empty((blocks, 27), device=p.device)
-    H = torch.empty((6, 6), device=p.device)
-    g = torch.empty(6, device=p.device)
-    _build.check(lib.gn_accum_f32(
-        p.data_ptr(), q.data_ptr(), n.data_ptr(), w.data_ptr(), m, blocks,
-        partial.data_ptr(), H.data_ptr(), g.data_ptr(),
-        torch.cuda.current_stream().cuda_stream), "old gn_accum_f32")
-    return H, g
+    m = src.shape[0]
+    sc, dp, tn, s = nn_rescore._prepare(src, dst, 0)
+    a_aug, b_aug = pack_source(sc), pack_target(dp)
+    cand = torch.empty((s, m), dtype=torch.int32, device=src.device)
+    idx = torch.empty(m, dtype=torch.int32, device=src.device)
+    d2 = torch.empty(m, dtype=torch.float32, device=src.device)
+    _build.check(lib.nn_rescore_f32(
+        a_aug.data_ptr(), b_aug.data_ptr(), sc.data_ptr(), dp.data_ptr(), m,
+        s, tn, cand.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "old nn_rescore_f32")
+    return idx, d2, cand
+
+
+def _k5_launch(lib, new, args, r_gate, precision, kw, grid):
+    """One align through `lib`'s icp_fused_f32 at a given grid, prepared as
+    kernels/icp_fused.icp_fused prepares it; new: the current entry point
+    (it also takes the (n, 3) model)."""
+    from tpu_icp_slam_torch.kernels import _build, icp_fused
+    from tpu_icp_slam_torch.kernels.nn_bf16 import pack_target
+
+    bf16 = precision == "bf16"
+    srcc, smask, dstc, nrmc, T0c, gate = icp_fused._prepare(*args, None,
+                                                            r_gate)
+    m, n = srcc.shape[0], dstc.shape[0]
+    src4 = torch.cat([srcc, smask[:, None]], dim=1)
+    model4 = torch.nn.functional.pad(dstc, (0, 1))
+    nrm4 = torch.nn.functional.pad(nrmc, (0, 1))
+    baug = pack_target(dstc) if bf16 else None
+    partials = torch.empty((2, grid, icp_fused._SUMS_STRIDE),
+                           device=srcc.device)
+    out = torch.empty(20, device=srcc.device)
+    params = icp_fused._Params(**icp_fused._params(**kw))
+    model = ((dstc.data_ptr(),) if new else ()) + (model4.data_ptr(),)
+    _build.check(lib.icp_fused_f32(
+        src4.data_ptr(), m, *model, nrm4.data_ptr(),
+        None if baug is None else baug.data_ptr(), n, T0c.data_ptr(),
+        gate.data_ptr(), ctypes.addressof(params), int(bf16), grid,
+        partials.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "icp_fused_f32")
+    return (icp_fused._conjugate_out(out[:16].view(4, 4), gate[1:]), out[16],
+            out[17].to(torch.int32), out[18].to(torch.int32), out[19] > 0.5)
+
+
+def _time_turns(old, new):
+    """Device ms, call ms and kernel ms of old and new, in turns old, new,
+    new, old."""
+    out = {"device_ms": {"old": [], "new": []},
+           "call_ms": {"old": [], "new": []},
+           "kernel_ms": {"old": [], "new": []}}
+    for which in ("old", "new", "new", "old"):
+        fn = old if which == "old" else new
+        out["device_ms"][which].append(chip_smoke._device_ms(fn))
+        out["call_ms"][which].append(chip_smoke._call_ms(fn))
+        out["kernel_ms"][which].append(chip_smoke._kernel_ms(fn)[0])
+    return out
+
+
+def _fmt_turns(t):
+    return " | ".join(
+        f"{key} old {v['old'][0]:.4f}, new {v['new'][0]:.4f}, new "
+        f"{v['new'][1]:.4f}, old {v['old'][1]:.4f}" for key, v in t.items())
 
 
 def kernels_ab(old_csrc, pts, msk):
-    from tpu_icp_slam_torch.kernels import gn_cuda, nn_cuda
+    from tpu_icp_slam_torch.kernels import (
+        _build, icp_fused, nn_cuda, nn_rescore, packed_mma,
+    )
 
     lib = _old_library(Path(old_csrc))
+    new_lib = _build.load()
     src, dst, _ = chip_smoke.k1_inputs(pts)
     bsrc, bdst = chip_smoke.k1_batched_inputs(pts)
-    gn_in = chip_smoke.k2_inputs(src, msk[1])
-    cases = [
-        ("K1 16384x16384", lambda: nn_cuda.nn_bruteforce(src, dst),
-         lambda: _old_k1(lib, src, dst)),
-        ("K1 batched B=16 G=8", lambda: nn_cuda.nn_bruteforce(bsrc, bdst),
-         lambda: _old_k1(lib, bsrc, bdst)),
-        ("K2 M=16384", lambda: gn_cuda.gn_accum(*gn_in),
-         lambda: _old_k2(lib, *gn_in)),
-    ]
     out = {}
-    for name, new, old in cases:
+    for name, new, old in (
+            ("K1 16384x16384", lambda: nn_cuda.nn_bruteforce(src, dst),
+             lambda: _old_k1(lib, src, dst)),
+            ("K1 batched B=16 G=8", lambda: nn_cuda.nn_bruteforce(bsrc, bdst),
+             lambda: _old_k1(lib, bsrc, bdst))):
         a, b = new(), old()
         torch.cuda.synchronize()
         equal = all(torch.equal(x, y) for x, y in zip(a, b))
-        times = {"old": [], "new": []}
-        calls = {"old": [], "new": []}
-        for which in ("old", "new", "new", "old"):
-            fn = old if which == "old" else new
-            times[which].append(chip_smoke._device_ms(fn))
-            calls[which].append(chip_smoke._call_ms(fn))
+        t = _time_turns(old, new)
         print(f"[kernels] {name}: new outputs equal the old bit for bit: "
-              f"{equal} | device ms old {times['old'][0]:.4f}, new "
-              f"{times['new'][0]:.4f}, new {times['new'][1]:.4f}, old "
-              f"{times['old'][1]:.4f} | one call ms old "
-              f"{calls['old'][0]:.4f}, new {calls['new'][0]:.4f}, new "
-              f"{calls['new'][1]:.4f}, old {calls['old'][1]:.4f}")
+              f"{equal} | {_fmt_turns(t)}")
         assert equal, f"{name}: the new kernel's outputs differ from the old"
-        out[name] = {"equal": equal, "device_ms": times, "call_ms": calls}
+        out[name] = {"equal": equal, **t}
+
+    # K4: the old kernel on the plain packing, the new one packing itself
+    det = nn_rescore.nn_rescore_detail(src, dst)
+    old_idx, old_d2, old_cand = _old_k4(lib, src, dst)
+    plain = nn_rescore.shortlist_ref(src, dst)
+    torch.cuda.synchronize()
+    packing_equal = all(chip_smoke.bits_equal(det[k], plain[k])
+                        for k in ("sc", "dp", "a_aug", "b_aug"))
+    cand_agree = float((det["cand"] == old_cand).float().mean())
+    near = packed_mma.near_ties(det["a_aug"], det["b_aug"], det["cand"],
+                                old_cand)
+    same = det["idx"] == old_idx
+    agree = float(same.float().mean())
+    d2_equal = torch.equal(det["d2"][same], old_d2[same])
+    t = _time_turns(lambda: _old_k4(lib, src, dst),
+                    lambda: nn_rescore.nn_rescore(src, dst))
+    print(f"[kernels] K4 16384x16384: packing bit-equal {packing_equal} | "
+          f"candidates equal {cand_agree:.6f}, every difference a near-tie "
+          f"{bool(near.all())} | idx agree {agree:.6f}, d2 equal where they "
+          f"do {d2_equal} | {_fmt_turns(t)}")
+    assert packing_equal and bool(near.all()) and agree >= 0.999 \
+        and d2_equal and cand_agree >= 0.999, "K4 disagrees with the old"
+    out["K4 16384x16384"] = {"packing_equal": packing_equal,
+                             "cand_agree": cand_agree, "idx_agree": agree,
+                             **t}
+
+    # K5 at the same grid for both builds
+    args, r_gate = chip_smoke._first_align_problem(pts, msk)
+    m = args[0].shape[0]
+    for prec in ("highest", "bf16"):
+        precision, kw = icp_fused.fused_args(chip_smoke.slice_config(
+            loop_backend="fused", nn_precision=prec).icp)
+        grid = min(-(-m // icp_fused._ROWS),
+                   icp_fused.max_blocks(src.device, prec == "bf16"),
+                   _int_out(lambda p: lib.icp_fused_max_blocks(
+                       int(prec == "bf16"), p)))
+        run = {which: (lambda which=which: _k5_launch(
+            new_lib if which == "new" else lib, which == "new", args, r_gate,
+            precision, kw, grid)) for which in ("old", "new")}
+        a, b = run["new"](), run["old"]()
+        wrapper = icp_fused.icp_fused(*args, r_gate=r_gate,
+                                      precision=precision, **kw)
+        torch.cuda.synchronize()
+        gaps = chip_smoke._k5_gaps(a, b)
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        as_wrapper = all(torch.equal(x, y) for x, y in zip(a, wrapper))
+        bad = chip_smoke._k5_mismatches(a, b, prec)
+        t = _time_turns(run["old"], run["new"])
+        print(f"[kernels] K5 {prec} (grid {grid}; the wrapper's result "
+              f"equal: {as_wrapper}): new T/rmse/iters/inliers/converged "
+              f"equal the old bit for "
+              f"bit: {equal} | iters {int(a[2])} ({int(b[2])}) inliers "
+              f"{int(a[3])} ({int(b[3])}) | gaps "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} | "
+              f"{_fmt_turns(t)}")
+        if prec == "highest":
+            assert equal, "K5 highest differs from the old kernel"
+        else:
+            assert not bad, f"K5 bf16 outside K5_BOUNDS of the old: {bad}"
+        out[f"K5 {prec}"] = {"equal": equal, "grid": grid, "gaps": gaps, **t}
+    return out
+
+
+def profiler_effect(pts, msk, rounds):
+    """Frames/s of two cells before and after one profiler run in the same
+    process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_frames = len(pts) - 1
+    runs = {k: v for k, v in _cells(pts, msk).items()
+            if k in ("fused-highest", "steps-highest")}
+
+    def rates():
+        out = {name: [] for name in runs}
+        for _ in range(rounds):
+            for name, run in runs.items():
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                out[name].append(n_frames / (time.perf_counter() - t0))
+        return out
+
+    before = rates()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+    after = rates()
+    for name in runs:
+        print(f"[profiler effect] {name}: frames/s before "
+              f"{[f'{v:.3f}' for v in before[name]]} (median "
+              f"{statistics.median(before[name]):.3f}), after one profiler "
+              f"run {[f'{v:.3f}' for v in after[name]]} (median "
+              f"{statistics.median(after[name]):.3f})")
+    return {"before": before, "after": after}
+
+
+# The hot loops --sass reads: a piece of the kernel's mangled name -> (the
+# opcode that does one unit of work, and the scores or pairs that one warp
+# instruction of it does: an mma m16n8k16 scores 128 pairs, an FMNMX
+# takes one pair a lane).
+SASS_LOOPS = {
+    "19nn_shortlist_kernel": ("HMMA", 128),
+    "16icp_fused_kernelILb1E": ("HMMA", 128),
+    "16icp_fused_kernelILb0E": ("FMNMX", 32),
+    "15nn_split_kernel": ("FMNMX", 32),
+}
+_SASS_LINE = re.compile(
+    r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _sass_functions(text):
+    """{mangled name: [(address, opcode, branch target or None), ...]}"""
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name and (m := _SASS_LINE.match(line)):
+            op = m.group(2).split(".")[0]
+            tgt = re.search(r"0x([0-9a-f]+)", m.group(3)) if op == "BRA" \
+                else None
+            funcs[name].append((int(m.group(1), 16), op,
+                                int(tgt.group(1), 16) if tgt else None))
+    return funcs
+
+
+def _hot_loop(ins, op):
+    """The innermost loop (a backward branch's span) that holds `op`:
+    (first address, last address, the opcodes in it), or None."""
+    best = None
+    for addr, o, tgt in ins:
+        if o != "BRA" or tgt is None or tgt > addr:
+            continue
+        body = [x for a, x, _ in ins if tgt <= a <= addr]
+        if op in body and (best is None or len(body) < len(best[2])):
+            best = (tgt, addr, body)
+    return best
+
+
+def sass_report():
+    """Build the kernels with ptxas's report, disassemble the library with
+    cuobjdump and count the static instructions of each SASS_LOOPS kernel's
+    innermost loop that holds its work opcode."""
+    from tpu_icp_slam_torch.kernels import _build
+
+    lib = _build.library_path()
+    lib.unlink(missing_ok=True)  # a fresh build, so ptxas reports
+    _build.build(verbose=True)
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    out = {}
+    for name, ins in _sass_functions(text).items():
+        for key, (op, per) in SASS_LOOPS.items():
+            loop = key in name and _hot_loop(ins, op)
+            if not loop:
+                continue
+            lo, hi, body = loop
+            work = body.count(op)
+            ops = {o: body.count(o) for o in sorted(set(body),
+                                                    key=body.count)[::-1]}
+            per_unit = len(body) * 32 / (work * per)
+            print(f"[sass] {key}: loop 0x{lo:x}-0x{hi:x}, {len(body)} "
+                  f"instructions, {work} {op} -> {per_unit:.3f} "
+                  f"lane-instructions per {'score' if op == 'HMMA' else 'pair'}"
+                  f" | {ops}")
+            out[key] = {"instructions": len(body), op: work,
+                        "per_unit": per_unit, "opcodes": ops}
     return out
 
 
@@ -233,15 +486,28 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--old-csrc", default=None,
-                    help="compare K1 and K2 with the build of this csrc/")
+                    help="compare K1, K4 and K5 with the build of this csrc/")
+    ap.add_argument("--profiler-effect", action="store_true",
+                    help="frames/s before and after one profiler run")
+    ap.add_argument("--sass", action="store_true",
+                    help="ptxas report and the hot loops' SASS instructions")
     args = ap.parse_args()
     chip_smoke.phase_device()
+    if args.sass:
+        print(json.dumps({"sass": sass_report()}))
+        print(json.dumps({"done": True}))
+        return 0
     chip_smoke.phase_build()
     pts, msk, _ = chip_smoke._scans(
         chip_smoke.FRAMES, 48, 1024, chip_smoke.FRAMES / 110.0, 0.15,
         chip_smoke.SCAN_POINTS)
     if args.old_csrc:
         print(json.dumps({"kernels_ab": kernels_ab(args.old_csrc, pts, msk)}))
+        print(json.dumps({"done": True}))
+        return 0
+    if args.profiler_effect:
+        print(json.dumps({"profiler_effect": profiler_effect(
+            pts, msk, args.rounds)}))
         print(json.dumps({"done": True}))
         return 0
     n_frames = len(pts) - 1

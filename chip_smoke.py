@@ -36,7 +36,13 @@ nonzero and the final line is not printed:
      steps path's.
  10. Ten frames of the steps path at nn_precision="bf16": one K3 launch per
      ICP iteration, no K1.
- 11. K4 (nn_rescore) vs its plain version at 16,384 x 16,384, sentinel rows.
+ 11. K4 (nn_rescore) vs its plain version at 16,384 x 16,384, sentinel rows:
+     the device packing bit-equal to the plain packing, the tensor-core
+     candidates equal to the plain version's on >= 0.999 of the (slot, row)
+     entries and every difference a near-tie, each candidate's score within
+     TAU of the exact packed score, picks and d2 as the plain version's;
+     and the tensor-core scorer over the whole target (packed_mma_argmin),
+     whose largest score error is the measured tau.
  12. K1's batched form (loop-closure verification) vs its plain version at
      B = 16 (two targets, eight yaws each), M = N = 16,384, and B = 1 bit
      for bit equal to phase 2's unbatched call.
@@ -47,6 +53,10 @@ nonzero and the final line is not printed:
      end's ICP iterations, K3 = K5 = 0, and every K1 launch a batched
      verification launch, as many as the batched iterations verification
      ran.
+ 14. profile: torch.profiler over each kernel's back-to-back calls (its
+     row's kernel_ms) and over K4's and K5's wrappers (launches and host
+     time a call). Last, because a process that has run the profiler keeps
+     its tracing hooks and runs host-bound frames slower.
 
 Every kernel's launch count is read from the path that runs it, with the
 counts set to 0 just before and read just after. The line before the last
@@ -56,12 +66,14 @@ Each kernel row of the summary holds: launches on its path and
 launches_per_frame; max_abs_err against the plain version; ms, the device
 time of one call (CUDA events around 50 back-to-back calls behind a sleep
 kernel that keeps the card ahead of the host, divided by 50; 10 for K5);
-call_ms, one call timed alone (device time plus the wrapper's host work);
-plain_ms, the plain version's time; bound_ms and bound_by, the least time
-the card could take (FP32 or bf16 operations over the published H100 peak,
-or bytes over 3.35 TB/s, whichever is larger), from this run's shapes and
-iteration counts; library_ms, null: no single PyTorch call computes any of
-these functions.
+kernel_ms, the device time of the port's own CUDA kernels in one call,
+summed from a torch.profiler run over 20 back-to-back calls (10 for K5) in
+phase 14, and kernel_parts, the same by kernel; call_ms, one call timed alone (device
+time plus the wrapper's host work); plain_ms, the plain version's time;
+bound_ms and bound_by, the least time the card could take (FP32 or bf16
+operations over the published H100 peak, or bytes over 3.35 TB/s,
+whichever is larger), from this run's shapes and iteration counts;
+library_ms, null: no single PyTorch call computes any of these functions.
 """
 
 from __future__ import annotations
@@ -211,6 +223,76 @@ def _device_ms(fn, n=50, reps=5, strict=True):
     return statistics.median(times)
 
 
+# The port's own CUDA kernels (csrc/*.cu), as the profiler names them.
+OWN_KERNELS = ("nn_split_kernel", "nn_fold_kernel", "gn_accum_kernel",
+               "nn_bf16_split_kernel", "nn_centre_kernel", "nn_pack_kernel",
+               "nn_shortlist_kernel", "nn_rescore_kernel", "icp_fused_kernel",
+               "coop_probe_kernel")
+
+
+def _kernel_ms(fn, n=20):
+    """Device time per call of the port's own kernels in fn: a
+    torch.profiler run over n back-to-back calls (after a warm-up), the
+    kernels' own time divided by n; (total, {kernel: ms})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = next((k for k in OWN_KERNELS if k in ev.key), None)
+        if name:
+            parts[name] = (parts.get(name, 0.0)
+                           + ev.self_device_time_total / 1e3 / n)
+    if not parts:
+        raise RuntimeError("the profiler saw none of the port's kernels")
+    return sum(parts.values()), parts
+
+
+def _wrapper_profile(fn, n=10):
+    """Where one call of a kernel's wrapper spends its time: a
+    torch.profiler run over n calls after a warm-up; per call, the runtime
+    launch calls (kernels started), the host time of the whole call, and
+    the three torch ops with the most host time of their own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    launches = sum(a.count for a in avgs
+                   if a.key.startswith(("cudaLaunch", "cuLaunch"))) / n
+    ops = sorted((a for a in avgs if a.key.startswith("aten::")),
+                 key=lambda a: -a.self_cpu_time_total)[:3]
+    top = ", ".join(f"{a.key} {a.count / n:.0f}x "
+                    f"{a.self_cpu_time_total / 1e3 / n:.3f} ms" for a in ops)
+    return (f"{launches:.0f} launches a call, host {host_ms:.3f} ms a call "
+            f"(profiled), most host time in {top}")
+
+
+def bits_equal(a, b):
+    """Same dtype, shape and bits (so -0.0 differs from 0.0)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return torch.equal(a.contiguous().view(view[a.element_size()]),
+                       b.contiguous().view(view[b.element_size()]))
+
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet; dense, at 700 W).
 H100_FP32_FLOPS = 67e12
 H100_BF16_FLOPS = 989e12
@@ -229,16 +311,18 @@ def _bound(flops, nbytes, peak_flops=H100_FP32_FLOPS):
 
 def _timings(run, plain, bound, n=50, plain_n=3):
     """The timing keys of a kernel row: device time by the n-launch method,
-    the single-call time, the plain version's time and the bound."""
+    the single-call time, the plain version's time and the bound; and, under
+    "_profile", what phase_profile needs for kernel_ms."""
     return {"ms": _device_ms(run, n), "call_ms": _call_ms(run),
             "plain_ms": _device_ms(plain, plain_n, reps=1, strict=False),
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "_profile": (run, min(n, 20))}
 
 
 def _fmt(t):
-    return (f"kernel {t['ms']:.4f} ms on the card ({t['call_ms']:.4f} ms "
-            f"one call), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-            f"plain {t['plain_ms']:.4f} ms")
+    return (f"device {t['ms']:.4f} ms a call ({t['call_ms']:.4f} ms one call "
+            f"alone), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms")
 
 
 def k1_bound(batch, group, m, n):
@@ -517,7 +601,8 @@ def phase_probe():
             "replaces": "scripts/probe_mosaic_caps.py:38",
             "launches": launches, "launches_per_frame": None,
             "max_abs_err": 0.0, "ms": ms, "call_ms": ms, "plain_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "_profile": (lambda: coop_probe.capability_probe("cuda"), 1)}
 
 
 def phase_k3(pts, msk):
@@ -639,7 +724,7 @@ def phase_k5(pts, msk):
                      "source": "src/tpu_icp_slam_torch/csrc/icp_fused.cu",
                      "replaces":
                          "src/tpu_icp_slam/kernels/icp_fused_pallas.py:288",
-                     "max_abs_err": err, **t})
+                     "max_abs_err": err, "_wrapper": run, **t})
     # the bounds tell the precisions apart: each kernel's result fails
     # against the other precision's plain version
     for prec, other in (("highest", "bf16"), ("bf16", "highest")):
@@ -706,13 +791,17 @@ def phase_steps_bf16(pts, msk, gt):
 
 
 def phase_k4(pts, msk):
-    from tpu_icp_slam_torch.kernels import nn_cuda, nn_rescore
+    from tpu_icp_slam_torch.kernels import (
+        nn_bf16, nn_cuda, nn_rescore, packed_mma,
+    )
 
     dev = torch.device("cuda")
     src, dst, dst_np = k1_inputs(pts)
     tn, n_slots = nn_rescore.slots(len(dst_np))
     idx_k, d2_k = nn_rescore.nn_rescore(src, dst)
     idx_r, d2_r = nn_rescore.nn_rescore_ref(src, dst)
+    det = nn_rescore.nn_rescore_detail(src, dst)
+    plain = nn_rescore.shortlist_ref(src, dst)
     torch.cuda.synchronize()
     same = idx_k == idx_r
     agree = float(same.float().mean())
@@ -720,9 +809,41 @@ def phase_k4(pts, msk):
     # the rescore's d2 is the same float32 arithmetic on both sides
     assert agree >= 0.999, f"K4 index agreement {agree}"
     assert torch.equal(d2_k[same], d2_r[same]), "K4 picked d2 != plain"
+    assert torch.equal(det["idx"], idx_k) and torch.equal(det["d2"], d2_k), \
+        "K4 with its scores kept differs from the main path's call"
     idx_np = idx_k.cpu().numpy()
     assert np.all(idx_np[msk[1]] < len(dst_np) - 1024), \
         "K4 matched a real point to a sentinel row"
+    # the device packing is the plain packing, bit for bit
+    for k in ("sc", "dp", "a_aug", "b_aug"):
+        assert bits_equal(det[k], plain[k]), f"K4 device packing: {k}"
+    # tensor-core candidates: the plain version's but for near-ties, and
+    # each score within TAU of the exact packed score
+    a_aug, b_aug = det["a_aug"], det["b_aug"]
+    cand_agree = float((det["cand"] == plain["cand"]).float().mean())
+    near = packed_mma.near_ties(a_aug, b_aug, det["cand"], plain["cand"])
+    exact, mag = packed_mma.exact_scores(a_aug, b_aug, det["cand"])
+    tau_k4 = float(torch.max(torch.abs(det["cand_score"].double() - exact)
+                             / torch.clamp(mag, min=1e-30)))
+    # the scorer over the whole target: the measured tau
+    idx_w, e_w = packed_mma.packed_mma_argmin(a_aug, b_aug)
+    exact_w, mag_w = packed_mma.exact_scores(a_aug, b_aug, idx_w)
+    tau_w = float(torch.max(torch.abs(e_w.double() - exact_w)
+                            / torch.clamp(mag_w, min=1e-30)))
+    idx_wr, _ = nn_bf16.packed_argmin_ref(a_aug, b_aug)
+    near_w = packed_mma.near_ties(a_aug, b_aug, idx_w, idx_wr)
+    torch.cuda.synchronize()
+    print(f"[K4 tensor cores] device packing bit-equal | candidates equal "
+          f"{cand_agree:.6f} of {tuple(det['cand'].shape)}, differing ones "
+          f"near-ties {bool(near.all())} | max |e - E| / sum|ab| "
+          f"{tau_k4:.3e} (candidates), {tau_w:.3e} (whole target, "
+          f"{float((idx_w == idx_wr).float().mean()):.6f} equal to the "
+          f"plain argmin, the rest near-ties {bool(near_w.all())}); TAU "
+          f"{packed_mma.TAU:.3e}")
+    assert cand_agree >= 0.999, f"K4 candidate agreement {cand_agree}"
+    assert bool(near.all()), "K4 candidate that is no near-tie"
+    assert bool(near_w.all()), "scorer pick that is no near-tie"
+    assert max(tau_k4, tau_w) <= packed_mma.TAU, (tau_k4, tau_w)
     # measured, not held: how often the pick is at the exact search's
     # distance (K1's plain version). The packed score drops the lo·lo terms
     # (~1e-2 m² at scene extent), so two near-tied points of one slot can
@@ -743,7 +864,8 @@ def phase_k4(pts, msk):
     return {"name": "nn_rescore", "route": "cuda",
             "source": "src/tpu_icp_slam_torch/csrc/nn_shortlist.cu",
             "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:142",
-            "max_abs_err": err, **t}
+            "max_abs_err": err, "tau_measured": max(tau_k4, tau_w),
+            "_wrapper": lambda: nn_rescore.nn_rescore(src, dst), **t}
 
 
 def _yawed(points, yaws):
@@ -857,6 +979,25 @@ def phase_full_slam():
     return c["K4"], c["K1"], n_frames
 
 
+def phase_profile(rows):
+    """Last: torch.profiler over each kernel's back-to-back calls gives its
+    row's kernel_ms and kernel_parts (the port's own kernels alone), and
+    over K4's and K5's wrappers where their host time goes. It runs after
+    the end-to-end phases: once the profiler has traced the card, the
+    process keeps its tracing hooks, and host-bound frames run slower."""
+    for row in rows:
+        run, n = row.pop("_profile")
+        row["kernel_ms"], row["kernel_parts"] = _kernel_ms(run, n)
+        parts = ", ".join(f"{k} {v:.4f}"
+                          for k, v in row["kernel_parts"].items())
+        print(f"[profile] {row['name']}: own kernels {row['kernel_ms']:.4f} "
+              f"ms a call ({parts}) against {row['ms']:.4f} ms device time")
+        wrapper = row.pop("_wrapper", None)
+        if wrapper is not None:
+            print(f"[profile] {row['name']} wrapper: "
+                  f"{_wrapper_profile(wrapper)}")
+
+
 def _count(row, launches, n_frames):
     row["launches"] = launches
     row["launches_per_frame"] = launches / n_frames
@@ -885,8 +1026,9 @@ def main() -> int:
     k4, k1b, n_frames = phase_full_slam()
     _count(k4_row, k4, n_frames)
     _count(k1b_row, k1b, n_frames)
-    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row, *k5_rows,
-                                  probe_row, k1b_row]}))
+    rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row]
+    phase_profile(rows)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 // K5: the whole point-to-plane ICP loop of one align in one launch, for
 // sm_90a.
 //
-// Replaces tpu_icp_slam/kernels/icp_fused_pallas.py::_icp_kernel (wrapper
+// Replaces tpu_icp_slam/kernels/icp_fused_pallas.py::_icp_kernel
+// (icp_fused_pallas.py:288; its pallas_call at :803, wrapper
 // icp_fused_pallas). Every iteration: transform the scan by T, find each
 // point's nearest model point (exact float32 difference form, or the packed
 // bf16 score of packed_d2.cuh), gather q and n, gate by distance, coverage
@@ -12,11 +13,13 @@
 // runs in the frame recentred on the model's bounding box; the wrapper
 // (kernels/icp_fused.py) conjugates in and out.
 //
-// What bounds it on an H100: per iteration, the NN is 2.7e8 pairs at the
-// main-path shape (M = N = 16,384), FP32 CUDA-core issue rate as in K1/K3;
-// everything else is small. What it removes is the host: the steps loop
-// issues ~85 small launches and one host sync per iteration, this kernel one
-// launch per align.
+// What bounds it on an H100 (chip_smoke.k5_bound): per iteration, the NN
+// over M x N pairs — 9 FP32 flops a pair at "highest" (0.0361 ms per
+// iteration at M = N = 16,384 and 67 TFLOP/s), the 16-lane bf16 contraction
+// at "bf16" (0.0087 ms at 989 TFLOP/s); everything else is small. What the
+// single launch removes is the host: the steps loop issues ~85 small
+// launches and one host sync per iteration, this kernel one launch per
+// align.
 //
 // Design:
 //  - One cooperative launch (cudaLaunchCooperativeKernel): the grid is sized
@@ -24,11 +27,24 @@
 //    grid.sync() separates the phases of an iteration. Nothing returns to
 //    the host until the loop ends.
 //  - A block owns kRows = 64 sources at a time (grid-stride over source
-//    tiles). Its 256 threads split the model axis in kSplit = 4 contiguous
-//    quarters: warps 2q and 2q+1 scan quarter q for the same 64 sources,
-//    with model tiles staged in shared memory (a broadcast read). The
-//    quarters' (min, argmin) fold in quarter order with strict `<`, so ties
-//    go to the lowest index, as in the reference.
+//    tiles). Its first 64 threads transform them once into shared memory
+//    (and, at "bf16", pack them with packed::pack_source into bf16 rows).
+//    The block's threads split the model axis: each staged model tile is
+//    cut into kSplits equal parts, one per split, so a split sees an
+//    ascending set of model indices. The splits' (min, argmin) fold per row
+//    in shared memory by (score, index), so ties go to the lowest index, as
+//    in the reference.
+//  - "highest": the loop of nn_exact.cuh, shared with K1. 32 splits of 8
+//    threads, 8 rows a thread (rows g, g + 8, ..., g + 56), every staged
+//    model point serving all 8 from one broadcast read; min-only runs of 16
+//    with a rescan of the winning run; 1,024-point tiles of the packed
+//    (x, y, z) model through cp.async, double-buffered. The scores are
+//    K1's, bit for bit, and so are the picks of the earlier one-row-per-
+//    thread form of this kernel.
+//  - "bf16": the tensor cores through packed_mma.cuh. 8 splits of one warp;
+//    a warp holds the A fragments of all 64 rows (4 m-tiles, ldmatrix from
+//    the packed rows) and scores 64 of each 512-row tile of baug, staged as
+//    bf16 rows by cp.async, double-buffered.
 //  - The 30 sums of an iteration (21 of H's upper triangle, 6 of g, Σw,
 //    Σw·d², the inlier count) go per source row into shared memory, are
 //    summed in row order per block, and written as a per-block partial,
@@ -49,7 +65,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "nn_exact.cuh"
 #include "packed_d2.cuh"
+#include "packed_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -65,8 +83,7 @@ struct IcpParams {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSplit = 4;
-constexpr int kRows = kThreads / kSplit;
+constexpr int kRows = 64;  // sources per block tile
 constexpr int kSums = 30;
 constexpr int kStride = 32;  // floats per partial
 constexpr int kChunks = kThreads / kStride;
@@ -305,12 +322,153 @@ __device__ __noinline__ void solve_step(const float* sums, float* T,
   state[2] = conv ? 1.f : 0.f;
 }
 
+// ---- the NN of one source tile ------------------------------------------
+
+// "highest": kSplitsH splits of kThreads / kSplitsH threads, kRowsH rows a
+// thread; each kTileH-point tile gives every split kPartH points.
+constexpr int kSplitsH = 32;
+constexpr int kRowsH = kRows * kSplitsH / kThreads;  // 8
+constexpr int kTileH = 1024;
+constexpr int kPartH = kTileH / kSplitsH;  // 32: two runs
+static_assert(kPartH % exact::kSub == 0, "whole runs per split");
+// "bf16": one warp a split, all kRows rows (kMtB m-tiles) per warp; each
+// kTileB-row tile of baug gives every split kPartB rows.
+constexpr int kSplitsB = kThreads / 32;
+constexpr int kMtB = kRows / 16;
+constexpr int kTileB = 512;
+constexpr int kPartB = kTileB / kSplitsB;  // 64
+constexpr int kTileBytesB = kTileB * packed_mma::kRowBytes;
+static_assert(kPartB % 16 == 0, "whole ldmatrix.x4 steps per split");
+
+// Start copying model points [t0, t0 + kTileH) into buf (packed x, y, z),
+// past n padded with +inf.
+__device__ __forceinline__ void stage_h(float* buf, const float* model3,
+                                        int t0, int n, bool vec16) {
+  exact::stage_tile<kThreads>(buf, model3 + 3 * (size_t)t0,
+                              min(kTileH, n - t0), kTileH, vec16, threadIdx.x);
+}
+
+// Start copying baug rows [t0, t0 + kTileB) into buf, past n padded with
+// packed_mma's padding row.
+__device__ __forceinline__ void stage_b(unsigned char* buf,
+                                        const __nv_bfloat16* baug, int t0,
+                                        int n) {
+  const int len = min(kTileB, n - t0);
+  const unsigned base = cp_async::smem_addr(buf);
+  for (int i = threadIdx.x; i < len; i += kThreads)
+    packed_mma::stage_row(base, i, baug + 16 * (size_t)(t0 + i));
+  for (int i = len + threadIdx.x; i < kTileB; i += kThreads)
+    packed_mma::pad_row(buf, i);
+}
+
+// Exact search of the kRows points in s_p over the model; tile 0 is already
+// in flight in tiles[0]. Leaves each split's (min, first index) per row in
+// s_best/s_idx [split][row], which alias the tiles.
+__device__ __forceinline__ void nn_highest(const float* __restrict__ model3,
+                                           int n, bool vec16,
+                                           const float4* s_p, float* tiles,
+                                           float* s_best, int* s_idx) {
+  const int split = threadIdx.x / (kThreads / kSplitsH);
+  const int g = threadIdx.x % (kThreads / kSplitsH);
+  float ax[kRowsH], ay[kRowsH], az[kRowsH], run[kRowsH], best[kRowsH];
+  int best_run[kRowsH];
+#pragma unroll
+  for (int k = 0; k < kRowsH; ++k) {
+    const float4 q = s_p[g + k * (kThreads / kSplitsH)];
+    ax[k] = q.x;
+    ay[k] = q.y;
+    az[k] = q.z;
+    run[k] = best[k] = INFINITY;
+    best_run[k] = 0;
+  }
+  const int n_tiles = (n + kTileH - 1) / kTileH;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = t * kTileH;
+    if (t + 1 < n_tiles)
+      stage_h(tiles + ((t + 1) & 1) * 3 * kTileH, model3, t0 + kTileH, n,
+              vec16);
+    cp_async::commit();
+    cp_async::wait_prior();  // tile t has landed
+    __syncthreads();
+    const float4* v = reinterpret_cast<const float4*>(tiles +
+                                                      (t & 1) * 3 * kTileH) +
+                      3 * (split * kPartH / 4);
+#pragma unroll
+    for (int r = 0; r < kPartH / exact::kSub; ++r) {
+      exact::run_min<kRowsH>(v + 3 * r * (exact::kSub / 4), exact::kSub / 4,
+                             ax, ay, az, run);
+      exact::close_run<kRowsH>(run, best, best_run,
+                               t0 + split * kPartH + r * exact::kSub);
+    }
+    __syncthreads();  // every split is done with this buffer
+  }
+#pragma unroll
+  for (int k = 0; k < kRowsH; ++k) {
+    int idx = 0;
+    if (best[k] < INFINITY) {
+      const int j0 = best_run[k];
+      idx = exact::rescan(ax[k], ay[k], az[k], best[k], j0,
+                          min(exact::kSub, n - j0), model3 + 3 * (size_t)j0);
+    }
+    const int row = g + k * (kThreads / kSplitsH);
+    s_best[split * kRows + row] = best[k];
+    s_idx[split * kRows + row] = idx;
+  }
+}
+
+// Packed bf16 search of the kRows packed rows in s_a over baug on the
+// tensor cores; tile 0 is already in flight in tiles[0]. Leaves each split's
+// (min, first index) per row in s_best/s_idx, which alias the tiles.
+__device__ __forceinline__ void nn_bf16(const __nv_bfloat16* __restrict__ baug,
+                                        int n, const unsigned char* s_a,
+                                        unsigned char* tiles, float* s_best,
+                                        int* s_idx) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned a[kMtB][4];
+  float best[kMtB][2];
+  int idx[kMtB][2];
+#pragma unroll
+  for (int mt = 0; mt < kMtB; ++mt) {
+    packed_mma::load_a(a[mt], cp_async::smem_addr(s_a), 16 * mt, lane);
+    best[mt][0] = best[mt][1] = INFINITY;
+    idx[mt][0] = idx[mt][1] = 0;
+  }
+  const int n_tiles = (n + kTileB - 1) / kTileB;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = t * kTileB;
+    if (t + 1 < n_tiles)
+      stage_b(tiles + ((t + 1) & 1) * kTileBytesB, baug, t0 + kTileB, n);
+    cp_async::commit();
+    cp_async::wait_prior();  // tile t has landed
+    __syncthreads();
+    const unsigned tile =
+        cp_async::smem_addr(tiles + (t & 1) * kTileBytesB);
+#pragma unroll
+    for (int n0 = 0; n0 < kPartB; n0 += 16)
+      packed_mma::score16<kMtB>(a, tile, warp * kPartB + n0, t0, lane, best,
+                                idx);
+    __syncthreads();  // every split is done with this buffer
+  }
+#pragma unroll
+  for (int mt = 0; mt < kMtB; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      packed_mma::quad_min(best[mt][h], idx[mt][h]);
+      if ((lane & 3) == 0) {
+        const int row = 16 * mt + (lane >> 2) + 8 * h;
+        s_best[warp * kRows + row] = best[mt][h];
+        s_idx[warp * kRows + row] = idx[mt][h];
+      }
+    }
+}
+
 // ---- the kernel ----------------------------------------------------------
 
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 icp_fused_kernel(const float4* __restrict__ src,   // (m) [x-c, y, z, mask]
                  int m,
+                 const float* __restrict__ model3,  // (n, 3) [x-c, y, z]
                  const float4* __restrict__ model,  // (n) [x-c, y, z, 0]
                  const float4* __restrict__ nrm,    // (n) [nx, ny, nz, 0]
                  const __nv_bfloat16* __restrict__ baug,  // (n, 16), bf16
@@ -320,97 +478,88 @@ icp_fused_kernel(const float4* __restrict__ src,   // (m) [x-c, y, z, mask]
                  IcpParams p,
                  float* __restrict__ partials,    // (2, gridDim.x, kStride)
                  float* __restrict__ out) {       // (20) T, rmse, it, inl, conv
-  constexpr int kTile = kBf16 ? 128 : 256;  // model points per quarter tile
-  constexpr int kW = kBf16 ? 4 : 1;         // float4 per staged point
-  __shared__ float4 s_tile[kSplit][kTile][kW];
-  __shared__ float s_best[kSplit][kRows];
-  __shared__ int s_idx[kSplit][kRows];
+  constexpr int kSplits = kBf16 ? kSplitsB : kSplitsH;
+  constexpr int kNnBytes = kBf16 ? 2 * kTileBytesB : 2 * 3 * kTileH * 4;
+  static_assert(kSplits * kRows * 8 <= kNnBytes, "fold arrays fit the tiles");
+  __shared__ __align__(128) unsigned char s_nn[kNnBytes];
+  __shared__ __align__(128) unsigned char s_a[kBf16 ? kRows * 32 : 16];
+  __shared__ float4 s_p[kRows];  // transformed sources [x, y, z, mask]
   __shared__ float s_acc[kRows][kSums + 1];
   __shared__ float s_red[kChunks][kStride];
   __shared__ float s_sums[kStride];
   __shared__ float s_T[16], s_T0[16], s_state[3];
+  float* s_best = reinterpret_cast<float*>(s_nn);
+  int* s_idx = reinterpret_cast<int*>(s_nn + kSplits * kRows * 4);
 
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
-  const int row = tid % kRows;
-  const int quarter = tid / kRows;
   if (tid < 16) {
     s_T[tid] = T0[tid];
     s_T0[tid] = T0[tid];
   }
   const float c[3] = {gate[1], gate[2], gate[3]};
   const float rg2 = gate[0] * gate[0];
-  const int qlen = (n + kSplit - 1) / kSplit;
-  const int q_begin = min(n, quarter * qlen);
-  const int q_end = min(n, q_begin + qlen);
   const int n_tiles = (m + kRows - 1) / kRows;
+  const bool vec16 = (reinterpret_cast<uintptr_t>(model3) & 15) == 0;
   __syncthreads();
 
   int it = 0;
   float rmse = INFINITY, n_inl = 0.f;
   bool conv = false;
   while (it < p.max_iters && !conv) {
-    float T[12];
-#pragma unroll
-    for (int e = 0; e < 12; ++e) T[e] = s_T[e];
     for (int k = tid; k < kRows * (kSums + 1); k += kThreads)
       (&s_acc[0][0])[k] = 0.f;
 
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int i = tile * kRows + row;
-      float px = 0.f, py = 0.f, pz = 0.f, pm = 0.f;
-      if (i < m) {
-        const float4 s = src[i];
-        px = T[0] * s.x + T[1] * s.y + T[2] * s.z + T[3];
-        py = T[4] * s.x + T[5] * s.y + T[6] * s.z + T[7];
-        pz = T[8] * s.x + T[9] * s.y + T[10] * s.z + T[11];
-        pm = s.w;
-      }
-      float a[packed::kLanes];
-      if constexpr (kBf16) packed::pack_source(px, py, pz, a);
-      float best = INFINITY;
-      int best_idx = q_begin;
-      for (int t0 = 0; t0 < qlen; t0 += kTile) {
-        __syncthreads();  // previous tile (and fold arrays) consumed
-        for (int e = tid; e < kSplit * kTile; e += kThreads) {
-          const int qq = e / kTile, jj = e % kTile;
-          const int gi = qq * qlen + t0 + jj;
-          if (t0 + jj < qlen && gi < n) {
-            if constexpr (kBf16)
-              packed::stage_row(baug + (size_t)packed::kLanes * gi,
-                                s_tile[qq][jj]);
-            else
-              s_tile[qq][jj][0] = model[gi];
-          }
+      const int i = tile * kRows + tid;
+      __syncthreads();  // the previous tile's fold and gather are done
+      // the first model tile flies while the sources are transformed
+      if constexpr (kBf16)
+        stage_b(s_nn, baug, 0, n);
+      else
+        stage_h(reinterpret_cast<float*>(s_nn), model3, 0, n, vec16);
+      cp_async::commit();
+      if (tid < kRows) {
+        float T[12];
+#pragma unroll
+        for (int e = 0; e < 12; ++e) T[e] = s_T[e];
+        float px = 0.f, py = 0.f, pz = 0.f, pm = 0.f;
+        if (i < m) {
+          const float4 s = src[i];
+          px = T[0] * s.x + T[1] * s.y + T[2] * s.z + T[3];
+          py = T[4] * s.x + T[5] * s.y + T[6] * s.z + T[7];
+          pz = T[8] * s.x + T[9] * s.y + T[10] * s.z + T[11];
+          pm = s.w;
         }
-        __syncthreads();
-        const int len = min(kTile, q_end - q_begin - t0);
-        for (int j = 0; j < len; ++j) {
-          float d;
-          if constexpr (kBf16) {
-            d = packed::d2(a, s_tile[quarter][j]);
-          } else {
-            const float4 b = s_tile[quarter][j][0];
-            const float dx = px - b.x, dy = py - b.y, dz = pz - b.z;
-            d = dx * dx;
-            d = fmaf(dy, dy, d);
-            d = fmaf(dz, dz, d);
-          }
-          if (d < best) {
-            best = d;
-            best_idx = q_begin + t0 + j;
-          }
+        s_p[tid] = make_float4(px, py, pz, pm);
+        if constexpr (kBf16) {
+          float a[packed::kLanes];
+          packed::pack_source(px, py, pz, a);
+          packed_mma::store_row(s_a, tid, a);
         }
       }
-      s_best[quarter][row] = best;
-      s_idx[quarter][row] = best_idx;
       __syncthreads();
-      if (quarter == 0 && i < m) {
-        for (int qq = 1; qq < kSplit; ++qq)
-          if (s_best[qq][row] < best) {
-            best = s_best[qq][row];
-            best_idx = s_idx[qq][row];
+      if constexpr (kBf16)
+        nn_bf16(baug, n, s_a, s_nn, s_best, s_idx);
+      else
+        nn_highest(model3, n, vec16, s_p, reinterpret_cast<float*>(s_nn),
+                   s_best, s_idx);
+      __syncthreads();
+      if (tid < kRows && i < m) {
+        const int row = tid;
+        // fold the splits: the lowest score, on equal scores the lowest index
+        float best = s_best[row];
+        int best_idx = s_idx[row];
+        for (int sp = 1; sp < kSplits; ++sp) {
+          const float b = s_best[sp * kRows + row];
+          const int j = s_idx[sp * kRows + row];
+          if (b < best || (b == best && j < best_idx)) {
+            best = b;
+            best_idx = j;
           }
+        }
+        const float4 pt = s_p[row];
+        const float px = pt.x, py = pt.y, pz = pt.z, pm = pt.w;
         const float4 q = model[best_idx];
         const float4 nv = nrm[best_idx];
         const float dx = px - q.x, dy = py - q.y, dz = pz - q.z;
@@ -506,13 +655,15 @@ extern "C" cudaError_t icp_fused_max_blocks(int bf16, int* blocks) {
   return bf16 ? max_blocks<true>(blocks) : max_blocks<false>(blocks);
 }
 
-// src4 (m, 4), model4/nrm4 (n, 4) float32, baug (n, 16) bf16 (bf16 mode,
-// else unused), T0 (4, 4) and gate (4,) float32 on the device; params on
-// the host; scratch partials (2, grid, 32); out (20,) float32. The grid must
-// not exceed icp_fused_max_blocks: a larger cooperative launch is refused.
+// src4 (m, 4), model3 (n, 3), model4/nrm4 (n, 4) float32 (model3 and
+// model4 the same points), baug (n, 16) bf16 (bf16 mode, else unused), T0
+// (4, 4) and gate (4,) float32 on the device; params on the host; scratch
+// partials (2, grid, 32); out (20,) float32. The grid must not exceed
+// icp_fused_max_blocks: a larger cooperative launch is refused.
 extern "C" cudaError_t icp_fused_f32(const float* src4, int m,
-                                     const float* model4, const float* nrm4,
-                                     const void* baug, int n, const float* T0,
+                                     const float* model3, const float* model4,
+                                     const float* nrm4, const void* baug,
+                                     int n, const float* T0,
                                      const float* gate,
                                      const IcpParams* params, int bf16,
                                      int grid, float* partials, float* out,
@@ -523,7 +674,8 @@ extern "C" cudaError_t icp_fused_f32(const float* src4, int m,
   const float4* no = reinterpret_cast<const float4*>(nrm4);
   const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(baug);
   IcpParams p = *params;
-  void* args[] = {&s, &m, &mo, &no, &b, &n, &T0, &gate, &p, &partials, &out};
+  void* args[] = {&s,  &m,    &model3, &mo, &no,       &b,  &n,
+                  &T0, &gate, &p,      &partials, &out};
   const void* fn = bf16 ? (const void*)icp_fused_kernel<true>
                         : (const void*)icp_fused_kernel<false>;
   cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(grid),

@@ -14,24 +14,12 @@
 // instructions per pair.
 //
 // Design:
-//  - Register blocking. A block of kThreads threads owns kBlockRows source
-//    points, kRows per thread (rows threadIdx.x + k * kThreads, so the one
-//    load of the sources is coalesced). Each staged target serves kRows
-//    pairs from one broadcast shared-memory read: four targets are three
-//    LDS.128 of the packed (x, y, z) stream.
-//  - Cheap argmin bookkeeping. A pair costs its 6 FP32 instructions (3
-//    FADD, 1 FMUL, 2 FFMA) plus one FMNMX: within a run of kSub targets a
-//    row keeps only the minimum. After the run, the run's minimum replaces
-//    the row's best with a strict `<`, and the run's first target is kept.
-//    After the split, each row rescans its winning run (kSub targets, from
-//    global memory, the same arithmetic, all loads in flight together) for
-//    the first target whose score equals the best. Strict `<` across runs and the first equal index in
-//    the winning run give the first minimum in index order.
-//  - Tile staging. Targets arrive in kTile-target tiles through cp.async
-//    (16-byte copies when the target array is 16-byte aligned, 4-byte ones
-//    otherwise; no integer division), double-buffered, so the next tile is
-//    in flight while this one is scored. A ragged tile is padded to four
-//    targets with +inf, whose score is +inf and never a minimum.
+//  - Register blocking, min-only runs with a rescan of the winning run, and
+//    cp.async double-buffered tiles: the loop of nn_exact.cuh (shared with
+//    K5's "highest" search). A block of kThreads threads owns kBlockRows
+//    source points, kRows per thread (rows threadIdx.x + k * kThreads, so
+//    the one load of the sources is coalesced); every thread of the block
+//    scores the same staged tile.
 //  - Grid sizing. The target axis is cut into n_split contiguous ranges,
 //    each a multiple of four targets (gridDim.y); the wrapper picks n_split
 //    from the SM count and the blocks an SM holds at once
@@ -62,61 +50,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "nn_exact.cuh"
 #include "nn_fold.cuh"
 
 namespace {
+
+using exact::kSub;
 
 constexpr int kThreads = 128;
 constexpr int kRows = 8;
 constexpr int kBlockRows = kThreads * kRows;  // nn_cuda.py::_BLOCK_ROWS
 constexpr int kTile = 256;                    // targets per staged tile
-constexpr int kSub = 16;                      // targets per min-only run
 constexpr int kSplitAlign = 4;                // nn_cuda.py::_SPLIT_ALIGN
-static_assert(kTile % kSub == 0 && kSub % 4 == 0, "tile shape");
-
-__device__ __forceinline__ float pair_d2(float ax, float ay, float az,
-                                         float bx, float by, float bz) {
-  const float dx = __fsub_rn(ax, bx);
-  const float dy = __fsub_rn(ay, by);
-  const float dz = __fsub_rn(az, bz);
-  return __fmaf_rn(dz, dz, __fmaf_rn(dy, dy, __fmul_rn(dx, dx)));
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Start copying targets [t0, t0 + len) (g points at target t0) into buf as
-// packed (x, y, z) floats, padded with +inf to a multiple of four targets.
-__device__ __forceinline__ void stage_tile(float* buf, const float* g,
-                                           int len, bool vec16) {
-  const int nf = 3 * len;
-  int i = threadIdx.x;
-  if (vec16) {
-    const int nv = nf >> 2;
-    for (; i < nv; i += kThreads) cp_async16(buf + 4 * i, g + 4 * i);
-    i = 4 * nv + threadIdx.x;
-  }
-  for (; i < nf; i += kThreads) cp_async4(buf + i, g + i);
-  const int nf_pad = 3 * ((len + 3) & ~3);
-  for (i = nf + threadIdx.x; i < nf_pad; i += kThreads) buf[i] = INFINITY;
-}
+static_assert(kTile % kSub == 0, "tile shape");
 
 __global__ void __launch_bounds__(kThreads)
 nn_split_kernel(const float* __restrict__ src, const float* __restrict__ dst,
@@ -150,54 +96,34 @@ nn_split_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   }
 
   const int n_tiles = (end - begin + kTile - 1) / kTile;
-  if (n_tiles > 0) stage_tile(tiles[0], dst + 3 * (size_t)begin,
-                              min(kTile, end - begin), vec16);
-  cp_async_commit();
+  if (n_tiles > 0) {
+    const int len = min(kTile, end - begin);
+    exact::stage_tile<kThreads>(tiles[0], dst + 3 * (size_t)begin, len,
+                                (len + 3) & ~3, vec16, threadIdx.x);
+  }
+  cp_async::commit();
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = begin + t * kTile;
     const int len = min(kTile, end - t0);
     if (t + 1 < n_tiles) {
       const int t1 = t0 + kTile;
-      stage_tile(tiles[(t + 1) & 1], dst + 3 * (size_t)t1,
-                 min(kTile, end - t1), vec16);
+      const int len1 = min(kTile, end - t1);
+      exact::stage_tile<kThreads>(tiles[(t + 1) & 1], dst + 3 * (size_t)t1,
+                                  len1, (len1 + 3) & ~3, vec16, threadIdx.x);
     }
-    cp_async_commit();
-    cp_async_wait_prior();  // tile t has landed (t + 1 may be in flight)
+    cp_async::commit();
+    cp_async::wait_prior();  // tile t has landed (t + 1 may be in flight)
     __syncthreads();
     const float4* v = reinterpret_cast<const float4*>(tiles[t & 1]);
     const int groups = (len + 3) >> 2;  // four targets = three float4
     for (int g0 = 0; g0 < groups; g0 += kSub / 4) {
-#pragma unroll
-      for (int gi = 0; gi < kSub / 4; ++gi) {
-        if (g0 + gi < groups) {
-          const float4 p = v[3 * (g0 + gi) + 0];
-          const float4 q = v[3 * (g0 + gi) + 1];
-          const float4 r = v[3 * (g0 + gi) + 2];
-#pragma unroll
-          for (int k = 0; k < kRows; ++k) {
-            const float d0 = pair_d2(ax[k], ay[k], az[k], p.x, p.y, p.z);
-            const float d1 = pair_d2(ax[k], ay[k], az[k], p.w, q.x, q.y);
-            const float d2 = pair_d2(ax[k], ay[k], az[k], q.z, q.w, r.x);
-            const float d3 = pair_d2(ax[k], ay[k], az[k], r.y, r.z, r.w);
-            run[k] = fminf(run[k], fminf(fminf(d0, d1), fminf(d2, d3)));
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        if (run[k] < best[k]) {
-          best[k] = run[k];
-          best_run[k] = t0 + 4 * g0;
-        }
-        run[k] = INFINITY;
-      }
+      exact::run_min<kRows>(v + 3 * g0, groups - g0, ax, ay, az, run);
+      exact::close_run<kRows>(run, best, best_run, t0 + 4 * g0);
     }
     __syncthreads();  // every thread is done with this buffer
   }
 
-  // The first target of the winning run that scores the best. The run's
-  // kSub scores are recomputed together, so all their loads are in flight
-  // at once.
+  // The first target of the winning run that scores the best.
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const int row = row0 + k * kThreads;
@@ -205,17 +131,8 @@ nn_split_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     int idx = begin;
     if (best[k] < INFINITY) {
       const int j0 = best_run[k];
-      const int cnt = min(kSub, end - j0);
-      const float* b = dst + 3 * (size_t)j0;
-      float d[kSub];
-#pragma unroll
-      for (int j = 0; j < kSub; ++j)
-        d[j] = j < cnt ? pair_d2(ax[k], ay[k], az[k], __ldg(b + 3 * j),
-                                 __ldg(b + 3 * j + 1), __ldg(b + 3 * j + 2))
-                       : INFINITY;
-#pragma unroll
-      for (int j = kSub - 1; j >= 0; --j)
-        if (d[j] == best[k]) idx = j0 + j;
+      idx = exact::rescan(ax[k], ay[k], az[k], best[k], j0,
+                          min(kSub, end - j0), dst + 3 * (size_t)j0);
     }
     part_d2[(size_t)split * m + row] = best[k];
     part_idx[(size_t)split * m + row] = idx;

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels in `tpu_icp_slam_torch/csrc/`.
 
-All `csrc/*.cu` files are compiled by nvcc for sm_90a into one shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers, so
-the build takes seconds). The library lands in
+Each `csrc/*.cu` file is compiled by its own nvcc process for sm_90a, all
+of them at once, and the objects are linked into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so the build
+takes seconds). The library lands in
 `build/tpu_icp_slam_torch/<sha256 of sources, headers and flags>/libkernels.so`
 at the checkout root and is reused while the sources and the shared headers
 (`csrc/*.cuh`) are unchanged. A missing nvcc or a failed build raises
@@ -61,20 +62,44 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, all started together, then one link. verbose prints
+    ptxas's register, shared-memory and spill report."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"libkernels.{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    tag = f"{os.getpid()}"
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in sources():
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed, report = [], []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        report.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_name(f"libkernels.{tag}.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stderr, end="")
+        print("".join(report), end="")
     os.replace(tmp, out)
     return out
 
@@ -92,8 +117,14 @@ def load() -> ctypes.CDLL:
             lib.nn_bruteforce_blocks_per_sm.argtypes = [ptr]
             lib.nn_bruteforce_blocks_per_sm.restype = i32
             lib.nn_rescore_f32.argtypes = [
-                ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
+                ptr, ptr, ptr, ptr, ptr]
             lib.nn_rescore_f32.restype = i32
+            lib.nn_shortlist_blocks_per_sm.argtypes = [ptr]
+            lib.nn_shortlist_blocks_per_sm.restype = i32
+            lib.packed_mma_argmin.argtypes = [ptr, ptr, i32, i32, ptr, ptr,
+                                              ptr]
+            lib.packed_mma_argmin.restype = i32
             lib.gn_accum_f32.argtypes = [
                 ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr]
             lib.gn_accum_f32.restype = i32
@@ -103,8 +134,8 @@ def load() -> ctypes.CDLL:
             lib.icp_fused_max_blocks.argtypes = [i32, ptr]
             lib.icp_fused_max_blocks.restype = i32
             lib.icp_fused_f32.argtypes = [
-                ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr,
-                ptr, ptr]
+                ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32,
+                ptr, ptr, ptr]
             lib.icp_fused_f32.restype = i32
             lib.coop_probe_f32.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                            ptr]

@@ -14,7 +14,10 @@ Both versions use the reference's polynomial arccos (|err| <= 5e-5 rad) in
 the SE(3) log of the motion prior and the trust region: it defines this
 path's numbers. In bf16 mode the reference reconstructs the gathered q and n
 from bf16 hi/lo halves (~2⁻¹⁶ relative); the port gathers them exactly in
-float32. At "highest" the NN scores the exact difference form, as K1 does.
+float32. At "highest" the NN scores the exact difference form, as K1 does
+(bit for bit); at "bf16" the kernel scores the packed operands on the tensor
+cores (csrc/packed_mma.cuh), the plain version with a float32 product, so
+the two may pick differently on near-ties (packed_mma.near_ties).
 """
 
 from __future__ import annotations
@@ -289,7 +292,8 @@ def icp_fused(src_pts, src_mask, dst_pts, dst_nrm, dst_mask, init_T=None,
     params = _Params(**_params(**kw))
     lib = _build.load()
     err = lib.icp_fused_f32(
-        src4.data_ptr(), m, model4.data_ptr(), nrm4.data_ptr(),
+        src4.data_ptr(), m, dstc.data_ptr(), model4.data_ptr(),
+        nrm4.data_ptr(),
         None if baug is None else baug.data_ptr(), n, T0c.data_ptr(),
         gate.data_ptr(), ctypes.addressof(params), int(bf16), grid,
         partials.data_ptr(), out.data_ptr(),

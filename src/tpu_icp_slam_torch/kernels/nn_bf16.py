@@ -34,11 +34,19 @@ def _lanes(cols: list[torch.Tensor]) -> torch.Tensor:
     return torch.cat([*cols, pad], dim=1)
 
 
+def _sq(x: torch.Tensor) -> torch.Tensor:
+    """|x|² (N, 1) as (x·x + y·y) + z·z, each product and sum rounded to
+    float32 on its own: the order the device packing (csrc/nn_shortlist.cu,
+    packed_d2.cuh) writes out, so that both give the same bits."""
+    sq = (x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2]
+    return sq[:, None]
+
+
 def pack_source(a: torch.Tensor) -> torch.Tensor:
     """(M, 3) f32 -> (M, 16) bf16 [-2a_hi, -2a_lo, -2a_hi, |a|²_hi,
     |a|²_lo, 1, 1, 0...]."""
     hi, lo = _split(a)
-    sq_hi, sq_lo = _split(torch.sum(a * a, dim=1, keepdim=True))
+    sq_hi, sq_lo = _split(_sq(a))
     one = torch.ones_like(sq_hi)
     return _lanes([-2 * hi, -2 * lo, -2 * hi, sq_hi, sq_lo, one, one])
 
@@ -47,7 +55,7 @@ def pack_target(b: torch.Tensor) -> torch.Tensor:
     """(N, 3) f32 -> (N, 16) bf16 [b_hi, b_hi, b_lo, 1, 1, |b|²_hi,
     |b|²_lo, 0...]."""
     hi, lo = _split(b)
-    sq_hi, sq_lo = _split(torch.sum(b * b, dim=1, keepdim=True))
+    sq_hi, sq_lo = _split(_sq(b))
     one = torch.ones_like(sq_hi)
     return _lanes([hi, hi, lo, one, one, sq_hi, sq_lo])
 

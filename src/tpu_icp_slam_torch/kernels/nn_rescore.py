@@ -19,14 +19,24 @@ nn_pallas.py:214-373, groups = 1):
 It returns (idx (M,) int32, d² (M,) float32); d² is already exact. idx
 indexes the padded target, as the reference's does: a padded (sentinel)
 source row may pick a padded target row >= N when N is not a multiple of
-TN; a real source row never does. CUDA tensors launch csrc/nn_shortlist.cu
-(shortlist kernel, then rescore kernel); CPU tensors run `nn_rescore_ref`,
-which scores each slot with a float32 product of the same packed operands
-and rescores with torch ops. The source tile size of the reference
+TN; a real source row never does. The source tile size of the reference
 (`tile_m`) does not change the result, so neither version takes it.
+
+CUDA tensors launch csrc/nn_shortlist.cu: the recentring and packing on the
+device (two launches, bit-equal to `_prepare`, `pack_source` and
+`pack_target`), the shortlist on the tensor cores (csrc/packed_mma.cuh) and
+the rescore. Its scores follow the tensor core's float32 rounding, so a
+candidate may differ from the plain version's on a near-tie of one slot
+(packed_mma.near_ties). CPU tensors run `nn_rescore_ref`: `shortlist_ref`
+scores each slot with a float32 product of the same packed operands, and the
+candidates are rescored with torch ops.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
 
 import torch
 
@@ -66,22 +76,104 @@ def _prepare(src: torch.Tensor, dst: torch.Tensor, tile_n: int):
     return sc, dp, tn, s
 
 
-def nn_rescore_ref(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0,
-                   chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch: (M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32).
-    Each slot's candidate is the first minimum of the float32 product of
-    the packed operands; the winner the first minimum, in slot order, of
-    d² = (dx² + dy²) + dz² in float32."""
+def shortlist_ref(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0,
+                  chunk: int = 2048) -> dict[str, torch.Tensor]:
+    """Plain torch: the recentred source `sc` and padded target `dp`, their
+    packed rows `a_aug` and `b_aug`, and `cand` (S, M) int32, each slot's
+    candidate (an original index into dp): the first minimum of the float32
+    product of the packed operands over the slot's rows j, j + S, ..."""
     sc, dp, _, s = _prepare(src, dst, tile_n)
     a_aug, b_aug = pack_source(sc), pack_target(dp)
     cand = torch.stack([
         packed_argmin_ref(a_aug, b_aug[j::s], chunk=chunk)[0] * s + j
-        for j in range(s)])  # (S, M) original indices
+        for j in range(s)])
+    return {"sc": sc, "dp": dp, "a_aug": a_aug, "b_aug": b_aug, "cand": cand}
+
+
+def rescore_ref(sc: torch.Tensor, dp: torch.Tensor, cand: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The winner among the candidates (S, M): the first minimum, in slot
+    order, of d² = (dx² + dy²) + dz² in float32 -> (idx, d2)."""
     diff = sc[None] - dp[cand.long()]  # (S, M, 3)
     d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
         + diff[..., 2] * diff[..., 2]
     best, slot = torch.min(d2, dim=0)  # first minimum on ties
     return torch.gather(cand, 0, slot[None])[0], best
+
+
+def nn_rescore_ref(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0,
+                   chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch: (M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32),
+    the rescore of `shortlist_ref`'s candidates."""
+    sl = shortlist_ref(src, dst, tile_n, chunk)
+    return rescore_ref(sl["sc"], sl["dp"], sl["cand"])
+
+
+@functools.cache
+def blocks_per_sm(index: int) -> int:
+    """Blocks of K4's shortlist kernel that one SM of CUDA device `index`
+    holds at once, read once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_build.load().nn_shortlist_blocks_per_sm(
+            ctypes.addressof(out)), "nn_shortlist_blocks_per_sm")
+    return max(1, out.value)
+
+
+_BLOCK_ROWS = 128  # source rows per work item (kBlockRows in nn_shortlist.cu)
+_ALIGN = 256
+# K4's scratch, carved from one device buffer: name -> (dtype, shape), the
+# shape in m (source rows), np (padded target rows) and s (slots).
+_SCRATCH = {"centre": (torch.float32, (3,)), "sc": (torch.float32, ("m", 3)),
+            "dp": (torch.float32, ("np", 3)),
+            "a_aug": (torch.bfloat16, ("m", 16)),
+            "b_aug": (torch.bfloat16, ("np", 16)),
+            "cand": (torch.int32, ("s", "m"))}
+
+
+def _workspace(m: int, np_: int, s: int, device: torch.device):
+    """The scratch buffer and its layout, name -> (byte offset, dtype,
+    shape), each array 256-byte aligned."""
+    dims = {"m": m, "np": np_, "s": s}
+    layout, total = {}, 0
+    for name, (dtype, shape) in _SCRATCH.items():
+        shape = tuple(dims.get(d, d) for d in shape)
+        layout[name] = (total, dtype, shape)
+        total += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
+    return torch.empty(total, dtype=torch.uint8, device=device), layout
+
+
+def _views(ws, layout) -> dict[str, torch.Tensor]:
+    return {name: ws[off:off + math.prod(shape) * dtype.itemsize]
+            .view(dtype).view(shape)
+            for name, (off, dtype, shape) in layout.items()}
+
+
+def _launch(src, dst, tile_n, keep):
+    _build.require_points("nn_rescore", src=src, dst=dst)
+    m, n = src.shape[0], dst.shape[0]
+    tn, s = slots(n, tile_n)
+    ws, layout = _workspace(m, s * tn, s, src.device)
+    ptr = {k: ws.data_ptr() + v[0] for k, v in layout.items()}
+    idx = torch.empty(m, dtype=torch.int32, device=src.device)
+    d2 = torch.empty(m, dtype=torch.float32, device=src.device)
+    scores = (torch.empty((s, m), dtype=torch.float32, device=src.device)
+              if keep else None)
+    index = src.device.index
+    grid = min(-(-m // _BLOCK_ROWS) * s,
+               _build.sm_count(index) * blocks_per_sm(index))
+    err = _build.load().nn_rescore_f32(
+        src.data_ptr(), dst.data_ptr(), m, n, s, tn, grid,
+        ptr["centre"], ptr["sc"], ptr["dp"], ptr["a_aug"], ptr["b_aug"],
+        ptr["cand"],
+        None if scores is None else scores.data_ptr(), idx.data_ptr(),
+        d2.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
+    _build.check(err, "nn_rescore_f32")
+    nn_rescore.launches += 1
+    if not keep:
+        return idx, d2
+    return {"idx": idx, "d2": d2, "cand_score": scores,
+            **_views(ws, layout)}
 
 
 def nn_rescore(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0
@@ -91,21 +183,16 @@ def nn_rescore(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0
     version."""
     if src.device.type == "cpu" and dst.device.type == "cpu":
         return nn_rescore_ref(src, dst, tile_n)
-    _build.require_points("nn_rescore", src=src, dst=dst)
-    m = src.shape[0]
-    sc, dp, tn, s = _prepare(src, dst, tile_n)
-    a_aug, b_aug = pack_source(sc), pack_target(dp)
-    lib = _build.load()
-    cand = torch.empty((s, m), dtype=torch.int32, device=src.device)
-    idx = torch.empty(m, dtype=torch.int32, device=src.device)
-    d2 = torch.empty(m, dtype=torch.float32, device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = lib.nn_rescore_f32(
-        a_aug.data_ptr(), b_aug.data_ptr(), sc.data_ptr(), dp.data_ptr(), m,
-        s, tn, cand.data_ptr(), idx.data_ptr(), d2.data_ptr(), stream)
-    _build.check(err, "nn_rescore_f32")
-    nn_rescore.launches += 1
-    return idx, d2
+    return _launch(src, dst, tile_n, keep=False)
+
+
+def nn_rescore_detail(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0
+                      ) -> dict[str, torch.Tensor]:
+    """CUDA only: one call of K4 that also keeps what it computed on the
+    way: idx, d2, the packed operands and recentred points (as
+    `shortlist_ref` names them), the centre, cand (S, M) and the tensor
+    cores' score of each candidate, cand_score (S, M)."""
+    return _launch(src, dst, tile_n, keep=True)
 
 
 nn_rescore.launches = 0

@@ -7,6 +7,8 @@ imports no jax, so it also runs where JAX is not installed:
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from tpu_icp_slam_torch.kernels import (
     nn_bf16,
     nn_cuda,
     nn_rescore,
+    packed_mma,
 )
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
 
@@ -578,3 +581,169 @@ def test_pipeline_on_cuda_matches_cpu(cuda_device):
     pipe = ScanToMapPipeline(cfg_xla, device=cuda_device)
     pipe.run_fused(pipe.init_state(pts[0], msk[0]), pts[1:3], msk[1:3])
     assert (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches) == k0
+
+
+def _chip_smoke():
+    """chip_smoke.py (the repository root's), for K5_BOUNDS and its checks."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bits(t):
+    return t.contiguous().view({2: torch.int16, 4: torch.int32}[
+        t.element_size()])
+
+
+def _fma_emulated_nn(src, dst, chunk=1024):
+    """K1's score chain in plain torch: dx·dx rounded to float32, then
+    fma(dy, dy, .) and fma(dz, dz, .), each exact in float64 (a float32
+    square is exact there) and rounded once to float32; the first minimum."""
+    idx_out, d2_out = [], []
+    for a in torch.split(src, chunk):
+        dx = a[:, None, 0] - dst[None, :, 0]
+        dy = a[:, None, 1] - dst[None, :, 1]
+        dz = a[:, None, 2] - dst[None, :, 2]
+        d = dx * dx
+        d = (dy.double() * dy.double() + d.double()).float()
+        d = (dz.double() * dz.double() + d.double()).float()
+        d2, idx = torch.min(d, dim=1)
+        idx_out.append(idx.to(torch.int32))
+        d2_out.append(d2)
+    return torch.cat(idx_out), torch.cat(d2_out)
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (1025, 255), (130, 4099),
+                                 (4097, 16387)])
+def test_nn_kernel_is_its_score_chain_bit_for_bit(cuda_device, m, n):
+    """K1, its loop now in csrc/nn_exact.cuh (shared with K5 at
+    "highest"), against a plain emulation of its own score chain: indices
+    and d2 equal bit for bit on ragged shapes, sentinel rows included."""
+    src, dst = _clouds(m, n, seed=3 * m + n, scale=40.0)
+    if n > 9:
+        dst[-(n // 9):] = 1.0e6
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    idx, d2 = nn_cuda.nn_bruteforce(s, d)
+    ridx, rd2 = _fma_emulated_nn(s, d)
+    assert torch.equal(idx, ridx)
+    assert torch.equal(_bits(d2), _bits(rd2))
+
+
+def _packed(s, d):
+    sc, dc = nn_bf16.recentre(s, d)
+    return nn_bf16.pack_source(sc), nn_bf16.pack_target(dc)
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (15, 17), (17, 15), (1, 16385),
+                                 (16385, 1), (16385, 16385)])
+def test_packed_mma_scorer_ragged_shapes(cuda_device, m, n):
+    """The tensor-core scorer over a whole target at ragged M and N: every
+    score within TAU·Σ|a b| of the exact packed score, every pick the plain
+    argmin's or a near-tie of it, and an exact duplicate target planted
+    across a fragment edge (7, 8) and across a tile edge (255, 256) goes to
+    the lower index."""
+    src, dst = _clouds(m, n, seed=7 * m + n, scale=30.0)
+    planted = [(a, b) for a, b in ((7, 8), (255, 256)) if b < n]
+    for k, (a, b) in enumerate(planted):
+        dst[a] = dst[b] = [0.5 + 10.0 * k, -0.25, 0.125]
+        if k < m:
+            src[k] = dst[a] + np.float32([1e-3, 0.0, 0.0])
+    s, d = (torch.from_numpy(x).to(cuda_device) for x in (src, dst))
+    a_aug, b_aug = _packed(s, d)
+    before = packed_mma.packed_mma_argmin.launches
+    idx, e = packed_mma.packed_mma_argmin(a_aug, b_aug)
+    assert packed_mma.packed_mma_argmin.launches == before + 1
+    ridx, _ = nn_bf16.packed_argmin_ref(a_aug, b_aug)
+    assert idx.shape == (m,) and idx.dtype == torch.int32
+    assert int(idx.min()) >= 0 and int(idx.max()) < n
+    exact, mag = packed_mma.exact_scores(a_aug, b_aug, idx)
+    assert float(torch.max(torch.abs(e.double() - exact) / mag)) \
+        <= packed_mma.TAU
+    assert bool(packed_mma.near_ties(a_aug, b_aug, idx, ridx).all())
+    for k, (a, _) in enumerate(planted[:m]):
+        assert int(idx[k]) == a, (k, a, int(idx[k]))
+
+
+def test_packed_mma_scorer_raises_on_bad_operands(cuda_device):
+    a = torch.zeros(8, 16, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):
+        packed_mma.packed_mma_argmin(a.float(), a)
+    with pytest.raises(ValueError):
+        packed_mma.packed_mma_argmin(a[:, :15].contiguous(), a)
+    with pytest.raises(ValueError):
+        packed_mma.packed_mma_argmin(a, a.cpu())
+    with pytest.raises(ValueError):
+        packed_mma.packed_mma_argmin(a[:0], a)
+
+
+def test_nn_rescore_kernel_slots_ties_and_sentinels(cuda_device):
+    """K4 at N = 3,000 (not a multiple of TN) with tile_n = 256 (S = 12):
+    an exact duplicate at indices 5 (slot 5) and 14 (slot 2) goes to the
+    lower SLOT, 14; sentinel rows never win a real source; the candidates
+    are the plain version's or near-ties of them, the picks equal on >= 99%
+    of the rows and d2 equal where they are."""
+    rng = np.random.default_rng(21)
+    dst = rng.uniform(-20, 20, (3000, 3)).astype(np.float32)
+    dst[-300:] = 1.0e6
+    dst[5] = dst[14] = [0.5, 0.25, -0.125]
+    src = rng.uniform(-20, 20, (2000, 3)).astype(np.float32)
+    src[:40] = dst[5] + rng.uniform(-0.01, 0.01, (40, 3)).astype(np.float32)
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    assert nn_rescore.slots(3000, 256) == (256, 12)
+    idx, d2 = nn_rescore.nn_rescore(s, d, tile_n=256)
+    det = nn_rescore.nn_rescore_detail(s, d, tile_n=256)
+    plain = nn_rescore.shortlist_ref(s, d, tile_n=256)
+    ridx, rd2 = nn_rescore.nn_rescore_ref(s, d, tile_n=256)
+    assert torch.equal(det["idx"], idx) and torch.equal(det["d2"], d2)
+    assert torch.all(idx[:40] == 14)
+    assert int(idx.max()) < 2700
+    assert bool(packed_mma.near_ties(det["a_aug"], det["b_aug"], det["cand"],
+                                     plain["cand"]).all())
+    same = idx == ridx
+    assert float(same.float().mean()) >= 0.99
+    assert torch.equal(d2[same], rd2[same])
+    exact, mag = packed_mma.exact_scores(det["a_aug"], det["b_aug"],
+                                         det["cand"])
+    assert float(torch.max(torch.abs(det["cand_score"].double() - exact)
+                           / mag)) <= packed_mma.TAU
+
+
+@pytest.mark.parametrize("m,n,tile_n,offset", [(300, 5000, 0, 0.0),
+                                               (1, 1, 0, 0.0),
+                                               (4097, 3000, 256, 500.0)])
+def test_nn_rescore_device_packing_is_the_plain_packing(cuda_device, m, n,
+                                                        tile_n, offset):
+    """K4's recentring and packing on the device (two launches) give the
+    plain packing's bits: recentred source, padded target, both packed rows
+    (a 500 m offset and sentinel rows included)."""
+    src, dst = _clouds(m, n, seed=m + n, scale=40.0)
+    src += np.float32(offset)
+    dst += np.float32(offset)
+    if n > 8:
+        dst[-(n // 8):] = 1.0e6
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    dev = nn_rescore.nn_rescore_detail(s, d, tile_n)
+    plain = nn_rescore.shortlist_ref(s, d, tile_n)
+    for k in ("sc", "dp", "a_aug", "b_aug"):
+        assert dev[k].shape == plain[k].shape, k
+        assert torch.equal(_bits(dev[k]), _bits(plain[k])), k
+
+
+@pytest.mark.parametrize("precision", ["highest", "bf16"])
+def test_icp_fused_kernel_ragged_held_to_bounds(cuda_device, precision):
+    """K5 at M = 4,000 (not a multiple of its 64-row tile) and N = 6,000
+    (ragged to both precisions' model tiles): bit-reproducible across two
+    launches, and held to chip_smoke.K5_BOUNDS against its plain version,
+    iterations, inliers and convergence equal."""
+    smoke = _chip_smoke()
+    args, kw = _align_problem(cuda_device, seed=2, m=4000, n=6000)
+    r_gate = torch.tensor(30.0, device=cuda_device)
+    out = icp_fused.icp_fused(*args, r_gate=r_gate, precision=precision, **kw)
+    again = icp_fused.icp_fused(*args, r_gate=r_gate, precision=precision,
+                                **kw)
+    ref = icp_fused.icp_fused_ref(*args, r_gate=r_gate, precision=precision,
+                                  **kw)
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+    assert smoke._k5_mismatches(out, ref, precision) == []
