@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of the port's four scan-to-map cells on one card, or of two
-builds of the kernels K1, K4 and K5.
+builds of the kernels K1, K3, K4 and K5.
 
     python3 chip_ab.py [--rounds 5]
     python3 chip_ab.py --old-csrc DIR
@@ -8,35 +8,40 @@ builds of the kernels K1, K4 and K5.
     python3 chip_ab.py --sass
 
 With --sass, the kernels are built anew with ptxas's register, shared-memory
-and spill report, the library is disassembled with cuobjdump, and for K4's
-shortlist, K5 at both precisions and K1 the innermost loop that holds the
-work (the mma, or the FMNMX of a pair) is counted: static instructions, and
-lane-instructions per score or pair (SASS_LOOPS).
+and spill report, the library is disassembled with cuobjdump, and for the
+packed scan (K3's and K4's, one per source file that compiles it), K5 at
+both precisions and K1 the innermost loop that holds the work (the mma, or
+the FMNMX of a pair) is counted: static instructions, and lane-instructions
+per score or pair (SASS_LOOPS).
 
 With --old-csrc, only the kernels are compared: DIR holds an earlier
-csrc/ with the same C entry points (nn_bruteforce_f32,
-nn_bruteforce_blocks_per_sm, nn_rescore_f32 taking host-packed operands,
-icp_fused_f32 and icp_fused_max_blocks without the (n, 3) model), for
-example that of commit 4ced90d, unpacked from git with
+csrc/ with the C entry points of commit ad1ed22 (nn_bruteforce_f32,
+nn_bruteforce_blocks_per_sm, nn_bf16_f32 taking host-packed operands,
+nn_rescore_f32, nn_shortlist_blocks_per_sm, icp_fused_f32 and
+icp_fused_max_blocks), unpacked from git with
 
-    mkdir -p build/pr4_csrc
-    git archive 4ced90d src/tpu_icp_slam_torch/csrc \
-        | tar -x -C build/pr4_csrc --strip-components=3
+    mkdir -p build/old_csrc
+    git archive ad1ed22 src/tpu_icp_slam_torch/csrc \
+        | tar -x -C build/old_csrc --strip-components=3
 
 It is compiled into build/ beside the current kernels. On the inputs of
 chip_smoke's phases 2 (K1, 16,384 x 16,384), 12 (batched K1, B = 16, G = 8),
-11 (K4) and 8 (K5, one align of the first frame at "highest" and "bf16"):
+7 (K3), 11 (K4) and 8 (K5, one align of the first frame at "highest" and
+"bf16"):
 
   K1       outputs bit-equal to the old;
-  K4       the old kernel gets the plain packing (its wrapper packed with
-           torch ops), the new packs on the device: the packed operands must
-           be bit-equal, every candidate that differs a near-tie
-           (kernels/packed_mma.near_ties), indices equal on >= 0.999 of the
-           rows and d2 equal where they are;
-  K5       both kernels at the same grid: at "highest" T, rmse, iterations,
-           inliers and convergence bit-equal; at "bf16" equal iterations,
-           inliers and convergence, pose and rmse within
-           chip_smoke.K5_BOUNDS["bf16"];
+  K3       the old kernel (CUDA cores, its wrapper's torch-op packing and
+           clamp) against the new (device packing, tensor cores): every
+           pick that differs a near-tie of the old one
+           (kernels/packed_mma.near_ties), picks equal on >= 0.99 of the
+           rows, and equal to the old one-slot tensor-core scorer's
+           (packed_mma_argmin) on all; the share of equal picks between
+           each two of new, old, that scorer, the plain version and the
+           float64 argmin of the packed score;
+  K4       packing, candidates, their scores, picks and d2 bit-equal to the
+           old;
+  K5       both kernels at the same grid: T, rmse, iterations, inliers and
+           convergence bit-equal at "highest" and "bf16";
 
 then each is timed old, new, new, old (chip_smoke._device_ms, one call
 alone as call_ms, and the port's own kernels' device time from a
@@ -178,13 +183,22 @@ def _old_library(csrc):
     lib.nn_bruteforce_f32.restype = i32
     lib.nn_bruteforce_blocks_per_sm.argtypes = [ptr]
     lib.nn_bruteforce_blocks_per_sm.restype = i32
+    lib.nn_bf16_f32.argtypes = [
+        ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.nn_bf16_f32.restype = i32
     lib.nn_rescore_f32.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+        ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, ptr]
     lib.nn_rescore_f32.restype = i32
+    lib.nn_shortlist_blocks_per_sm.argtypes = [ptr]
+    lib.nn_shortlist_blocks_per_sm.restype = i32
+    lib.packed_mma_argmin.argtypes = [ptr, ptr, i32, i32, ptr, ptr, ptr]
+    lib.packed_mma_argmin.restype = i32
     lib.icp_fused_max_blocks.argtypes = [i32, ptr]
     lib.icp_fused_max_blocks.restype = i32
     lib.icp_fused_f32.argtypes = [
-        ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
+        ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr, ptr,
+        ptr]
     lib.icp_fused_f32.restype = i32
     return lib
 
@@ -217,30 +231,57 @@ def _old_k1(lib, src, dst):
     return idx, d2
 
 
-def _old_k4(lib, src, dst):
-    """K4 of the earlier build with its wrapper's work: recentring and
-    packing in torch ops, then its shortlist and rescore kernels. Returns
-    (idx, d2, cand)."""
-    from tpu_icp_slam_torch.kernels import _build, nn_rescore
-    from tpu_icp_slam_torch.kernels.nn_bf16 import pack_source, pack_target
+def _old_k3(lib, src, dst):
+    """K3 of the earlier build with its wrapper's work: recentring and
+    packing in torch ops, its split kernel and fold (target splits so that
+    about four of its 256-row blocks run per SM), then the clamp in a torch
+    op. Returns (idx, d2)."""
+    from tpu_icp_slam_torch.kernels import _build
+    from tpu_icp_slam_torch.kernels.nn_bf16 import (
+        pack_source, pack_target, recentre,
+    )
 
-    m = src.shape[0]
-    sc, dp, tn, s = nn_rescore._prepare(src, dst, 0)
-    a_aug, b_aug = pack_source(sc), pack_target(dp)
-    cand = torch.empty((s, m), dtype=torch.int32, device=src.device)
+    m, n = src.shape[0], dst.shape[0]
+    s, d = recentre(src, dst)
+    a_aug, b_aug = pack_source(s), pack_target(d)
+    k = max(1, min(-(-4 * _build.sm_count(src.device.index) // -(-m // 256)),
+                   -(-n // 256)))
+    part_d2 = torch.empty((k, m), device=src.device)
+    part_idx = torch.empty((k, m), dtype=torch.int32, device=src.device)
+    e = torch.empty(m, device=src.device)
     idx = torch.empty(m, dtype=torch.int32, device=src.device)
-    d2 = torch.empty(m, dtype=torch.float32, device=src.device)
+    _build.check(lib.nn_bf16_f32(
+        a_aug.data_ptr(), b_aug.data_ptr(), m, n, k, part_d2.data_ptr(),
+        part_idx.data_ptr(), e.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "old nn_bf16_f32")
+    return idx, torch.clamp(e, min=0.0)
+
+
+def _k4_launch(lib, src, dst, per_sm):
+    """One K4 call through `lib`'s nn_rescore_f32 (the wrapper's work of
+    kernels/nn_rescore.py, the grid from `per_sm` blocks an SM), keeping
+    the candidates' scores: (idx, d2, cand_score, scratch views)."""
+    from tpu_icp_slam_torch.kernels import _build, nn_rescore
+
+    m, n = src.shape[0], dst.shape[0]
+    tn, s = nn_rescore.slots(n)
+    ws, layout = nn_rescore._workspace(m, s * tn, s, src.device)
+    ptr = _build.pointers(ws, layout)
+    idx = torch.empty(m, dtype=torch.int32, device=src.device)
+    d2 = torch.empty(m, device=src.device)
+    scores = torch.empty((s, m), device=src.device)
+    grid = min(-(-m // 128) * s, _build.sm_count(src.device.index) * per_sm)
     _build.check(lib.nn_rescore_f32(
-        a_aug.data_ptr(), b_aug.data_ptr(), sc.data_ptr(), dp.data_ptr(), m,
-        s, tn, cand.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-        torch.cuda.current_stream().cuda_stream), "old nn_rescore_f32")
-    return idx, d2, cand
+        src.data_ptr(), dst.data_ptr(), m, n, s, tn, grid, ptr["centre"],
+        ptr["sc"], ptr["dp"], ptr["a_aug"], ptr["b_aug"], ptr["cand"],
+        scores.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "nn_rescore_f32")
+    return idx, d2, scores, _build.views(ws, layout)
 
 
-def _k5_launch(lib, new, args, r_gate, precision, kw, grid):
+def _k5_launch(lib, args, r_gate, precision, kw, grid):
     """One align through `lib`'s icp_fused_f32 at a given grid, prepared as
-    kernels/icp_fused.icp_fused prepares it; new: the current entry point
-    (it also takes the (n, 3) model)."""
+    kernels/icp_fused.icp_fused prepares it."""
     from tpu_icp_slam_torch.kernels import _build, icp_fused
     from tpu_icp_slam_torch.kernels.nn_bf16 import pack_target
 
@@ -256,15 +297,19 @@ def _k5_launch(lib, new, args, r_gate, precision, kw, grid):
                            device=srcc.device)
     out = torch.empty(20, device=srcc.device)
     params = icp_fused._Params(**icp_fused._params(**kw))
-    model = ((dstc.data_ptr(),) if new else ()) + (model4.data_ptr(),)
     _build.check(lib.icp_fused_f32(
-        src4.data_ptr(), m, *model, nrm4.data_ptr(),
+        src4.data_ptr(), m, dstc.data_ptr(), model4.data_ptr(), nrm4.data_ptr(),
         None if baug is None else baug.data_ptr(), n, T0c.data_ptr(),
         gate.data_ptr(), ctypes.addressof(params), int(bf16), grid,
         partials.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream().cuda_stream), "icp_fused_f32")
     return (icp_fused._conjugate_out(out[:16].view(4, 4), gate[1:]), out[16],
             out[17].to(torch.int32), out[18].to(torch.int32), out[19] > 0.5)
+
+
+# The kernels of the earlier build that the current one no longer has, for
+# the old side's kernel ms.
+OLD_KERNELS = ("nn_bf16_split_kernel", "nn_shortlist_kernel")
 
 
 def _time_turns(old, new):
@@ -277,7 +322,8 @@ def _time_turns(old, new):
         fn = old if which == "old" else new
         out["device_ms"][which].append(chip_smoke._device_ms(fn))
         out["call_ms"][which].append(chip_smoke._call_ms(fn))
-        out["kernel_ms"][which].append(chip_smoke._kernel_ms(fn)[0])
+        out["kernel_ms"][which].append(chip_smoke._kernel_ms(
+            fn, names=chip_smoke.OWN_KERNELS + OLD_KERNELS)[0])
     return out
 
 
@@ -289,7 +335,7 @@ def _fmt_turns(t):
 
 def kernels_ab(old_csrc, pts, msk):
     from tpu_icp_slam_torch.kernels import (
-        _build, icp_fused, nn_cuda, nn_rescore, packed_mma,
+        _build, icp_fused, nn_bf16, nn_cuda, nn_rescore, packed_mma,
     )
 
     lib = _old_library(Path(old_csrc))
@@ -311,30 +357,55 @@ def kernels_ab(old_csrc, pts, msk):
         assert equal, f"{name}: the new kernel's outputs differ from the old"
         out[name] = {"equal": equal, **t}
 
-    # K4: the old kernel on the plain packing, the new one packing itself
-    det = nn_rescore.nn_rescore_detail(src, dst)
-    old_idx, old_d2, old_cand = _old_k4(lib, src, dst)
-    plain = nn_rescore.shortlist_ref(src, dst)
+    # K3: the old design (CUDA cores, torch-op packing) against the new;
+    # the picks of both, of the plain version, of the old one-slot
+    # tensor-core scorer and the float64 argmin of the packed score
+    sc, dc = nn_bf16.recentre(src, dst)
+    a_aug, b_aug = nn_bf16.pack_source(sc), nn_bf16.pack_target(dc)
+    m = a_aug.shape[0]
+    new_idx, new_d2 = nn_bf16.nn_bf16(src, dst)
+    old_idx, old_d2 = _old_k3(lib, src, dst)
+    slot_idx = torch.empty(m, dtype=torch.int32, device=src.device)
+    slot_e = torch.empty(m, device=src.device)
+    _build.check(lib.packed_mma_argmin(
+        a_aug.data_ptr(), b_aug.data_ptr(), m, b_aug.shape[0],
+        slot_e.data_ptr(), slot_idx.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "old packed_mma_argmin")
+    picks = {"new": new_idx, "old": old_idx, "old one-slot scorer": slot_idx,
+             "plain": nn_bf16.nn_bf16_ref(src, dst)[0],
+             "float64 argmin": packed_mma.exact_argmin(a_aug, b_aug)}
     torch.cuda.synchronize()
-    packing_equal = all(chip_smoke.bits_equal(det[k], plain[k])
-                        for k in ("sc", "dp", "a_aug", "b_aug"))
-    cand_agree = float((det["cand"] == old_cand).float().mean())
-    near = packed_mma.near_ties(det["a_aug"], det["b_aug"], det["cand"],
-                                old_cand)
-    same = det["idx"] == old_idx
-    agree = float(same.float().mean())
-    d2_equal = torch.equal(det["d2"][same], old_d2[same])
-    t = _time_turns(lambda: _old_k4(lib, src, dst),
+    agree = {f"{x} = {y}": float((picks[x] == picks[y]).float().mean())
+             for i, x in enumerate(picks) for y in list(picks)[i + 1:]}
+    near = packed_mma.near_ties(a_aug, b_aug, new_idx, old_idx)
+    t = _time_turns(lambda: _old_k3(lib, src, dst),
+                    lambda: nn_bf16.nn_bf16(src, dst))
+    print(f"[kernels] K3 16384x16384: every pick that differs from the old "
+          f"a near-tie {bool(near.all())} | equal picks: "
+          f"{', '.join(f'{k} {v:.6f}' for k, v in agree.items())} | max "
+          f"|d2 - old| {float(torch.max(torch.abs(new_d2 - old_d2))):.3e} | "
+          f"{_fmt_turns(t)}")
+    assert bool(near.all()) and agree["new = old"] >= 0.99, \
+        "K3 disagrees with the old"
+    assert agree["new = old one-slot scorer"] == 1.0, \
+        "K3's splits changed the tensor-core picks"
+    out["K3 16384x16384"] = {"agree": agree, **t}
+
+    # K4: the same design, its scan now K3's: every output bit-equal
+    old_per_sm = _int_out(lib.nn_shortlist_blocks_per_sm)
+    new_per_sm = nn_bf16.blocks_per_sm(src.device.index)
+    a, b = (_k4_launch(new_lib, src, dst, new_per_sm),
+            _k4_launch(lib, src, dst, old_per_sm))
+    torch.cuda.synchronize()
+    equal = (all(chip_smoke.bits_equal(x, y) for x, y in zip(a[:3], b[:3]))
+             and all(chip_smoke.bits_equal(a[3][k], b[3][k]) for k in a[3]))
+    t = _time_turns(lambda: _k4_launch(lib, src, dst, old_per_sm)[:2],
                     lambda: nn_rescore.nn_rescore(src, dst))
-    print(f"[kernels] K4 16384x16384: packing bit-equal {packing_equal} | "
-          f"candidates equal {cand_agree:.6f}, every difference a near-tie "
-          f"{bool(near.all())} | idx agree {agree:.6f}, d2 equal where they "
-          f"do {d2_equal} | {_fmt_turns(t)}")
-    assert packing_equal and bool(near.all()) and agree >= 0.999 \
-        and d2_equal and cand_agree >= 0.999, "K4 disagrees with the old"
-    out["K4 16384x16384"] = {"packing_equal": packing_equal,
-                             "cand_agree": cand_agree, "idx_agree": agree,
-                             **t}
+    print(f"[kernels] K4 16384x16384 (blocks an SM: old {old_per_sm}, new "
+          f"{new_per_sm}): packing, candidates, their scores, idx and d2 "
+          f"bit-equal to the old: {equal} | {_fmt_turns(t)}")
+    assert equal, "K4 differs from the old kernel"
+    out["K4 16384x16384"] = {"equal": equal, **t}
 
     # K5 at the same grid for both builds
     args, r_gate = chip_smoke._first_align_problem(pts, msk)
@@ -347,8 +418,8 @@ def kernels_ab(old_csrc, pts, msk):
                    _int_out(lambda p: lib.icp_fused_max_blocks(
                        int(prec == "bf16"), p)))
         run = {which: (lambda which=which: _k5_launch(
-            new_lib if which == "new" else lib, which == "new", args, r_gate,
-            precision, kw, grid)) for which in ("old", "new")}
+            new_lib if which == "new" else lib, args, r_gate, precision, kw,
+            grid)) for which in ("old", "new")}
         a, b = run["new"](), run["old"]()
         wrapper = icp_fused.icp_fused(*args, r_gate=r_gate,
                                       precision=precision, **kw)
@@ -356,7 +427,6 @@ def kernels_ab(old_csrc, pts, msk):
         gaps = chip_smoke._k5_gaps(a, b)
         equal = all(torch.equal(x, y) for x, y in zip(a, b))
         as_wrapper = all(torch.equal(x, y) for x, y in zip(a, wrapper))
-        bad = chip_smoke._k5_mismatches(a, b, prec)
         t = _time_turns(run["old"], run["new"])
         print(f"[kernels] K5 {prec} (grid {grid}; the wrapper's result "
               f"equal: {as_wrapper}): new T/rmse/iters/inliers/converged "
@@ -365,10 +435,7 @@ def kernels_ab(old_csrc, pts, msk):
               f"{int(a[3])} ({int(b[3])}) | gaps "
               f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} | "
               f"{_fmt_turns(t)}")
-        if prec == "highest":
-            assert equal, "K5 highest differs from the old kernel"
-        else:
-            assert not bad, f"K5 bf16 outside K5_BOUNDS of the old: {bad}"
+        assert equal, f"K5 {prec} differs from the old kernel"
         out[f"K5 {prec}"] = {"equal": equal, "grid": grid, "gaps": gaps, **t}
     return out
 
@@ -412,7 +479,7 @@ def profiler_effect(pts, msk, rounds):
 # instruction of it does: an mma m16n8k16 scores 128 pairs, an FMNMX
 # takes one pair a lane).
 SASS_LOOPS = {
-    "19nn_shortlist_kernel": ("HMMA", 128),
+    "18packed_scan_kernel": ("HMMA", 128),
     "16icp_fused_kernelILb1E": ("HMMA", 128),
     "16icp_fused_kernelILb0E": ("FMNMX", 32),
     "15nn_split_kernel": ("FMNMX", 32),
@@ -422,18 +489,25 @@ _SASS_LINE = re.compile(
 
 
 def _sass_functions(text):
-    """{mangled name: [(address, opcode, branch target or None), ...]}"""
-    funcs, name = {}, None
+    """[(source, mangled name, [(address, opcode, branch target or None),
+    ...]), ...]: one entry per compiled function, so that a kernel that two
+    sources compile from one header appears twice. source is the fatbin's
+    identifier where cuobjdump prints one, else the cubin's ordinal."""
+    funcs, cubin, source = [], 0, None
     for line in text.splitlines():
-        if "Function : " in line:
-            name = line.split("Function : ", 1)[1].strip()
-            funcs[name] = []
-        elif name and (m := _SASS_LINE.match(line)):
+        if line.strip().startswith("identifier"):
+            source = line.split("=", 1)[1].strip()
+        elif line.strip().startswith("Fatbin elf code"):
+            cubin, source = cubin + 1, None
+        elif "Function : " in line:
+            funcs.append((source or f"cubin {cubin}",
+                          line.split("Function : ", 1)[1].strip(), []))
+        elif funcs and (m := _SASS_LINE.match(line)):
             op = m.group(2).split(".")[0]
             tgt = re.search(r"0x([0-9a-f]+)", m.group(3)) if op == "BRA" \
                 else None
-            funcs[name].append((int(m.group(1), 16), op,
-                                int(tgt.group(1), 16) if tgt else None))
+            funcs[-1][2].append((int(m.group(1), 16), op,
+                                 int(tgt.group(1), 16) if tgt else None))
     return funcs
 
 
@@ -463,7 +537,7 @@ def sass_report():
     text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     out = {}
-    for name, ins in _sass_functions(text).items():
+    for source, name, ins in _sass_functions(text):
         for key, (op, per) in SASS_LOOPS.items():
             loop = key in name and _hot_loop(ins, op)
             if not loop:
@@ -473,11 +547,12 @@ def sass_report():
             ops = {o: body.count(o) for o in sorted(set(body),
                                                     key=body.count)[::-1]}
             per_unit = len(body) * 32 / (work * per)
-            print(f"[sass] {key}: loop 0x{lo:x}-0x{hi:x}, {len(body)} "
+            label = f"{key} ({source})"
+            print(f"[sass] {label}: loop 0x{lo:x}-0x{hi:x}, {len(body)} "
                   f"instructions, {work} {op} -> {per_unit:.3f} "
                   f"lane-instructions per {'score' if op == 'HMMA' else 'pair'}"
                   f" | {ops}")
-            out[key] = {"instructions": len(body), op: work,
+            out[label] = {"instructions": len(body), op: work,
                         "per_unit": per_unit, "opcodes": ops}
     return out
 
@@ -486,7 +561,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--old-csrc", default=None,
-                    help="compare K1, K4 and K5 with the build of this csrc/")
+                    help="compare K1, K3, K4 and K5 with the build of this "
+                         "csrc/")
     ap.add_argument("--profiler-effect", action="store_true",
                     help="frames/s before and after one profiler run")
     ap.add_argument("--sass", action="store_true",

@@ -2,94 +2,106 @@
 // for sm_90a.
 //
 // Replaces the "bf16" branch of tpu_icp_slam/kernels/nn_pallas.py::_nn_kernel
-// (wrapper nn_bruteforce_pallas(precision="bf16")): for every packed source
-// row, the index of the target row with the smallest packed score
-// a_aug · b_aug ≈ d² (packed_d2.cuh) and that score.
+// (nn_pallas.py:111; its pallas_call at :374; wrapper
+// nn_bruteforce_pallas(precision="bf16"), :232-245, :279-314). Both clouds
+// are recentred on the bounding-box midpoint of the valid targets
+// (|coordinates| < 1e5) and packed into 16-lane bf16 rows whose product
+// a_aug · b_aug ≈ d² (packed_d2.cuh); for every source row the first
+// minimum, in index order, of that packed score gives idx, and d2 =
+// max(e_min, 0).
 //
-// What bounds it on an H100: FP32 CUDA-core issue rate, as for K1. At the
-// main-path shape (M = N = 16,384) it scores 2.7e8 pairs of 13 lanes. The
-// operands are 16-lane bf16 rows, which fit mma.sync m16n8k16 exactly; this
-// first version keeps to the CUDA cores (13 FMAs per pair, float32
-// accumulation of exact bf16 products), and the tensor-core form is later
-// work.
+// What bounds it on an H100: the 16-lane bf16 contraction on the tensor
+// cores, 2.7e8 pairs x 32 flops at M = N = 16,384 = 0.0087 ms at
+// 989 TFLOP/s. The products are exact bf16 x bf16 and one mma.sync
+// m16n8k16 scores 128 pairs, so in practice the argmin bookkeeping on the
+// CUDA cores (a compare and two selects a score) sets the pace, as for K4.
 //
-// Design: K1's (nn_bruteforce.cu). One thread owns one source row (16 floats
-// in registers); a block walks its target split in kTile-row tiles staged in
-// shared memory as float rows (every thread reads the same row: a
-// broadcast); the target axis is cut into `n_split` ranges so that the grid
-// fills the SMs, and nn_fold.cuh folds the splits in index order. Strict `<`
-// throughout keeps the lowest-index tie rule. Targets padded with the 1e6
-// sentinel score ~1e12 and never win.
+// Design, four launches per call, nothing else on the device:
+//  - nn_centre_kernel and nn_pack_kernel (packed_prep.cuh, shared with K4):
+//    the centre and both packed operands, bit-equal to nn_bf16.recentre,
+//    pack_source and pack_target (the target unpadded: np = n).
+//  - packed_scan_kernel (packed_scan.cuh, shared with K4): the packed score
+//    on the tensor cores over n_split contiguous target splits of split_len
+//    rows (a multiple of 16; the last may be shorter), a persistent grid
+//    over (128-row source tiles x splits) sized by the wrapper
+//    (kernels/nn_bf16.splits) to the blocks the card holds at once. Each
+//    split's first minimum and its index go to the partials (n_split, m).
+//  - nn_fold_kernel (nn_fold.cuh, shared with K1): the splits in order with
+//    a strict `<`, so ties go to the lowest index, then d2 = max(e, 0).
+// Its scores are the tensor core's float32 sums, held to the float64 packed
+// score within tau * sum|a_k b_k| (kernels/packed_mma.py); its picks equal
+// the plain version's but for near-ties. Sentinel targets (1e6) score ~1e12
+// and never win. Times in PERF.md §6.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 
 #include "nn_fold.cuh"
-#include "packed_d2.cuh"
+#include "packed_prep.cuh"
+#include "packed_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 512;  // 512 rows x 64 B = 32 KB of shared memory
-
-__global__ void __launch_bounds__(kThreads)
-nn_bf16_split_kernel(const __nv_bfloat16* __restrict__ a_aug,
-                     const __nv_bfloat16* __restrict__ b_aug, int m, int n,
-                     int split_len, float* __restrict__ part_d2,
-                     int* __restrict__ part_idx) {
-  __shared__ float4 tile[kTile][4];
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const int begin = blockIdx.y * split_len;
-  const int end = min(n, begin + split_len);
-
-  float a[packed::kLanes] = {};
-  if (row < m) packed::load_row(a_aug + (size_t)packed::kLanes * row, a);
-  float best = INFINITY;
-  int best_idx = begin;
-
-  for (int t0 = begin; t0 < end; t0 += kTile) {
-    const int len = min(kTile, end - t0);
-    __syncthreads();  // previous tile fully consumed
-    for (int i = threadIdx.x; i < len; i += kThreads) {
-      packed::stage_row(b_aug + (size_t)packed::kLanes * (t0 + i), tile[i]);
-    }
-    __syncthreads();
-    if (row < m) {
-#pragma unroll 4
-      for (int j = 0; j < len; ++j) {
-        const float d = packed::d2(a, tile[j]);
-        if (d < best) {
-          best = d;
-          best_idx = t0 + j;
-        }
-      }
-    }
-  }
-  if (row < m) {
-    part_d2[(size_t)blockIdx.y * m + row] = best;
-    part_idx[(size_t)blockIdx.y * m + row] = best_idx;
-  }
+// The scan over contiguous splits and the fold. e_min (the raw minimum) and
+// d2 (clamped at 0) are written where they are not null.
+cudaError_t scan_and_fold(const void* a_aug, const void* b_aug, int m, int n,
+                          int n_split, int split_len, int grid, float* part_e,
+                          int* part_idx, float* e_min, int* idx, float* d2,
+                          cudaStream_t stream) {
+  if (m <= 0 || n <= 0 || n_split <= 0 || split_len <= 0 || grid <= 0 ||
+      (long long)n_split * split_len < n ||
+      (long long)(n_split - 1) * split_len >= n)
+    return cudaErrorInvalidValue;
+  packed_scan_kernel<<<grid, kScanThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(a_aug),
+      static_cast<const __nv_bfloat16*>(b_aug), m, n, n_split, split_len, 1,
+      split_len, part_idx, part_e);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  nn_fold_kernel<<<(m + 255) / 256, 256, 0, stream>>>(part_e, part_idx, m,
+                                                      n_split, e_min, idx, d2);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// a_aug (m, 16), b_aug (n, 16) bf16 contiguous; scratch part_d2/part_idx
-// (n_split, m); outputs e_min (m,) float32 (the packed score, may be
-// slightly negative) and idx (m,) int32.
-extern "C" cudaError_t nn_bf16_f32(const void* a_aug, const void* b_aug,
-                                   int m, int n, int n_split, float* part_d2,
-                                   int* part_idx, float* e_min, int* idx,
-                                   cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || n_split <= 0) return cudaErrorInvalidValue;
-  const int split_len = (n + n_split - 1) / n_split;
-  const dim3 grid((m + kThreads - 1) / kThreads, n_split);
-  nn_bf16_split_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(a_aug),
-      static_cast<const __nv_bfloat16*>(b_aug), m, n, split_len, part_d2,
-      part_idx);
-  cudaError_t err = cudaGetLastError();
+// Blocks of the scan kernel that one SM holds at once, for the wrappers'
+// persistent grids (K3's and K4's, whose scan is the same source).
+extern "C" cudaError_t packed_scan_blocks_per_sm(int* out) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, packed_scan_kernel,
+                                                       kScanThreads, 0);
+}
+
+// The whole bf16 NN. src (m, 3), dst (n, 3) float32. Scratch: centre (3,)
+// float32, a_aug (m, 16) and b_aug (n, 16) bf16, part_e (n_split, m)
+// float32, part_idx (n_split, m) int32. Outputs idx (m,) int32 and d2 (m,)
+// float32; e_min (m,) float32, the raw packed minimum, or null.
+extern "C" cudaError_t nn_bf16_f32(const float* src, const float* dst, int m,
+                                   int n, int n_split, int split_len, int grid,
+                                   float* centre, void* a_aug, void* b_aug,
+                                   float* part_e, int* part_idx, float* e_min,
+                                   int* idx, float* d2, cudaStream_t stream) {
+  if (m <= 0 || n <= 0) return cudaErrorInvalidValue;
+  const cudaError_t err = prepare_packed(
+      src, dst, m, n, n, centre, nullptr, nullptr,
+      static_cast<__nv_bfloat16*>(a_aug), static_cast<__nv_bfloat16*>(b_aug),
+      stream);
   if (err != cudaSuccess) return err;
-  nn_fold_kernel<<<(m + 255) / 256, 256, 0, stream>>>(part_d2, part_idx, m,
-                                                      n_split, e_min, idx);
-  return cudaGetLastError();
+  return scan_and_fold(a_aug, b_aug, m, n, n_split, split_len, grid, part_e,
+                       part_idx, e_min, idx, d2, stream);
+}
+
+// K3's scan and fold on given packed operands, a_aug (m, 16) and b_aug
+// (n, 16) bf16: for each source row the first minimum e_min (m,) float32 of
+// the packed score over the whole target and its index idx (m,) int32.
+// Scratch part_e, part_idx as for nn_bf16_f32. For tests and chip_smoke.py
+// phase 11.
+extern "C" cudaError_t packed_mma_argmin(const void* a_aug, const void* b_aug,
+                                         int m, int n, int n_split,
+                                         int split_len, int grid,
+                                         float* part_e, int* part_idx,
+                                         float* e_min, int* idx,
+                                         cudaStream_t stream) {
+  return scan_and_fold(a_aug, b_aug, m, n, n_split, split_len, grid, part_e,
+                       part_idx, e_min, idx, nullptr, stream);
 }

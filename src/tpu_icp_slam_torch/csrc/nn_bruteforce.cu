@@ -171,6 +171,6 @@ extern "C" cudaError_t nn_bruteforce_f32(const float* src, const float* dst,
   if (err != cudaSuccess) return err;
   const dim3 fold_grid((m + 127) / 128, batch);
   nn_fold_kernel<<<fold_grid, 128, 0, stream>>>(part_d2, part_idx, m, n_split,
-                                                d2, idx);
+                                                d2, idx, nullptr);
   return cudaGetLastError();
 }

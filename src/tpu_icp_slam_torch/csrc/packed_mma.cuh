@@ -1,7 +1,7 @@
 // The packed bf16 score of packed_d2.cuh on Hopper's tensor cores:
 // mma.sync.aligned.m16n8k16 with float32 accumulation, operands loaded from
-// shared memory with ldmatrix. Used by K4's shortlist (nn_shortlist.cu) and
-// K5's bf16 search (icp_fused.cu).
+// shared memory with ldmatrix. Used by the packed scan of K3 and K4
+// (packed_scan.cuh) and K5's bf16 search (icp_fused.cu).
 //
 // Operands. A is 16 packed source rows and B is 8 packed target rows, both
 // bf16 exactly as stored (16 lanes, 32 B a row): the 16 lanes are one k-step,
@@ -27,7 +27,7 @@
 //
 // Precision. Each bf16 x bf16 product is exact in float32, but the tensor
 // core adds them in its own order and rounding, so its score is not bit-equal
-// to the CUDA-core lane-order sum of packed_d2.cuh. It is held to the float64
+// to the plain version's float32 product. It is held to the float64
 // sum E of the same exact products: |e - E| <= tau * sum_k |a_k b_k|
 // (kernels/packed_mma.py::TAU, measured by chip_smoke.py phase 11).
 //

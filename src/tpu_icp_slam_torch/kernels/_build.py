@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -120,16 +121,17 @@ def load() -> ctypes.CDLL:
                 ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
                 ptr, ptr, ptr, ptr, ptr]
             lib.nn_rescore_f32.restype = i32
-            lib.nn_shortlist_blocks_per_sm.argtypes = [ptr]
-            lib.nn_shortlist_blocks_per_sm.restype = i32
-            lib.packed_mma_argmin.argtypes = [ptr, ptr, i32, i32, ptr, ptr,
-                                              ptr]
+            lib.packed_scan_blocks_per_sm.argtypes = [ptr]
+            lib.packed_scan_blocks_per_sm.restype = i32
+            lib.packed_mma_argmin.argtypes = [
+                ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
             lib.packed_mma_argmin.restype = i32
             lib.gn_accum_f32.argtypes = [
                 ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr]
             lib.gn_accum_f32.restype = i32
             lib.nn_bf16_f32.argtypes = [
-                ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
+                ptr, ptr, ptr, ptr]
             lib.nn_bf16_f32.restype = i32
             lib.icp_fused_max_blocks.argtypes = [i32, ptr]
             lib.icp_fused_max_blocks.restype = i32
@@ -149,6 +151,33 @@ def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device `index`, read once rather
     than on every kernel call."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_ALIGN = 256  # bytes; every array carved from a scratch buffer starts here
+
+
+def workspace(spec: dict, dims: dict[str, int], device: torch.device):
+    """One scratch buffer for the arrays of `spec` (name -> (dtype, shape),
+    a shape entry either an int or a key of `dims`) and its layout, name ->
+    (byte offset, dtype, shape), each array 256-byte aligned."""
+    layout, total = {}, 0
+    for name, (dtype, shape) in spec.items():
+        shape = tuple(dims.get(d, d) for d in shape)
+        layout[name] = (total, dtype, shape)
+        total += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
+    return torch.empty(total, dtype=torch.uint8, device=device), layout
+
+
+def views(ws: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:
+    """The arrays of a `workspace` buffer as typed tensors."""
+    return {name: ws[off:off + math.prod(shape) * dtype.itemsize]
+            .view(dtype).view(shape)
+            for name, (off, dtype, shape) in layout.items()}
+
+
+def pointers(ws: torch.Tensor, layout: dict) -> dict[str, int]:
+    """The device address of each array of a `workspace` buffer."""
+    return {name: ws.data_ptr() + off for name, (off, _, _) in layout.items()}
 
 
 def check(err: int, name: str) -> None:

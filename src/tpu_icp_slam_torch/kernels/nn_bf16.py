@@ -5,13 +5,24 @@ kernel and plain version.
 (tpu_icp_slam/kernels/nn_pallas.py:232-245, :279-314, :398-400): both clouds
 are recentred on the bounding-box midpoint of the valid targets, packed into
 16-lane bf16 rows whose dot product is ≈ d² (see csrc/packed_d2.cuh), and
-the lowest score wins, ties to the lowest index. CUDA tensors launch
-csrc/nn_bf16.cu; CPU tensors run `nn_bf16_ref`, which casts the same packed
-operands to float32 and takes a chunked float32 product (TF32 is off
-package-wide). The packing helpers also serve K5 (kernels/icp_fused.py).
+the lowest score wins, ties to the lowest index.
+
+CUDA tensors launch csrc/nn_bf16.cu, four launches and no torch op on the
+device: the recentring and packing (bit-equal to `recentre`, `pack_source`
+and `pack_target`), the packed score on the tensor cores over `splits`
+contiguous target ranges, and the fold of the splits in index order, which
+also writes d2 = max(e, 0). The tensor core sums the exact bf16 products in
+its own float32 order, so a pick may differ from the plain version's on a
+near-tie (packed_mma.near_ties). CPU tensors run `nn_bf16_ref`, which casts
+the same packed operands to float32 and takes a chunked float32 product
+(TF32 is off package-wide). The packing helpers also serve K4
+(kernels/nn_rescore.py) and K5 (kernels/icp_fused.py).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -36,8 +47,8 @@ def _lanes(cols: list[torch.Tensor]) -> torch.Tensor:
 
 def _sq(x: torch.Tensor) -> torch.Tensor:
     """|x|² (N, 1) as (x·x + y·y) + z·z, each product and sum rounded to
-    float32 on its own: the order the device packing (csrc/nn_shortlist.cu,
-    packed_d2.cuh) writes out, so that both give the same bits."""
+    float32 on its own: the order the device packing (csrc/packed_prep.cuh)
+    writes out, so that both give the same bits."""
     sq = (x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2]
     return sq[:, None]
 
@@ -98,12 +109,84 @@ def nn_bf16_ref(src: torch.Tensor, dst: torch.Tensor, chunk: int = 2048
     return idx, torch.clamp(e, min=0.0)
 
 
-def _n_split(m: int, n: int, device: torch.device) -> int:
-    """Target-axis splits so that about four blocks (256 rows each) run per
-    SM."""
-    blocks_x = -(-m // 256)
-    return max(1, min(-(-4 * _build.sm_count(device.index) // blocks_x),
-                      -(-n // 256)))
+SCAN_ROWS = 128  # source rows of one work item of the scan (kScanRows)
+SPLIT_ALIGN = 16  # targets; a split's length is a multiple of this
+SPLIT_MIN = 256  # targets; the scan's staged tile (kScanTile)
+# The scan's partials, (splits, source rows): each split's first minimum of
+# the packed score and its target index.
+PARTIALS = {"part_e": (torch.float32, ("k", "m")),
+            "part_idx": (torch.int32, ("k", "m"))}
+# K3's scratch, carved from one device buffer: name -> (dtype, shape), the
+# shape in m (source rows), n (target rows) and k (splits).
+_SCRATCH = {"centre": (torch.float32, (3,)),
+            "a_aug": (torch.bfloat16, ("m", LANES)),
+            "b_aug": (torch.bfloat16, ("n", LANES)), **PARTIALS}
+
+
+def splits(m: int, n: int, sms: int, per_sm: int) -> tuple[int, int]:
+    """(k, length): the contiguous target splits of the scan for an (m, n)
+    search on a card of `sms` SMs that holds `per_sm` scan blocks an SM.
+    The work items, ceil(m / 128) source tiles x k splits, fill the
+    sms x per_sm resident blocks without starting a second, partial wave:
+    k = floor(sms x per_sm / source tiles), at least 1 and at most one split
+    per staged tile of 256 targets (a shorter split restages its 128 source
+    rows for fewer scores and lengthens the fold). Split s covers
+    [s x length, min(n, (s + 1) x length)): length is a multiple of 16, and
+    no split is empty."""
+    tiles = -(-m // SCAN_ROWS)
+    k = max(1, min(sms * per_sm // tiles, -(-n // SPLIT_MIN)))
+    length = -(-(-(-n // k)) // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-n // length), length
+
+
+@functools.cache
+def blocks_per_sm(index: int) -> int:
+    """Blocks of the scan kernel (csrc/packed_scan.cuh, K3's and K4's) that
+    one SM of CUDA device `index` holds at once, read once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_build.load().packed_scan_blocks_per_sm(
+            ctypes.addressof(out)), "packed_scan_blocks_per_sm")
+    return max(1, out.value)
+
+
+def scan_grid(m: int, parts: int, index: int) -> int:
+    """The scan's persistent grid over ceil(m / 128) x parts work items on
+    CUDA device `index`: one block per item, at most as many as it holds at
+    once."""
+    return min(-(-m // SCAN_ROWS) * parts,
+               _build.sm_count(index) * blocks_per_sm(index))
+
+
+def _workspace(m: int, n: int, k: int, device: torch.device):
+    """K3's scratch buffer and its layout, name -> (byte offset, dtype,
+    shape), each array 256-byte aligned."""
+    return _build.workspace(_SCRATCH, {"m": m, "n": n, "k": k}, device)
+
+
+def _launch(src, dst, keep):
+    _build.require_points("nn_bf16", src=src, dst=dst)
+    m, n = src.shape[0], dst.shape[0]
+    index = src.device.index
+    k, length = splits(m, n, _build.sm_count(index), blocks_per_sm(index))
+    ws, layout = _workspace(m, n, k, src.device)
+    ptr = _build.pointers(ws, layout)
+    idx = torch.empty(m, dtype=torch.int32, device=src.device)
+    d2 = torch.empty(m, dtype=torch.float32, device=src.device)
+    e_min = (torch.empty(m, dtype=torch.float32, device=src.device)
+             if keep else None)
+    err = _build.load().nn_bf16_f32(
+        src.data_ptr(), dst.data_ptr(), m, n, k, length,
+        scan_grid(m, k, index), ptr["centre"], ptr["a_aug"], ptr["b_aug"],
+        ptr["part_e"], ptr["part_idx"],
+        None if e_min is None else e_min.data_ptr(), idx.data_ptr(),
+        d2.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
+    _build.check(err, "nn_bf16_f32")
+    nn_bf16.launches += 1
+    if not keep:
+        return idx, d2
+    return {"idx": idx, "d2": d2, "e_min": e_min,
+            **_build.views(ws, layout)}
 
 
 def nn_bf16(src: torch.Tensor, dst: torch.Tensor
@@ -113,23 +196,16 @@ def nn_bf16(src: torch.Tensor, dst: torch.Tensor
     plain version."""
     if src.device.type == "cpu" and dst.device.type == "cpu":
         return nn_bf16_ref(src, dst)
-    _build.require_points("nn_bf16", src=src, dst=dst)
-    m, n = src.shape[0], dst.shape[0]
-    s, d = recentre(src, dst)
-    a_aug, b_aug = pack_source(s), pack_target(d)
-    lib = _build.load()
-    k = _n_split(m, n, src.device)
-    part_d2 = torch.empty((k, m), dtype=torch.float32, device=src.device)
-    part_idx = torch.empty((k, m), dtype=torch.int32, device=src.device)
-    e = torch.empty(m, dtype=torch.float32, device=src.device)
-    idx = torch.empty(m, dtype=torch.int32, device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = lib.nn_bf16_f32(
-        a_aug.data_ptr(), b_aug.data_ptr(), m, n, k, part_d2.data_ptr(),
-        part_idx.data_ptr(), e.data_ptr(), idx.data_ptr(), stream)
-    _build.check(err, "nn_bf16_f32")
-    nn_bf16.launches += 1
-    return idx, torch.clamp(e, min=0.0)
+    return _launch(src, dst, keep=False)
+
+
+def nn_bf16_detail(src: torch.Tensor, dst: torch.Tensor
+                   ) -> dict[str, torch.Tensor]:
+    """CUDA only: one call of K3 that also keeps what it computed on the
+    way: idx, d2, the raw packed minimum e_min (d2 = max(e_min, 0)), the
+    centre, the packed operands a_aug and b_aug (as pack_source and
+    pack_target name them) and the split partials part_e, part_idx."""
+    return _launch(src, dst, keep=True)
 
 
 nn_bf16.launches = 0

@@ -24,8 +24,9 @@ TN; a real source row never does. The source tile size of the reference
 
 CUDA tensors launch csrc/nn_shortlist.cu: the recentring and packing on the
 device (two launches, bit-equal to `_prepare`, `pack_source` and
-`pack_target`), the shortlist on the tensor cores (csrc/packed_mma.cuh) and
-the rescore. Its scores follow the tensor core's float32 rounding, so a
+`pack_target`; csrc/packed_prep.cuh, shared with K3), the shortlist on the
+tensor cores (csrc/packed_scan.cuh, K3's scan over the slots) and the
+rescore. Its scores follow the tensor core's float32 rounding, so a
 candidate may differ from the plain version's on a near-tie of one slot
 (packed_mma.near_ties). CPU tensors run `nn_rescore_ref`: `shortlist_ref`
 scores each slot with a float32 product of the same packed operands, and the
@@ -33,10 +34,6 @@ candidates are rescored with torch ops.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
-import math
 
 import torch
 
@@ -46,6 +43,7 @@ from tpu_icp_slam_torch.kernels.nn_bf16 import (
     pack_target,
     packed_argmin_ref,
     recentre,
+    scan_grid,
 )
 
 PAD = 1.0e6  # the reference pads the recentred target with this
@@ -109,19 +107,6 @@ def nn_rescore_ref(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0,
     return rescore_ref(sl["sc"], sl["dp"], sl["cand"])
 
 
-@functools.cache
-def blocks_per_sm(index: int) -> int:
-    """Blocks of K4's shortlist kernel that one SM of CUDA device `index`
-    holds at once, read once."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        _build.check(_build.load().nn_shortlist_blocks_per_sm(
-            ctypes.addressof(out)), "nn_shortlist_blocks_per_sm")
-    return max(1, out.value)
-
-
-_BLOCK_ROWS = 128  # source rows per work item (kBlockRows in nn_shortlist.cu)
-_ALIGN = 256
 # K4's scratch, carved from one device buffer: name -> (dtype, shape), the
 # shape in m (source rows), np (padded target rows) and s (slots).
 _SCRATCH = {"centre": (torch.float32, (3,)), "sc": (torch.float32, ("m", 3)),
@@ -134,19 +119,7 @@ _SCRATCH = {"centre": (torch.float32, (3,)), "sc": (torch.float32, ("m", 3)),
 def _workspace(m: int, np_: int, s: int, device: torch.device):
     """The scratch buffer and its layout, name -> (byte offset, dtype,
     shape), each array 256-byte aligned."""
-    dims = {"m": m, "np": np_, "s": s}
-    layout, total = {}, 0
-    for name, (dtype, shape) in _SCRATCH.items():
-        shape = tuple(dims.get(d, d) for d in shape)
-        layout[name] = (total, dtype, shape)
-        total += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
-    return torch.empty(total, dtype=torch.uint8, device=device), layout
-
-
-def _views(ws, layout) -> dict[str, torch.Tensor]:
-    return {name: ws[off:off + math.prod(shape) * dtype.itemsize]
-            .view(dtype).view(shape)
-            for name, (off, dtype, shape) in layout.items()}
+    return _build.workspace(_SCRATCH, {"m": m, "np": np_, "s": s}, device)
 
 
 def _launch(src, dst, tile_n, keep):
@@ -154,14 +127,12 @@ def _launch(src, dst, tile_n, keep):
     m, n = src.shape[0], dst.shape[0]
     tn, s = slots(n, tile_n)
     ws, layout = _workspace(m, s * tn, s, src.device)
-    ptr = {k: ws.data_ptr() + v[0] for k, v in layout.items()}
+    ptr = _build.pointers(ws, layout)
     idx = torch.empty(m, dtype=torch.int32, device=src.device)
     d2 = torch.empty(m, dtype=torch.float32, device=src.device)
     scores = (torch.empty((s, m), dtype=torch.float32, device=src.device)
               if keep else None)
-    index = src.device.index
-    grid = min(-(-m // _BLOCK_ROWS) * s,
-               _build.sm_count(index) * blocks_per_sm(index))
+    grid = scan_grid(m, s, src.device.index)
     err = _build.load().nn_rescore_f32(
         src.data_ptr(), dst.data_ptr(), m, n, s, tn, grid,
         ptr["centre"], ptr["sc"], ptr["dp"], ptr["a_aug"], ptr["b_aug"],
@@ -173,7 +144,7 @@ def _launch(src, dst, tile_n, keep):
     if not keep:
         return idx, d2
     return {"idx": idx, "d2": d2, "cand_score": scores,
-            **_views(ws, layout)}
+            **_build.views(ws, layout)}
 
 
 def nn_rescore(src: torch.Tensor, dst: torch.Tensor, tile_n: int = 0

@@ -7,12 +7,16 @@ score e is not bit-equal to a float32 sum in lane order. It is held to the
 float64 sum E of the same products: |e - E| <= TAU · Σ_k |a_k b_k|. Two
 searches that differ only in such rounding pick the same target except on
 near-ties, where the two picks' E differ by at most 2·TAU · Σ|a b|
-(`near_ties`).
+(`near_ties`). On dense lidar scans such near-ties are common, and the
+plain version's float32 sum is the coarser of the two: `exact_argmin`, the
+float64 pick, tells which search found the packed minimum.
 
-`packed_mma_argmin(a_aug, b_aug)` runs the scorer over a whole target (the
-K4 shortlist kernel with one slot): CUDA tensors launch it, CPU tensors take
+`packed_mma_argmin(a_aug, b_aug)` runs K3's scan and fold on given packed
+operands: the scorer over the whole target, cut into `nn_bf16.splits`
+contiguous ranges that fill the card and folded in index order, returning
+the raw minimum. CUDA tensors launch it, CPU tensors take
 nn_bf16.packed_argmin_ref. It serves tests and chip_smoke.py's phase 11; the
-main path reaches the scorer through K4 and K5.
+main path reaches the scorer through K3, K4 and K5.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from tpu_icp_slam_torch.kernels import _build
+from tpu_icp_slam_torch.kernels import nn_bf16
 from tpu_icp_slam_torch.kernels.nn_bf16 import LANES, packed_argmin_ref
 
 # Largest |e - E| / Σ|a b| accepted from the tensor cores: 2⁻¹⁹, about the
@@ -34,6 +39,16 @@ def exact_scores(a_aug: torch.Tensor, b_aug: torch.Tensor,
     a = a_aug.double()
     prod = a * b_aug.double()[idx.long()]
     return prod.sum(-1), prod.abs().sum(-1)
+
+
+def exact_argmin(a_aug: torch.Tensor, b_aug: torch.Tensor,
+                 chunk: int = 1024) -> torch.Tensor:
+    """(M,) int32: the first minimum of the float64 packed score E of every
+    source row over the whole target, the pick that no float32 rounding
+    moves."""
+    b = b_aug.double()
+    return torch.cat([torch.argmin(a @ b.T, dim=1).to(torch.int32)
+                      for a in torch.split(a_aug.double(), chunk)])
 
 
 def near_ties(a_aug: torch.Tensor, b_aug: torch.Tensor, got: torch.Tensor,
@@ -63,11 +78,19 @@ def packed_mma_argmin(a_aug: torch.Tensor, b_aug: torch.Tensor
     if a_aug.device != b_aug.device:
         raise ValueError("packed_mma_argmin: inputs on different devices")
     m, n = a_aug.shape[0], b_aug.shape[0]
+    index = a_aug.device.index
+    k, length = nn_bf16.splits(m, n, _build.sm_count(index),
+                               nn_bf16.blocks_per_sm(index))
+    ws, layout = _build.workspace(nn_bf16.PARTIALS, {"m": m, "k": k},
+                                  a_aug.device)
+    ptr = _build.pointers(ws, layout)
     idx = torch.empty(m, dtype=torch.int32, device=a_aug.device)
     e_min = torch.empty(m, dtype=torch.float32, device=a_aug.device)
     err = _build.load().packed_mma_argmin(
-        a_aug.data_ptr(), b_aug.data_ptr(), m, n, e_min.data_ptr(),
-        idx.data_ptr(), torch.cuda.current_stream(a_aug.device).cuda_stream)
+        a_aug.data_ptr(), b_aug.data_ptr(), m, n, k, length,
+        nn_bf16.scan_grid(m, k, index), ptr["part_e"], ptr["part_idx"],
+        e_min.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(a_aug.device).cuda_stream)
     _build.check(err, "packed_mma_argmin")
     packed_mma_argmin.launches += 1
     return idx, e_min

@@ -284,26 +284,178 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
         icp_fused.icp_fused(a, ones, a, a.t().contiguous().t(), ones)
 
 
+def _k3_contract(s, d, idx, d2, e_min=None):
+    """K3's picks against its plain version's under the tensor-core
+    contract: each pick the plain one or a near-tie of it (>= 99.9% equal
+    on these uniform clouds where there are 1,000 rows or more), the
+    float64 argmin of the packed score picked at least as often as the
+    plain version picks it, each score within TAU·Σ|a b| of the exact
+    packed score, d2 = max(e_min, 0) bit for bit."""
+    ridx, rd2 = nn_bf16.nn_bf16_ref(s, d)
+    a_aug, b_aug = _packed(s, d)
+    assert idx.dtype == torch.int32 and idx.shape == (s.shape[0],)
+    assert d2.dtype == torch.float32 and d2.shape == (s.shape[0],)
+    assert int(idx.min()) >= 0 and int(idx.max()) < d.shape[0]
+    assert bool(packed_mma.near_ties(a_aug, b_aug, idx, ridx).all())
+    best = packed_mma.exact_argmin(a_aug, b_aug)
+    assert int((idx == best).sum()) >= int((ridx == best).sum()) \
+        - max(1, s.shape[0] // 1000)
+    if s.shape[0] >= 1000:
+        assert float((idx == ridx).float().mean()) >= 0.999
+    if e_min is not None:
+        exact, mag = packed_mma.exact_scores(a_aug, b_aug, idx)
+        assert float(torch.max(torch.abs(e_min.double() - exact) / mag)) \
+            <= packed_mma.TAU
+        assert torch.equal(_bits(d2), _bits(torch.clamp(e_min, min=0.0)))
+    return ridx, rd2
+
+
 @pytest.mark.parametrize("m,n", [(16384, 16384), (300, 5000), (1, 1)])
 def test_nn_bf16_kernel_matches_plain(cuda_device, m, n):
-    """K3 and its plain version sum the same exact bf16 products in float32
-    in different orders: scores within 2·13·2⁻²⁴·Σ|a_k·b_k|, indices equal
-    but for near-ties, sentinel rows never picked."""
+    """K3 on the tensor cores against its plain version: picks equal but
+    for near-ties, scores within TAU of the exact packed score, d2 the
+    clamped minimum, sentinel rows never picked; the call that keeps its
+    operands is the main path's call."""
     src, dst = _clouds(m, n, seed=m, scale=40.0)
     n_pad = n // 8
     if n_pad:
         dst[-n_pad:] = 1.0e6
     s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
     idx, d2 = nn_bf16.nn_bf16(s, d)
-    ridx, rd2 = nn_bf16.nn_bf16_ref(s, d)
-    assert idx.dtype == torch.int32 and idx.shape == (m,)
-    assert float((idx == ridx).float().mean()) >= 0.999
-    sc, dc = nn_bf16.recentre(s, d)
-    mag = torch.sum(torch.abs(nn_bf16.pack_source(sc).float()
-                              * nn_bf16.pack_target(dc).float()[ridx.long()]),
-                    dim=1)
-    assert torch.all(torch.abs(d2 - rd2) <= 2 * 13 * 2.0 ** -24 * mag)
+    det = nn_bf16.nn_bf16_detail(s, d)
+    assert torch.equal(det["idx"], idx) and torch.equal(det["d2"], d2)
+    _k3_contract(s, d, idx, d2, det["e_min"])
     assert int(idx.max()) < n - n_pad
+
+
+@pytest.mark.parametrize("m,n,offset", [(16384, 16384, 0.0), (300, 5000, 0.0),
+                                        (1, 1, 0.0), (4097, 3001, 500.0),
+                                        (17, 15, -300.0)])
+def test_nn_bf16_device_packing_is_the_plain_packing(cuda_device, m, n,
+                                                     offset):
+    """K3's recentring and packing on the device give the plain packing's
+    bits: the centre and both packed operands (a 500 m offset and sentinel
+    rows included)."""
+    src, dst = _clouds(m, n, seed=m + n + 1, scale=40.0)
+    src += np.float32(offset)
+    dst += np.float32(offset)
+    if n > 8:
+        dst[-(n // 8):] = 1.0e6
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    det = nn_bf16.nn_bf16_detail(s, d)
+    a_aug, b_aug = _packed(s, d)
+    valid = torch.all(torch.abs(d) < nn_bf16.VALID_ABS, dim=1, keepdim=True)
+    centre = nn_bf16.valid_centre(d, valid)
+    assert torch.equal(_bits(det["centre"]), _bits(centre))
+    assert det["a_aug"].shape == a_aug.shape
+    assert det["b_aug"].shape == b_aug.shape
+    assert torch.equal(_bits(det["a_aug"]), _bits(a_aug))
+    assert torch.equal(_bits(det["b_aug"]), _bits(b_aug))
+
+
+@pytest.mark.parametrize("m,n", [(1, 300), (1025, 255), (3000, 257),
+                                 (130, 4099), (16385, 77), (7, 16387),
+                                 (1, 16384), (16384, 1)])
+def test_nn_bf16_kernel_ragged_shapes(cuda_device, m, n):
+    """K3 with n off every multiple of 16 and of the 256-target tile, n
+    below one split, m = 1 and m off the 128-row source tile: the
+    tensor-core contract holds."""
+    src, dst = _clouds(m, n, seed=m + 2 * n, scale=30.0)
+    s, d = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    det = nn_bf16.nn_bf16_detail(s, d)
+    _k3_contract(s, d, det["idx"], det["d2"], det["e_min"])
+
+
+def _open_trace_window():
+    """A sleep kernel first in a profiler window: the tracer can miss the
+    first kernels of a window (seen on an H100), and then misses this one."""
+    torch.cuda._sleep(1_000_000)
+
+
+def _own_kernels(prof):
+    """The names of the port's kernels (anonymous-namespace CUDA C++) that
+    the profiler saw run."""
+    from torch.autograd import DeviceType
+
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and e.name.startswith("(anonymous namespace)::")]
+
+
+def _k3_split(m, n):
+    from tpu_icp_slam_torch.kernels import _build
+
+    index = torch.cuda.current_device()
+    return nn_bf16.splits(m, n, _build.sm_count(index),
+                          nn_bf16.blocks_per_sm(index))
+
+
+@pytest.mark.parametrize("where", ["fragment", "tile", "split", "far"])
+def test_nn_bf16_kernel_duplicate_targets_lowest_index_wins(cuda_device,
+                                                            where):
+    """An exact duplicate planted on both sides of an mma fragment edge
+    (8 targets), a staged tile edge (256), a split edge, or far apart:
+    every source takes the lower index."""
+    m, n = 2048, 40000
+    k, length = _k3_split(m, n)
+    assert k >= 2 and length > 256 + 8  # every edge lies inside a split
+    a, b = {"fragment": (length + 7, length + 8),
+            "tile": (length + 255, length + 256),
+            "split": (length - 1, length),
+            "far": (5, n - 3)}[where]
+    rng = np.random.default_rng(8)
+    dst = rng.uniform(20, 60, (n, 3)).astype(np.float32)
+    dst[a] = dst[b] = [0.5, -0.25, 0.125]
+    src = (dst[a] + rng.uniform(-0.3, 0.3, (m, 3))).astype(np.float32)
+    idx, _ = nn_bf16.nn_bf16(torch.from_numpy(src).to(cuda_device),
+                             torch.from_numpy(dst).to(cuda_device))
+    assert torch.all(idx == a), (where, a, b, torch.unique(idx))
+
+
+def test_nn_bf16_kernel_sentinel_rows_never_win(cuda_device):
+    """Sentinel (1e6) targets at the start of every split and staged tile,
+    and in a block at the end, never win for a real source point; a source
+    at the sentinel itself picks one."""
+    m, n = 16384, 20000
+    k, length = _k3_split(m, n)
+    src, dst = _clouds(m, n, seed=10, scale=40.0)
+    pad = np.zeros(n, bool)
+    for start in range(0, n, length):
+        for t in range(start, min(n, start + length), 256):
+            pad[t:t + 8] = True
+    pad[-700:] = True
+    dst[pad] = 1.0e6
+    src[-5:] = 1.0e6
+    idx, d2 = nn_bf16.nn_bf16(torch.from_numpy(src).to(cuda_device),
+                              torch.from_numpy(dst).to(cuda_device))
+    idx = idx.cpu().numpy()
+    assert not pad[idx[:-5]].any()
+    assert pad[idx[-5:]].all() and torch.all(torch.isfinite(d2))
+
+
+def test_nn_bf16_is_one_wrapper_launch_of_four_kernels(cuda_device):
+    """One call adds one to K3's counter, and puts the four kernels of the
+    design on the card (centre, pack, scan, fold) and nothing else; its
+    plain version counts nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, d = (torch.from_numpy(a).to(cuda_device)
+            for a in _clouds(4096, 5000, seed=12, scale=30.0))
+    nn_bf16.nn_bf16(s, d)
+    torch.cuda.synchronize()
+    before = nn_bf16.nn_bf16.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _open_trace_window()
+        nn_bf16.nn_bf16(s, d)
+        torch.cuda.synchronize()
+    nn_bf16.nn_bf16_ref(s, d)
+    assert nn_bf16.nn_bf16.launches == before + 1
+    kernels = _own_kernels(prof)
+    assert len(kernels) == 4, kernels
+    for want in ("nn_centre_kernel", "nn_pack_kernel", "packed_scan_kernel",
+                 "nn_fold_kernel"):
+        assert sum(want in k for k in kernels) == 1, (want, kernels)
 
 
 @pytest.mark.parametrize("m,n", [(16384, 16384), (300, 5000), (1000, 100)])
@@ -664,6 +816,32 @@ def test_packed_mma_scorer_ragged_shapes(cuda_device, m, n):
     assert bool(packed_mma.near_ties(a_aug, b_aug, idx, ridx).all())
     for k, (a, _) in enumerate(planted[:m]):
         assert int(idx[k]) == a, (k, a, int(idx[k]))
+
+
+def test_packed_mma_scorer_is_k3_scan_and_fold(cuda_device):
+    """packed_mma_argmin runs K3's scan over its target splits and K3's
+    fold, two kernels, and returns K3's raw minimum: the same picks as a K3
+    call on the clouds it packed, e_min bit-equal to that call's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s, d = (torch.from_numpy(a).to(cuda_device)
+            for a in _clouds(3000, 7000, seed=13, scale=30.0))
+    a_aug, b_aug = _packed(s, d)
+    packed_mma.packed_mma_argmin(a_aug, b_aug)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _open_trace_window()
+        for _ in range(3):
+            idx, e = packed_mma.packed_mma_argmin(a_aug, b_aug)
+        torch.cuda.synchronize()
+    kernels = _own_kernels(prof)
+    assert len(kernels) == 6, kernels
+    for want in ("packed_scan_kernel", "nn_fold_kernel"):
+        assert sum(want in k for k in kernels) == 3, kernels
+    det = nn_bf16.nn_bf16_detail(s, d)
+    assert torch.equal(idx, det["idx"])
+    assert torch.equal(_bits(e), _bits(det["e_min"]))
 
 
 def test_packed_mma_scorer_raises_on_bad_operands(cuda_device):

@@ -1,10 +1,11 @@
 """The packed bf16 score's rules of the torch port on the CPU: the plain
 packing's |x|² order, the near-tie rule that holds the tensor-core scorer
-(kernels/packed_mma.py) to the plain version, K4's plain shortlist and
-rescore, and the layout of K4's device scratch.
+(kernels/packed_mma.py) to the plain version, the float64 argmin, K4's
+plain shortlist and rescore, the layouts of K3's and K4's device scratch,
+and K3's target-split rule.
 
 The tensor-core kernels themselves run only on the card
-(tests/test_torch_cuda.py, chip_smoke.py phase 11). Here the rule is
+(tests/test_torch_cuda.py, chip_smoke.py phases 7 and 11). Here the rule is
 checked on crafted rows, and against a search that differs from the plain
 one only in the order of its float32 sum, the situation the tensor cores
 create.
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_icp_slam_torch.kernels import nn_bf16, nn_rescore, packed_mma
+from tpu_icp_slam_torch.kernels import _build, nn_bf16, nn_rescore, packed_mma
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -155,7 +156,7 @@ def test_device_scratch_layout():
     overlapping, each view of its stated dtype and shape."""
     m, np_, s = 300, 1536, 6
     ws, layout = nn_rescore._workspace(m, np_, s, torch.device("cpu"))
-    views = nn_rescore._views(ws, layout)
+    views = _build.views(ws, layout)
     want = {"centre": (torch.float32, (3,)), "sc": (torch.float32, (m, 3)),
             "dp": (torch.float32, (np_, 3)),
             "a_aug": (torch.bfloat16, (m, 16)),
@@ -186,3 +187,85 @@ def test_packed_mma_argmin_on_cpu_is_the_plain_argmin():
     # a float32 sum of 16 exact products: well inside TAU of the exact sum
     assert float(torch.max(torch.abs(e.double() - exact) / mag)) \
         <= packed_mma.TAU
+
+
+def test_k3_scratch_layout():
+    """K3's one scratch buffer: every array 256-byte aligned, none
+    overlapping, each view of its stated dtype and shape; the partials are
+    the ones packed_mma_argmin carves on their own."""
+    m, n, k = 300, 5000, 20
+    ws, layout = nn_bf16._workspace(m, n, k, torch.device("cpu"))
+    views = _build.views(ws, layout)
+    want = {"centre": (torch.float32, (3,)),
+            "a_aug": (torch.bfloat16, (m, 16)),
+            "b_aug": (torch.bfloat16, (n, 16)),
+            "part_e": (torch.float32, (k, m)),
+            "part_idx": (torch.int32, (k, m))}
+    assert set(views) == set(want)
+    spans = []
+    for name, (dtype, shape) in want.items():
+        v = views[name]
+        assert (v.dtype, tuple(v.shape)) == (dtype, shape), name
+        start = v.data_ptr() - ws.data_ptr()
+        assert start % 256 == 0, name
+        spans.append((start, start + v.numel() * v.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= ws.numel()
+    assert set(nn_bf16.PARTIALS) == {"part_e", "part_idx"}
+    assert all(nn_bf16._SCRATCH[k] == v for k, v in nn_bf16.PARTIALS.items())
+
+
+SHAPES = [(16384, 16384), (16385, 16385), (1, 1), (1, 16384), (16384, 1),
+          (300, 5000), (4097, 3000), (16384, 77), (15, 17), (17, 15),
+          (1, 16385), (16385, 1), (1000, 100000)]
+
+
+@pytest.mark.parametrize("sms,per_sm", [(132, 8), (132, 6), (114, 8), (8, 2)])
+def test_k3_split_rule_covers_the_target(sms, per_sm):
+    """K3's target splits cover [0, n) in ascending contiguous ranges, each
+    a multiple of 16 targets but the last, none empty, no more work items
+    than the card holds at once unless one split per source tile already
+    exceeds it, and never more than one split per staged tile of 256."""
+    for m, n in SHAPES:
+        k, length = nn_bf16.splits(m, n, sms, per_sm)
+        ranges = [(s * length, min(n, (s + 1) * length)) for s in range(k)]
+        assert length % 16 == 0 and k >= 1, (m, n)
+        assert ranges[0][0] == 0 and ranges[-1][1] == n, (m, n)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(lo < hi for lo, hi in ranges), (m, n, k, length)
+        assert k <= max(1, -(-n // 256)), (m, n, k)
+        tiles = -(-m // 128)
+        assert tiles * k <= max(tiles, sms * per_sm), (m, n, k)
+        grid = min(tiles * k, sms * per_sm)
+        assert 1 <= grid <= sms * per_sm
+
+
+def test_k3_split_rule_fills_the_card_at_the_main_path_shape():
+    """At 16,384 x 16,384 on an H100 (132 SMs, 8 scan blocks an SM) the
+    items fill the card in one wave: 128 source tiles x 8 splits of 2,048 =
+    1,024 items of 1,056 resident blocks; at m = 1 or n = 1 no split goes
+    empty and no item is left idle for want of targets."""
+    assert nn_bf16.splits(16384, 16384, 132, 8) == (8, 2048)
+    k, length = nn_bf16.splits(16384, 16384, 132, 8)
+    assert 0.95 <= 128 * k / (132 * 8) <= 1.0
+    assert nn_bf16.splits(1, 16384, 132, 8) == (64, 256)
+    assert nn_bf16.splits(16384, 1, 132, 8) == (1, 16)
+    assert nn_bf16.splits(1, 1, 132, 8) == (1, 16)
+
+
+def test_exact_argmin_is_the_float64_first_minimum():
+    """exact_argmin is the first minimum of the float64 packed score (an
+    exact duplicate target goes to the lower index), and the plain float32
+    argmin is it or a near-tie of it."""
+    src, dst = _clouds(700, 1500, seed=8, scale=30.0)
+    dst[900] = dst[40]
+    src[:5] = dst[40] + 1e-3
+    sc, dc = nn_bf16.recentre(src, dst)
+    a, b = nn_bf16.pack_source(sc), nn_bf16.pack_target(dc)
+    best = packed_mma.exact_argmin(a, b, chunk=256)
+    e = a.double().numpy() @ b.double().numpy().T
+    np.testing.assert_array_equal(best.numpy(), e.argmin(axis=1))
+    assert best.dtype == torch.int32 and torch.all(best[:5] == 40)
+    ridx, _ = nn_bf16.packed_argmin_ref(a, b)
+    assert bool(packed_mma.near_ties(a, b, ridx, best).all())
