@@ -59,7 +59,23 @@ nonzero and the final line is not printed:
      end's ICP iterations, K3 = K5 = 0, and every K1 launch a batched
      verification launch, as many as the batched iterations verification
      ran.
- 14. profile: torch.profiler over each kernel's back-to-back calls (its
+ 14. cli and state: the port's command line in this process with the
+     default device, everything under build/chip_cli/. (1) Phase 4's log
+     written as a KITTI sequence (datasets/kitti.write_sequence) and `cli
+     run` over it with configs/kitti_full_res.json and --save-map: rc 0,
+     finite poses, ATE < 0.15 m, K1 = K2 = the front end's ICP iterations
+     beside the batched verification launches, every artifact written and
+     map.png a PNG. (2) `cli localize` of frame 15 in that map: localized
+     within 3.0 m of ground truth, on batched K1. (3) `cli eval` on the same
+     sequence: tpu_ate < 0.15 m, golden_ate and tpu_vs_golden_ate finite.
+     (4) Checkpoint and resume of full SLAM on phase 13's log: a streaming
+     run of the first 90 frames checkpointing every 30, then a fresh Slam3D
+     resuming the whole log from it: the same keyframes and kept closures
+     as phase 13's run, poses within rtol 1e-5 / atol 1e-6. (5) `cli align
+     --n 4096` recovers the transform, one K1 launch per ICP iteration. (6)
+     `cli run --dataset sim3d --frames 20` with SlamConfig() (scan-to-scan,
+     point-to-point): rc 0, one K1 launch per ICP iteration.
+ 15. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4 must make their four launches and no
      more). Last, because a process that has run the profiler keeps its
@@ -75,7 +91,7 @@ time of one call (CUDA events around 50 back-to-back calls behind a sleep
 kernel that keeps the card ahead of the host, divided by 50; 10 for K5);
 kernel_ms, the device time of the port's own CUDA kernels in one call,
 summed from a torch.profiler run over 20 back-to-back calls (10 for K5) in
-phase 14, and kernel_parts, the same by kernel; call_ms, one call timed alone (device
+phase 15, and kernel_parts, the same by kernel; call_ms, one call timed alone (device
 time plus the wrapper's host work); plain_ms, the plain version's time;
 bound_ms and bound_by, the least time the card could take (FP32 or bf16
 operations over the published H100 peak, or bytes over 3.35 TB/s,
@@ -85,11 +101,14 @@ library_ms, null: no single PyTorch call computes any of these functions.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1025,7 +1044,151 @@ def phase_full_slam():
     assert c["K3"] == c["K5"] == 0, c
     assert c["K1"] == batched == slam.detector.verify_iters > 0, \
         (c["K1"], batched, slam.detector.verify_iters)
-    return c["K4"], c["K1"], n_frames
+    return c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam)
+
+
+CLI_DIR = os.path.join(ROOT, "build", "chip_cli")
+
+
+def _cli(argv):
+    """cli.main(argv) in this process: (rc, the JSON it printed, s)."""
+    from tpu_icp_slam_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, json.loads(buf.getvalue()), time.perf_counter() - t0
+
+
+def _events(path):
+    with open(path) as fh:
+        return {e["event"]: e for e in map(json.loads, fh)}
+
+
+def phase_cli(full):
+    """Phase 14, the command line and the state it carries; `full` is
+    phase 13's (config, points, masks, poses, Slam3D)."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.datasets import kitti
+    from tpu_icp_slam_torch.kernels import nn_cuda
+    from tpu_icp_slam_torch.slam.slam3d import Slam3D
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    preset = os.path.join(ROOT, "configs", "kitti_full_res.json")
+    t0 = time.perf_counter()
+    scans, gt = synthetic.velodyne_log(n_frames=FRAMES, n_rings=48,
+                                       n_azimuth=1024,
+                                       path_fraction=FRAMES / 110.0)
+    seq = os.path.join(CLI_DIR, "kitti", "00")
+    kitti.write_sequence(seq, scans, gt)
+    print(f"[cli] {FRAMES}-frame KITTI sequence written in "
+          f"{time.perf_counter() - t0:.2f} s ({sum(map(len, scans))} points)")
+
+    # (1) cli run over the KITTI directory, full SLAM, map saved
+    out, map_file = os.path.join(CLI_DIR, "run"), os.path.join(CLI_DIR,
+                                                               "map.npz")
+    _zero_counts()
+    rc, rep, dt = _cli(["run", "--dataset", seq, "--frames", str(FRAMES),
+                        "--config", preset, "--out", out,
+                        "--save-map", map_file])
+    c, batched = _counts(), nn_cuda.nn_bruteforce.batched_launches
+    ev = _events(os.path.join(out, "metrics.jsonl"))["slam3d_run"]
+    poses = np.load(os.path.join(out, "trajectory.npz"))["poses"]
+    run_s = rep["timers"]["slam3d"]["total_s"]
+    print(f"[cli run] {card()} | {rep['frames']} frames, "
+          f"{(FRAMES - 1) / run_s:.3f} frames/s in Slam3D.run "
+          f"({run_s:.3f} s; {dt:.3f} s with "
+          f"loading and artifacts) | ICP iterations {ev['icp_iters']} | "
+          f"keyframes {rep['n_keyframes']} closures {rep['n_loop_closures']}"
+          f" | ATE {rep['ate_rmse']:.5f} m | launches {c}, K1 batched "
+          f"{batched}")
+    assert rc == 0 and rep["mode"] == "slam3d", rep
+    assert poses.shape == (FRAMES, 4, 4) and np.isfinite(poses).all()
+    assert rep["ate_rmse"] < 0.15, rep["ate_rmse"]
+    assert c["K2"] == c["K1"] - batched == ev["icp_iters"] > 0, (c, ev)
+    assert batched == ev["verify_iters"] and c["K3"] == c["K4"] == \
+        c["K5"] == 0, (c, ev)
+    for name in ("trajectory.npz", "trajectory_tum.txt",
+                 "trajectory_kitti.txt", "report.json", "metrics.jsonl",
+                 "map.png"):
+        assert os.path.exists(os.path.join(out, name)), name
+    with open(os.path.join(out, "map.png"), "rb") as fh:
+        assert fh.read(8) == b"\x89PNG\r\n\x1a\n", "map.png is no PNG"
+    assert os.path.exists(map_file)
+
+    # (2) localize a frame of the log in the saved map
+    _zero_counts()
+    rc, loc, dt = _cli(["localize", "--map", map_file, "--dataset", seq,
+                        "--frame", "15", "--frames", str(FRAMES),
+                        "--config", preset])
+    batched = nn_cuda.nn_bruteforce.batched_launches
+    print(f"[cli localize] frame 15: localized {loc['localized']}, error "
+          f"{loc.get('error_vs_gt_m', math.nan):.5f} m, keyframe "
+          f"{loc.get('match_keyframe')}, rmse {loc.get('rmse', math.nan):.5f}"
+          f" | K1 batched launches {batched} | {dt:.3f} s")
+    assert rc == 0 and loc["localized"], loc
+    assert loc["error_vs_gt_m"] < 3.0, loc
+    assert _counts()["K1"] == batched > 0
+
+    # (3) the run against the golden float64 oracle
+    rc, ev_rep, dt = _cli(["eval", "--dataset", seq, "--frames",
+                           str(FRAMES), "--config", preset])
+    print(f"[cli eval] tpu_ate {ev_rep['tpu_ate']:.5f} m | golden_ate "
+          f"{ev_rep['golden_ate']:.5f} m | tpu_vs_golden_ate "
+          f"{ev_rep['tpu_vs_golden_ate']:.5f} m | {dt:.3f} s (golden oracle "
+          f"on the host included)")
+    assert rc == 0
+    assert all(np.isfinite(ev_rep[k]) for k in
+               ("tpu_ate", "golden_ate", "tpu_vs_golden_ate")), ev_rep
+    assert ev_rep["tpu_ate"] < 0.15, ev_rep
+
+    # (4) checkpoint and resume of phase 13's full SLAM
+    cfg, pts, msk, poses13, slam13 = full
+    ck = os.path.join(CLI_DIR, "slam3d_ck.npz")
+    t0 = time.perf_counter()
+    Slam3D(cfg, device="cuda").run(pts[:90], msk[:90], checkpoint_path=ck,
+                                   checkpoint_every=30)
+    crash_s = time.perf_counter() - t0
+    slam = Slam3D(cfg, device="cuda")
+    t0 = time.perf_counter()
+    res, rrep = slam.run(pts, msk, checkpoint_path=ck, resume=True)
+    resume_s = time.perf_counter() - t0
+    gap = float(np.abs(res - poses13).max())
+    kept = [(lc.i, lc.j) for lc in slam.closures_kept]
+    kept13 = [(lc.i, lc.j) for lc in slam13.closures_kept]
+    print(f"[checkpoint] 90 frames streaming, a checkpoint every 30 "
+          f"({crash_s:.3f} s), then resumed at frame 61 to {len(pts)} "
+          f"({resume_s:.3f} s): keyframes {rrep.n_keyframes} (phase 13 "
+          f"{len(slam13.kf_frames)}), kept closures {len(kept)} "
+          f"({len(kept13)}), largest pose gap to phase 13 {gap:.3e}")
+    assert slam.kf_frames == slam13.kf_frames
+    assert kept == kept13
+    np.testing.assert_allclose(res, poses13, rtol=1e-5, atol=1e-6)
+
+    # (5) config 1: align two clouds
+    _zero_counts()
+    rc, al, dt = _cli(["align", "--n", "4096"])
+    k1 = _counts()["K1"]
+    print(f"[cli align] n 4096: iters {al['iters']}, rot err "
+          f"{al['rot_err_rad']:.3e} rad, trans err {al['trans_err_m']:.3e} "
+          f"m, recovered {al['recovered_under_1e-3']} | steady "
+          f"{al['time_steady_s']} s | K1 launches {k1} | {dt:.3f} s")
+    assert rc == 0 and al["recovered_under_1e-3"], al
+    assert k1 == 2 * al["iters"] > 0, (k1, al["iters"])
+
+    # (6) SlamConfig()'s default pipeline: scan-to-scan, point-to-point
+    out = os.path.join(CLI_DIR, "sim3d")
+    _zero_counts()
+    rc, s2s, dt = _cli(["run", "--dataset", "sim3d", "--frames", "20",
+                        "--out", out])
+    c = _counts()
+    ev = _events(os.path.join(out, "metrics.jsonl"))["fused_run"]
+    print(f"[cli run sim3d] scan-to-scan, 20 frames: ATE "
+          f"{s2s['ate_rmse']:.5f} m, ICP iterations {ev['icp_iters']} | "
+          f"launches {c} | {dt:.3f} s")
+    assert rc == 0 and s2s["mode"] == "fused", s2s
+    assert c["K1"] == ev["icp_iters"] > 0 and c["K2"] == 0, (c, ev)
 
 
 def phase_profile(rows):
@@ -1074,9 +1237,12 @@ def main() -> int:
     _count(k3_row, *phase_steps_bf16(pts, msk, gt))
     k4_row = phase_k4(pts, msk)
     k1b_row = phase_k1_batched(pts, src, dst)
-    k4, k1b, n_frames = phase_full_slam()
+    k4, k1b, n_frames, full = phase_full_slam()
     _count(k4_row, k4, n_frames)
     _count(k1b_row, k1b, n_frames)
+    t0 = time.perf_counter()
+    phase_cli(full)
+    print(f"[cli] phase 14 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row]
     phase_profile(rows)
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,12 @@
 """tpu_icp_slam_torch — the PyTorch/CUDA port of tpu_icp_slam for NVIDIA Hopper.
 
 The JAX package `tpu_icp_slam` is the reference; this package reproduces its
-3D scan-to-map path (both ICP loop backends, every NN precision) and full
-config-4 SLAM (loop closure, pose graph) in PyTorch, with the Pallas kernels
-rewritten as CUDA C++ kernels for sm_90a (`csrc/`, built on first use by
-`kernels/_build.py`).
+3D scan-to-map path (both ICP loop backends, every NN precision), 3D
+scan-to-scan odometry, full config-4 SLAM (loop closure, pose graph,
+checkpoint/resume, persistent maps and relocalization) and the command line
+(`python -m tpu_icp_slam_torch.cli align|run|eval|localize`) in PyTorch,
+with the Pallas kernels rewritten as CUDA C++ kernels for sm_90a (`csrc/`,
+built on first use by `kernels/_build.py`).
 
 Layers, mirroring the reference:
   core/     — SE(3) algebra, padded point clouds
@@ -18,12 +20,19 @@ Layers, mirroring the reference:
   mapping/  — voxel map, k-NN normals
   backend/  — loop closure (scan context, candidates, batched
               verification) and the float64 pose graph
-  slam/     — scan-to-map pipeline, full 3D SLAM (Slam3D), scan padding
+  slam/     — scan-to-map and scan-to-scan pipelines, full 3D SLAM
+              (Slam3D), checkpoints, persistent maps, the dataset runner
+  obs/      — wall timers, host-copy fences, torch.profiler traces, JSONL
+              metrics
+  cli       — align / run / eval / localize (`--device`, default cuda)
   interop   — carry state (pipeline, loop detector store, pose graph)
               between the two packages as numpy
-  config/, datasets/synthetic, eval/metrics, native/ — the port's own
-              copies of the reference's numpy and C modules (the config
-              tree, velodyne_log, ATE/RPE, the C voxel downsample)
+  config/, datasets/ (synthetic, kitti), eval/ (metrics, trajectory_io,
+              golden), native/ — the port's own copies of the reference's
+              numpy and C modules (the config tree, two_scan_pair and
+              velodyne_log, the KITTI reader, ATE/RPE, TUM/KITTI
+              trajectories, the float64 golden oracle, the C voxel
+              downsample)
 
 Nothing here imports jax or tpu_icp_slam: configs cross between the two
 packages as JSON (`from_json(tpu_icp_slam.config.to_json(cfg))`). Every

@@ -1,13 +1,126 @@
-"""Synthetic Velodyne-like 3D scans (NumPy, host-side, deterministic).
+"""Synthetic scans (NumPy, host-side, deterministic).
 
-The port's own copy of `velodyne_log` from tpu_icp_slam/datasets/synthetic.py
-and the helpers it calls, line for line: the same seed gives the same scans
-and ground truth in both packages.
+The port's own copy of `two_scan_pair` (config 1's pair, what `cli align`
+aligns) and `velodyne_log` (Velodyne-like 3D logs) from
+tpu_icp_slam/datasets/synthetic.py and the helpers they call, line for
+line: the same seed gives the same clouds, scans and ground truth in both
+packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def rigid_transform(d: int, rng: np.random.Generator, rot_scale=0.3, trans_scale=0.5):
+    """Random SE(d) homogeneous matrix, fp64."""
+    if d == 2:
+        theta = rng.uniform(-rot_scale, rot_scale)
+        c, s = np.cos(theta), np.sin(theta)
+        R = np.array([[c, -s], [s, c]])
+    else:
+        w = rng.uniform(-rot_scale, rot_scale, size=3)
+        theta = np.linalg.norm(w)
+        W = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        if theta < 1e-12:
+            R = np.eye(3)
+        else:
+            R = (
+                np.eye(3)
+                + np.sin(theta) / theta * W
+                + (1 - np.cos(theta)) / theta**2 * (W @ W)
+            )
+    t = rng.uniform(-trans_scale, trans_scale, size=d)
+    T = np.eye(d + 1)
+    T[:d, :d] = R
+    T[:d, d] = t
+    return T
+
+
+def surface_cloud(n: int, rng: np.random.Generator, extent: float = 10.0) -> np.ndarray:
+    """3D cloud sampled from a structured scene (ground + 2 walls + blobs).
+
+    Structured (non-degenerate in all 6 DoF) so ICP has a unique optimum.
+    """
+    n_ground = n // 3
+    n_walls = n // 3
+    n_blobs = n - n_ground - n_walls
+    ground = np.stack(
+        [
+            rng.uniform(-extent, extent, n_ground),
+            rng.uniform(-extent, extent, n_ground),
+            0.02 * rng.standard_normal(n_ground),
+        ],
+        axis=1,
+    )
+    half = n_walls // 2
+    wall_x = np.stack(
+        [
+            np.full(half, extent) + 0.02 * rng.standard_normal(half),
+            rng.uniform(-extent, extent, half),
+            rng.uniform(0, 3.0, half),
+        ],
+        axis=1,
+    )
+    wall_y = np.stack(
+        [
+            rng.uniform(-extent, extent, n_walls - half),
+            np.full(n_walls - half, -extent) + 0.02 * rng.standard_normal(n_walls - half),
+            rng.uniform(0, 3.0, n_walls - half),
+        ],
+        axis=1,
+    )
+    centers = rng.uniform(-extent * 0.6, extent * 0.6, size=(6, 3))
+    centers[:, 2] = rng.uniform(0.5, 2.0, size=6)
+    which = rng.integers(0, 6, n_blobs)
+    blobs = centers[which] + 0.4 * rng.standard_normal((n_blobs, 3))
+    return np.concatenate([ground, wall_x, wall_y, blobs], axis=0)
+
+
+def two_scan_pair(
+    n: int = 4096,
+    seed: int = 0,
+    noise: float = 0.0,
+    rot_scale: float = 0.3,
+    trans_scale: float = 0.5,
+    dim: int = 3,
+):
+    """Config 1: (src, dst, T_gt) with dst = T_gt applied to src.
+
+    ICP aligning src onto dst should recover T_gt to <1e-3.
+    """
+    rng = np.random.default_rng(seed)
+    if dim == 3:
+        src = surface_cloud(n, rng)
+    else:
+        src = _room_outline_cloud(n, rng)
+    T = rigid_transform(dim, rng, rot_scale, trans_scale)
+    dst = src @ T[:dim, :dim].T + T[:dim, dim]
+    if noise > 0:
+        dst = dst + noise * rng.standard_normal(dst.shape)
+    return src, dst, T
+
+
+def _room_outline_cloud(n: int, rng: np.random.Generator, extent: float = 8.0):
+    """2D points on the walls of an L-shaped room (non-degenerate for SE(2))."""
+    segs = np.array(
+        [
+            [-extent, -extent, extent, -extent],
+            [extent, -extent, extent, 0.0],
+            [extent, 0.0, 0.0, 0.0],
+            [0.0, 0.0, 0.0, extent],
+            [0.0, extent, -extent, extent],
+            [-extent, extent, -extent, -extent],
+        ]
+    )
+    lens = np.hypot(segs[:, 2] - segs[:, 0], segs[:, 3] - segs[:, 1])
+    probs = lens / lens.sum()
+    which = rng.choice(len(segs), size=n, p=probs)
+    u = rng.uniform(0, 1, n)
+    p0 = segs[which, :2]
+    p1 = segs[which, 2:]
+    pts = p0 + u[:, None] * (p1 - p0)
+    return pts + 0.01 * rng.standard_normal(pts.shape)
 
 
 def _default_world_segments() -> np.ndarray:

@@ -39,23 +39,28 @@ def state_to_numpy(state: MapOdomState) -> dict:
     return out
 
 
+def state_leaf(a, device: torch.device | str = "cuda") -> torch.Tensor:
+    """One array of a pipeline state as the port holds it: float arrays
+    become float32, bools stay bool, integers become int32. The array is
+    copied (a loaded .npz array may be read-only)."""
+    a = np.array(a)
+    if a.dtype == np.bool_:
+        dtype = torch.bool
+    elif np.issubdtype(a.dtype, np.integer):
+        dtype = torch.int32
+    else:
+        dtype = torch.float32
+    return torch.as_tensor(a, device=device).to(dtype).contiguous()
+
+
 def state_from_numpy(d: dict, device: torch.device | str = "cuda"
                      ) -> MapOdomState:
-    """Port state from a dict of numpy arrays (float arrays become float32,
-    bools stay bool, integers become int32)."""
-    def conv(a):
-        a = np.asarray(a)
-        if a.dtype == np.bool_:
-            dtype = torch.bool
-        elif np.issubdtype(a.dtype, np.integer):
-            dtype = torch.int32
-        else:
-            dtype = torch.float32
-        return torch.as_tensor(a, device=device).to(dtype).contiguous()
-
-    vm = VoxelMap(**{k: conv(d["vmap"][k]) for k in _VMAP_FIELDS})
+    """Port state from a dict of numpy arrays (as `state_leaf` converts
+    them)."""
+    vm = VoxelMap(**{k: state_leaf(d["vmap"][k], device)
+                     for k in _VMAP_FIELDS})
     return MapOdomState(**{
-        f.name: vm if f.name == "vmap" else conv(d[f.name])
+        f.name: vm if f.name == "vmap" else state_leaf(d[f.name], device)
         for f in dataclasses.fields(MapOdomState)})
 
 

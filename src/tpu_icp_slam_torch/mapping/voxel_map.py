@@ -1,5 +1,6 @@
 """Fixed-capacity voxel-deduplicated 3D map (port of
-tpu_icp_slam/mapping/voxel_map.py, sort-based insert and exact extract).
+tpu_icp_slam/mapping/voxel_map.py, sort-based insert, exact extract and a
+top-down PNG render).
 
 The map is a static-shape point store (capacity C) with a validity mask.
 Insert concatenates map + scan, sorts by quantized voxel key (stable, map
@@ -12,7 +13,10 @@ key; the results are bitwise those of the reference.
 from __future__ import annotations
 
 import dataclasses
+import struct
+import zlib
 
+import numpy as np
 import torch
 
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD
@@ -134,3 +138,63 @@ def extract_local(vm: VoxelMap, center: torch.Tensor, size: int,
 
 def count(vm: VoxelMap) -> torch.Tensor:
     return torch.sum(vm.mask.to(torch.int32))
+
+
+_PNG_SIZE = 1024  # pixels on the longer side of render_png's image
+
+
+def render_png(vm: VoxelMap, path: str, trajectory=None) -> None:
+    """Top-down render of the map as an 8-bit RGB PNG, the longer side
+    1,024 pixels: each pixel's highest map point as grey (brighter is
+    higher) on black, the trajectory (F, 2+) in red.
+
+    Written with numpy and zlib alone, so it needs no plotting package. It
+    is not pixel-equal to the reference's matplotlib scatter plot (no axes,
+    no colour map, no legend).
+    """
+    pts = vm.points[vm.mask].cpu().numpy().astype(np.float64)
+    traj = (np.zeros((0, 2)) if trajectory is None
+            else np.asarray(trajectory, np.float64)[:, :2])
+    xy = np.concatenate([pts[:, :2], traj])
+    lo = xy.min(0) if len(xy) else np.zeros(2)
+    hi = xy.max(0) if len(xy) else np.ones(2)
+    scale = (_PNG_SIZE - 1) / max(float((hi - lo).max()), 1e-6)
+    w, h = (np.round((hi - lo) * scale).astype(int) + 1).tolist()
+
+    def pixel(p):  # (N, 2) metres -> rows (y up), cols
+        c = np.clip(np.round((p[:, 0] - lo[0]) * scale).astype(int), 0, w - 1)
+        r = np.clip(np.round((hi[1] - p[:, 1]) * scale).astype(int), 0, h - 1)
+        return r, c
+
+    img = np.zeros((h, w, 3), np.uint8)
+    if len(pts):
+        z = pts[:, 2]
+        t = (z - z.min()) / max(float(z.max() - z.min()), 1e-6)
+        grey = np.zeros((h, w), np.uint8)
+        np.maximum.at(grey, pixel(pts), (48 + 207 * t).astype(np.uint8))
+        img[:] = grey[..., None]
+    if len(traj) > 1:
+        n = max(int(np.abs(np.diff(traj, axis=0)).max() * scale) + 2, 2)
+        s = np.linspace(0.0, 1.0, n)[:, None, None]
+        line = (traj[:-1] + s * (traj[1:] - traj[:-1])).reshape(-1, 2)
+        r, c = pixel(line)
+        img[r, c] = (255, 0, 0)
+    _write_png(path, img)
+
+
+def _write_png(path: str, rgb) -> None:
+    """(H, W, 3) uint8 -> PNG file: signature, IHDR (8-bit RGB), one zlib
+    IDAT of unfiltered rows, IEND."""
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fh:
+        fh.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                 + chunk(b"IEND", b""))

@@ -8,15 +8,18 @@ pose graph optimized in float64 on the device (backend/pose_graph.py).
 After optimization every frame pose is corrected rigidly relative to its
 anchor keyframe. Host code only orchestrates, once per keyframe.
 
-Not ported here, and refused with NotImplementedError: checkpointing
-(`checkpoint_path`, `checkpoint_every`, `resume`; slam/checkpoint.py) and the
-distributed Schur solve (prod(cfg.dist.mesh_shape) > 1).
+A run can checkpoint its whole state (front end, keyframe database,
+closures, strain flags; slam/checkpoint.py) and resume from it. Not ported
+here, and refused with NotImplementedError: the distributed Schur solve
+(prod(cfg.dist.mesh_shape) > 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import os
 import time
 from typing import Optional
 
@@ -26,6 +29,10 @@ import torch
 from tpu_icp_slam_torch.config import SlamConfig
 from tpu_icp_slam_torch.backend import pose_graph as pg
 from tpu_icp_slam_torch.backend.loop_closure import LoopClosure, LoopDetector
+from tpu_icp_slam_torch.slam.checkpoint import (
+    restore_slam_session,
+    save_slam_checkpoint,
+)
 from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
 
 
@@ -70,29 +77,45 @@ class Slam3D:
         backend for the keyframes found; mode="streaming" runs the backend
         as each keyframe arrives and skips a frame whose pose is not finite.
         Both produce the same factors.
+
+        checkpoint_every > 0 or resume force streaming. checkpoint_every
+        saves the whole state to checkpoint_path after every frame f with
+        f % checkpoint_every == 0 (fused with chunk_frames saves after each
+        chunk); resume restarts from checkpoint_path when it exists.
         """
         cfg = self.cfg
-        if checkpoint_path or checkpoint_every or resume:
-            raise NotImplementedError(
-                "Slam3D checkpointing (slam/checkpoint.py) is not ported yet")
         if cfg.backend.enabled and math.prod(cfg.dist.mesh_shape) > 1:
             raise NotImplementedError(
                 "the distributed Schur pose-graph solve (dist.mesh_shape "
                 "with more than one block) is not ported yet")
         if mode not in ("fused", "streaming"):
             raise ValueError(f"unknown mode: {mode}")
+        if checkpoint_every or resume:
+            mode = "streaming"
         start = 1
         closures: list[LoopClosure] = []
         n_cands = 0
         self.closures_kept: list = []
         self.closure_scores = np.zeros(0)
         self.closure_suspect = np.zeros(0, bool)
-        state = self.pipe.init_state(pts[0], msk[0])
-        poses = [np.eye(4)]
-        kf_frames = [0]
-        kf_poses = [np.eye(4)]
-        anchor_kf = [0]  # per-frame anchoring for the post-opt correction
-        self.detector.add_keyframe(pts[0], msk[0], position=np.zeros(3))
+        ck = None
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            ck = restore_slam_session(checkpoint_path, cfg, self.detector)
+            state = ck["fe_state"]
+            start = ck["next_frame"]
+            poses = ck["poses"]
+            kf_frames = ck["kf_frames"]
+            kf_poses = ck["kf_poses"]
+            anchor_kf = ck["anchor_kf"]
+            closures = ck["closures"]
+            n_cands = ck["n_cands"]
+        else:
+            state = self.pipe.init_state(pts[0], msk[0])
+            poses = [np.eye(4)]
+            kf_frames = [0]
+            kf_poses = [np.eye(4)]
+            anchor_kf = [0]  # per-frame anchoring for the post-opt correction
+            self.detector.add_keyframe(pts[0], msk[0], position=np.zeros(3))
         self.backend_s = 0.0
 
         def on_keyframe(f, pose):
@@ -110,11 +133,25 @@ class Slam3D:
                 closures.extend(lcs)
             self.backend_s += time.perf_counter() - t0
 
+        def save_ck(next_frame):
+            save_slam_checkpoint(
+                checkpoint_path, "scan_to_map", state, next_frame, poses,
+                kf_frames, kf_poses, anchor_kf, self.detector._descs,
+                self.detector._positions, closures, n_cands,
+                strain=strain, cfg=cfg)
+
         self.final_state = None
         self.chunk_stats: list = []  # (first_frame, n_frames, wall_s)
         # per-frame strain (hit the ICP cap without converging): feeds the
-        # odometry-factor weights (BackendConfig.odom_strain_penalty)
+        # odometry-factor weights (BackendConfig.odom_strain_penalty), so a
+        # resume restores it
         strain = [False] * start
+        if ck is not None and ck["strain"] is not None:
+            strain = list(ck["strain"])[:start]
+        elif ck is not None:
+            logging.getLogger(__name__).warning(
+                "checkpoint has no strain record; odometry-factor weights "
+                "for frames < %d resume as unstrained", start)
         iters: list = []
         if mode == "fused":
             chunk = chunk_frames if chunk_frames > 0 else len(pts) - start
@@ -146,6 +183,8 @@ class Slam3D:
                     if bool(kf_flags[f - f0]):
                         on_keyframe(f, pose)
                     anchor_kf.append(len(kf_frames) - 1)
+                if chunk_frames and checkpoint_path:
+                    save_ck(f1)
                 f0 = f1
         else:
             for f in range(start, len(pts)):
@@ -168,6 +207,9 @@ class Slam3D:
                 if bool(info["is_keyframe"]):
                     on_keyframe(f, pose)
                 anchor_kf.append(len(kf_frames) - 1)
+                if (checkpoint_every and checkpoint_path
+                        and f % checkpoint_every == 0):
+                    save_ck(f + 1)
 
         poses = np.stack(poses)
         self.frontend_poses = poses

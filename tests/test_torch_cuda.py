@@ -8,6 +8,7 @@ imports no jax, so it also runs where JAX is not installed:
 
 import dataclasses
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -925,3 +926,100 @@ def test_icp_fused_kernel_ragged_held_to_bounds(cuda_device, precision):
                                   **kw)
     assert all(torch.equal(x, y) for x, y in zip(out, again))
     assert smoke._k5_mismatches(out, ref, precision) == []
+
+
+def _small_scan_to_map(cuda_device):
+    """A short scan-to-map log and chip_smoke's small point-to-plane
+    configuration (phase 5's), the pipeline on the card."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
+    from tpu_icp_slam_torch.slam.runner import pad_scans
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    cfg = SlamConfig(
+        icp=ICPConfig(method="point_to_plane", max_iters=15,
+                      max_corr_dist=1.5, damping=1e-3, max_step_trans=1.0,
+                      max_step_rot=0.3, min_inliers=50, huber_delta=0.3),
+        mapping=MappingConfig(map_capacity=32768, local_model_size=4096,
+                              map_voxel=0.3),
+        pipeline=PipelineConfig(mode="scan_to_map", scan_capacity=2048,
+                                keyframe_trans=2.0, keyframe_rot=0.2),
+    )
+    scans, gt = synthetic.velodyne_log(n_frames=6, n_rings=16, n_azimuth=320,
+                                       path_fraction=0.08)
+    pts, msk = pad_scans([voxel_downsample_np(s, 0.4) for s in scans], 2048)
+    return ScanToMapPipeline(cfg, device=cuda_device), pts, msk, gt
+
+
+def test_checkpoint_on_the_card_resumes_bit_equal(cuda_device, tmp_path):
+    """A MapOdomState on the card saved, loaded back onto the card, and
+    stepped once: the same leaves and the same step as the live state's,
+    bit for bit."""
+    from tpu_icp_slam_torch.slam import checkpoint
+
+    pipe, pts, msk, _ = _small_scan_to_map(cuda_device)
+    st = pipe.init_state(pts[0], msk[0])
+    hist = [np.eye(4)]
+    for f in range(1, 4):
+        st, info = pipe.step(st, pts[f], msk[f])
+        hist.append(info["pose"].cpu().numpy())
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save_checkpoint(path, st, 4, hist, cfg=pipe.cfg)
+    st2, nxt, hist2 = checkpoint.load_checkpoint(path, pipe.cfg,
+                                                 device=cuda_device)
+    assert nxt == 4 and len(hist2) == 4
+    assert st2.pose.device.type == "cuda"
+    for a, b in zip(checkpoint._flatten(st2), checkpoint._flatten(st)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    _, live = pipe.step(st, pts[4], msk[4])
+    _, loaded = pipe.step(st2, pts[4], msk[4])
+    for k in live:
+        assert torch.equal(torch.as_tensor(live[k]),
+                           torch.as_tensor(loaded[k])), k
+
+
+def test_cli_align_on_the_card(cuda_device, capsys):
+    """`cli align --n 4096` with the default device: the transform
+    recovered to 1e-3 through K1, one launch per ICP iteration of each of
+    its two solves."""
+    from tpu_icp_slam_torch import cli
+
+    nn_cuda.nn_bruteforce.launches = 0
+    rc = cli.main(["align", "--n", "4096"])
+    rep = json.loads(capsys.readouterr().out)
+    assert rc == 0 and rep["recovered_under_1e-3"], rep
+    assert nn_cuda.nn_bruteforce.launches == 2 * rep["iters"] > 0
+
+
+def test_localize_in_map_on_the_card_matches_cpu(cuda_device, tmp_path):
+    """One saved map localized on the card and on the CPU: the same matched
+    keyframe, positions within 1e-3 m (the kernels' picks differ from the
+    plain version's only at near-ties; float32 ICP in another summation
+    order), verification on batched K1."""
+    from tpu_icp_slam_torch import BackendConfig, synthetic
+    from tpu_icp_slam_torch.backend.loop_closure import LoopDetector
+    from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
+    from tpu_icp_slam_torch.slam import map_io
+    from tpu_icp_slam_torch.slam.runner import pad_scans
+
+    scans, gt = synthetic.velodyne_log(n_frames=16, n_rings=12,
+                                       n_azimuth=256, path_fraction=0.4)
+    pts, msk = pad_scans([voxel_downsample_np(s, 0.5) for s in scans], 1536)
+    cfg = BackendConfig(verify_max_rmse=0.6, verify_max_dev=0.0)
+    det = LoopDetector(cfg, device="cpu")
+    kf = list(range(0, 16, 2))
+    for f in kf:
+        det.add_keyframe(pts[f], msk[f], position=gt[f][:3, 3])
+    path = str(tmp_path / "map.npz")
+    map_io.save_map(path, [(pts[f], msk[f]) for f in kf], gt[kf],
+                    detector=det)
+    nn_cuda.nn_bruteforce.batched_launches = 0
+    card = map_io.localize_in_map(
+        map_io.load_map(path, cfg, device=cuda_device), pts[5], msk[5])
+    assert nn_cuda.nn_bruteforce.batched_launches > 0
+    cpu = map_io.localize_in_map(map_io.load_map(path, cfg, device="cpu"),
+                                 pts[5], msk[5])
+    assert card is not None and cpu is not None
+    assert card[1] == cpu[1]
+    assert np.linalg.norm(card[0][:3, 3] - cpu[0][:3, 3]) < 1e-3
+    assert np.linalg.norm(card[0][:3, 3] - gt[5][:3, 3]) < 1.0

@@ -12,6 +12,7 @@ float64 on both sides).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -102,10 +103,18 @@ def test_slam3d_matches_reference(reference, mode, chunk):
 
 @pytest.mark.parametrize("kw", [{"checkpoint_path": "ck.npz"},
                                 {"checkpoint_every": 3}, {"resume": True}])
-def test_slam3d_unported_options_raise(kw):
+def test_slam3d_unported_options_raise(kw, tmp_path):
+    """The checkpoint options are ported (tests/test_torch_checkpoint.py):
+    alone, without a record to write or read, they change nothing. The
+    distributed Schur solve is still refused."""
     pts, msk = _out_and_back()
-    with pytest.raises(NotImplementedError):
-        Slam3D(_slam_cfg(), device="cpu").run(pts[:2], msk[:2], **kw)
+    kw = {k: str(tmp_path / v) if k == "checkpoint_path" else v
+          for k, v in kw.items()}
+    poses, rep = Slam3D(_slam_cfg(), device="cpu").run(pts[:3], msk[:3],
+                                                        **kw)
+    plain, _ = Slam3D(_slam_cfg(), device="cpu").run(pts[:3], msk[:3])
+    np.testing.assert_array_equal(poses, plain)
+    assert rep.n_frames == 3 and not os.listdir(tmp_path)
     cfg = dataclasses.replace(_slam_cfg(), dist=DistConfig(mesh_shape=(2,)))
     with pytest.raises(NotImplementedError):  # the distributed Schur solve
         Slam3D(cfg, device="cpu").run(pts[:2], msk[:2])

@@ -179,8 +179,9 @@ def _port_modules():
 def test_port_imports_without_jax():
     """The port, chip_smoke.py and chip_ab.py import and run with both jax
     and the reference package blocked, lazy imports included: the native
-    voxel downsample, a preset through from_json, velodyne_log, ATE and a
-    3-frame scan-to-map run on the CPU."""
+    voxel downsample, a preset through from_json, velodyne_log, ATE, a
+    3-frame scan-to-map run, `cli align` and a 3-frame `cli run` on the
+    CPU."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -217,6 +218,19 @@ def test_port_imports_without_jax():
         "gt_rel = np.einsum('ij,fjk->fik', np.linalg.inv(gt[0]), gt)\n"
         "ate = metrics.ate_rmse(poses[:, :3, 3], gt_rel[:, :3, 3])\n"
         "assert np.isfinite(ate) and ate < 0.5, ate\n"
+        "import contextlib, io, json, tempfile\n"
+        "from tpu_icp_slam_torch import cli\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    cli.main(['align', '--n', '256', '--device', 'cpu'])\n"
+        "assert 'rot_err_rad' in json.loads(buf.getvalue())\n"
+        "out = tempfile.mkdtemp()\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert cli.main(['run', '--dataset', 'sim3d', '--frames', '3',\n"
+        "                     '--device', 'cpu', '--out', out,\n"
+        "                     'pipeline.scan_capacity=1024',\n"
+        "                     'icp.max_iters=10']) == 0\n"
+        "assert json.load(open(out + '/report.json'))['frames'] == 3\n"
         "assert not [k for k, v in sys.modules.items() if v is not None\n"
         "            and k.split('.')[0] in ('jax', 'tpu_icp_slam')]\n"
         "print('imported', len(sys.modules), 'ate', ate)\n"
