@@ -75,7 +75,24 @@ nonzero and the final line is not printed:
      --n 4096` recovers the transform, one K1 launch per ICP iteration. (6)
      `cli run --dataset sim3d --frames 20` with SlamConfig() (scan-to-scan,
      point-to-point): rc 0, one K1 launch per ICP iteration.
- 15. profile: torch.profiler over each kernel's back-to-back calls (its
+ 15. config 2 (2D lidar SLAM), everything under build/chip_cli2d/. (1) K1
+     at D = 2 against its plain version, idx and d2 bit for bit: M = N =
+     4,096 (SlamConfig()'s scan capacity, sim2d frames 1 on 0), 16,384 x
+     16,384 with sentinel rows, and batched at B = 32 (4 candidates x 8
+     yaws), G = 8, M = N = 512, B = 1 equal to the unbatched call. (2) `cli
+     eval --dataset sim2d_loop --frames 60 --config
+     configs/lidar2d_scan_to_map.json`: rc 0, finite poses, tpu_ate <
+     0.25 m, >= 1 accepted closure, K1 launches at D = 3 equal to the front
+     end's ICP iterations, batched K1 launches at D = 2 equal to the
+     verification iterations, K2 = K3 = K4 = K5 = 0; Slam2D.run's frames/s.
+     (3) `cli run --dataset sim2d --frames 30` with SlamConfig(): rc 0,
+     map.png a PNG, one K1 launch at D = 2 per ICP iteration; frames/s. (4)
+     the same log written as a CARMEN .clf file (carmen.write_clf) and read
+     back within the writer's precision, through `cli run`. (5) a
+     Slam2D streaming run checkpointing every 20 frames, resumed, held to
+     (2)'s run: the same keyframes and closures, poses within rtol 1e-5 /
+     atol 1e-6.
+ 16. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4 must make their four launches and no
      more). Last, because a process that has run the profiler keeps its
@@ -91,11 +108,11 @@ time of one call (CUDA events around 50 back-to-back calls behind a sleep
 kernel that keeps the card ahead of the host, divided by 50; 10 for K5);
 kernel_ms, the device time of the port's own CUDA kernels in one call,
 summed from a torch.profiler run over 20 back-to-back calls (10 for K5) in
-phase 15, and kernel_parts, the same by kernel; call_ms, one call timed alone (device
-time plus the wrapper's host work); plain_ms, the plain version's time;
-bound_ms and bound_by, the least time the card could take (FP32 or bf16
-operations over the published H100 peak, or bytes over 3.35 TB/s,
-whichever is larger), from this run's shapes and iteration counts;
+phase 16, and kernel_parts, the same by kernel; call_ms, one call timed
+alone (device time plus the wrapper's host work); plain_ms, the plain
+version's time; bound_ms and bound_by, the least time the card could take
+(FP32 or bf16 operations over the published H100 peak, or bytes over 3.35
+TB/s, whichever is larger), from this run's shapes and iteration counts;
 library_ms, null: no single PyTorch call computes any of these functions.
 """
 
@@ -353,11 +370,15 @@ def _fmt(t):
             f"{t['plain_ms']:.4f} ms")
 
 
-def k1_bound(batch, group, m, n):
-    """K1's least time: 9 FP32 flops a pair (3 subtractions, a product, two
-    fused multiply-adds, a compare), against its bytes."""
-    return _bound(9.0 * batch * m * n,
-                  20.0 * batch * m + 12.0 * batch // group * n)
+def k1_bound(batch, group, m, n, dim=3):
+    """K1's least time: 9 FP32 flops a pair at D = 3 (3 subtractions, a
+    product, two fused multiply-adds, a compare), 6 at D = 2 (2
+    subtractions, 2 products, an add, a compare), against its bytes (the
+    points in, idx and d2 out)."""
+    flops = 9.0 if dim == 3 else 6.0
+    return _bound(flops * batch * m * n,
+                  (4.0 * dim + 8.0) * batch * m + 4.0 * dim * batch // group
+                  * n)
 
 
 def k2_bound(m):
@@ -591,6 +612,7 @@ def _zero_counts():
     for fn in _counters().values():
         fn.launches = 0
     _counters()["K1"].batched_launches = 0
+    _counters()["K1"].launches_2d = 0
 
 
 def _counts():
@@ -1191,6 +1213,226 @@ def phase_cli(full):
     assert c["K1"] == ev["icp_iters"] > 0 and c["K2"] == 0, (c, ev)
 
 
+# ---- config 2: 2D lidar SLAM ------------------------------------------------
+
+CONFIG2 = os.path.join(ROOT, "configs", "lidar2d_scan_to_map.json")
+CLI2D_DIR = os.path.join(ROOT, "build", "chip_cli2d")
+SIM2D_FRAMES = 60  # the reference's own verify command: sim2d_loop, 60
+
+
+def _yawed2(points, yaws):
+    """(M, 2) numpy points turned by each yaw -> (Y, M, 2)."""
+    c, s = np.cos(yaws), np.sin(yaws)
+    R = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+    return np.einsum("yij,mj->ymi", R, points).astype(np.float32)
+
+
+def _k1_bit_equal(src, dst):
+    """K1 and its plain version on the same inputs: idx and d2 equal bit
+    for bit (K1 scores 2-D points with the plain version's rounding)."""
+    from tpu_icp_slam_torch.kernels import nn_cuda
+
+    idx_k, d2_k = nn_cuda.nn_bruteforce(src, dst)
+    idx_r, d2_r = nn_cuda.nn_bruteforce_ref(src, dst)
+    torch.cuda.synchronize()
+    assert torch.equal(idx_k, idx_r), "K1 2-D idx differs from plain"
+    assert bits_equal(d2_k, d2_r), "K1 2-D d2 differs from plain"
+    return idx_k
+
+
+def phase_k1_2d():
+    """K1 at D = 2 against its plain version, bit for bit: unbatched at the
+    2D scan-to-scan shape (M = N = 4,096, SlamConfig()'s scan capacity:
+    frames 1 and 0 of sim2d) and at 16,384 x 16,384 with sentinel rows;
+    batched at loop verification's shape (B = 32 = 4 candidates x 8 yaws,
+    G = 8, M = N = 512: the last frame of the 60-frame sim2d_loop yawed
+    against four of its keyframe scans), B = 1 equal to the unbatched
+    call."""
+    from tpu_icp_slam_torch.kernels import nn_cuda
+    from tpu_icp_slam_torch.slam import runner
+
+    dev = torch.device("cuda")
+    pts, msk = runner.pad_scans(runner.load_dataset("sim2d", 30).scans,
+                                4096)
+    src, dst = (torch.as_tensor(pts[i], device=dev) for i in (1, 0))
+    idx = _k1_bit_equal(src, dst)
+    real = torch.as_tensor(msk[1], device=dev)
+    assert bool((idx[real] < int(msk[0].sum())).all()), \
+        "K1 2-D matched a real point to a sentinel row"
+    rng = np.random.default_rng(2)
+    big = [torch.as_tensor(rng.uniform(-12, 12, (16384, 2)), device=dev,
+                           dtype=torch.float32) for _ in range(2)]
+    big[1][-2048:] = 1.0e6
+    idx_big = _k1_bit_equal(*big)
+    assert int(idx_big.max()) < 16384 - 2048
+    lp, _ = runner.pad_scans(runner.load_dataset("sim2d_loop",
+                                                 SIM2D_FRAMES).scans, 512)
+    yaws = np.linspace(-np.pi, np.pi, 8, endpoint=False)
+    bsrc = torch.as_tensor(_yawed2(lp[-1], yaws), device=dev).repeat(4, 1, 1)
+    bdst = torch.as_tensor(lp[[0, 1, 2, 3]], device=dev)
+    _k1_bit_equal(bsrc, bdst)
+    one = nn_cuda.nn_bruteforce(bsrc[:1], bdst[:1])
+    ref = nn_cuda.nn_bruteforce(bsrc[0].contiguous(), bdst[0].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(one[0][0], ref[0]) and bits_equal(one[1][0], ref[1]), \
+        "batched K1 2-D at B = 1 differs from the unbatched call"
+    t1 = _timings(lambda: nn_cuda.nn_bruteforce(src, dst),
+                  lambda: nn_cuda.nn_bruteforce_ref(src, dst),
+                  bound=k1_bound(1, 1, 4096, 4096, dim=2))
+    tb = _timings(lambda: nn_cuda.nn_bruteforce(bsrc, bdst),
+                  lambda: nn_cuda.nn_bruteforce_ref(bsrc, bdst), plain_n=1,
+                  bound=k1_bound(32, 8, 512, 512, dim=2))
+    big_ms = _device_ms(lambda: nn_cuda.nn_bruteforce(*big))
+    big_bound = k1_bound(1, 1, 16384, 16384, dim=2)[0]
+    print(f"[K1 2-D] {card()} | idx and d2 bit-equal to the plain version "
+          f"at M=N=4096 (sim2d frames 1 on 0), 16384x16384 (2048 sentinel "
+          f"rows; device {big_ms:.4f} ms, bound {big_bound:.4f} ms) and "
+          f"batched B=32 G=8 M=N=512 (B=1 = the unbatched call) | M=N=4096: "
+          f"{_fmt(t1)} | batched: {_fmt(tb)}")
+    src_file = "src/tpu_icp_slam_torch/csrc/nn_bruteforce.cu"
+    return ({"name": "nn_bruteforce[2d]", "route": "cuda",
+             "source": src_file,
+             "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:111",
+             "max_abs_err": 0.0, **t1},
+            {"name": "nn_bruteforce[2d batched]", "route": "cuda",
+             "source": src_file,
+             "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:111",
+             "max_abs_err": 0.0, **tb})
+
+
+def phase_config2():
+    """Config 2 through the command line with the default device, then a
+    Slam2D resume; everything under build/chip_cli2d/. Returns the K1
+    launch counts of the 2D paths and their frame counts."""
+    from tpu_icp_slam_torch import from_json, synthetic
+    from tpu_icp_slam_torch.datasets import carmen
+    from tpu_icp_slam_torch.kernels import nn_cuda
+    from tpu_icp_slam_torch.slam import runner, slam2d
+
+    shutil.rmtree(CLI2D_DIR, ignore_errors=True)
+    os.makedirs(CLI2D_DIR)
+    k1 = nn_cuda.nn_bruteforce
+
+    # (1) cli eval on the 60-frame loop with the preset: Slam2D (the z = 0
+    # lift onto the scan-to-map front end, 2D loop verification), read
+    # through the Slam2D the runner builds
+    runs = []
+
+    class Recorded(slam2d.Slam2D):
+        def run(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = super().run(*args, **kw)
+            torch.cuda.synchronize()
+            runs.append((self, out, time.perf_counter() - t0))
+            return out
+
+    runner.Slam2D = Recorded
+    try:
+        _zero_counts()
+        rc, ev, dt = _cli(["eval", "--dataset", "sim2d_loop", "--frames",
+                           str(SIM2D_FRAMES), "--config", CONFIG2])
+        c, batched, k1_2d = _counts(), k1.batched_launches, k1.launches_2d
+    finally:
+        runner.Slam2D = slam2d.Slam2D
+    slam, (poses, rep), run_s = runs[-1]
+    fe_iters = int(slam.frontend_iters.sum())
+    print(f"[config 2 eval] {card()} | sim2d_loop {SIM2D_FRAMES} frames, "
+          f"configs/lidar2d_scan_to_map.json: Slam2D.run "
+          f"{(SIM2D_FRAMES - 1) / run_s:.3f} frames/s ({run_s:.3f} s; "
+          f"backend {slam.backend_s:.3f} s) | tpu_ate {ev['tpu_ate']:.5f} m "
+          f"golden_ate {ev['golden_ate']:.5f} m tpu_vs_golden_ate "
+          f"{ev['tpu_vs_golden_ate']:.5f} m | keyframes {rep.n_keyframes} "
+          f"candidates {rep.n_loop_candidates} closures "
+          f"{rep.n_loop_closures} (rejected {rep.n_loops_rejected}) | front "
+          f"end ICP iterations {fe_iters}, verification iterations "
+          f"{slam.detector.verify_iters} | launches {c}, K1 batched "
+          f"{batched}, K1 on 2-D points {k1_2d} | {dt:.3f} s with the "
+          f"golden oracle")
+    assert rc == 0 and np.isfinite(poses).all(), "config 2 eval failed"
+    assert all(np.isfinite(ev[k]) for k in
+               ("tpu_ate", "golden_ate", "tpu_vs_golden_ate")), ev
+    assert ev["tpu_ate"] < 0.25, ev
+    assert ev["n_loop_closures"] >= 1, "no accepted closure"
+    assert c["K1"] - k1_2d == fe_iters > 0, (c, k1_2d, fe_iters)
+    assert k1_2d == batched == slam.detector.verify_iters > 0, \
+        (k1_2d, batched, slam.detector.verify_iters)
+    assert c["K2"] == c["K3"] == c["K4"] == c["K5"] == 0, c
+
+    # (2) SlamConfig()'s 2D scan-to-scan run with its occupancy grid
+    out = os.path.join(CLI2D_DIR, "sim2d")
+    _zero_counts()
+    rc, s2s, dt = _cli(["run", "--dataset", "sim2d", "--frames", "30",
+                        "--out", out])
+    c, run_k1_2d = _counts(), k1.launches_2d
+    fused = _events(os.path.join(out, "metrics.jsonl"))["fused_run"]
+    s2s_s = s2s["timers"]["compile+run_fused"]["total_s"]
+    print(f"[config 2 run sim2d] SlamConfig(), 30 frames: "
+          f"{29 / s2s_s:.3f} frames/s ({s2s_s:.3f} s; {dt:.3f} s with "
+          f"loading and artifacts) | ICP iterations {fused['icp_iters']} | "
+          f"ATE {s2s['ate_rmse']:.5f} m | launches {c}, K1 on 2-D points "
+          f"{run_k1_2d}")
+    assert rc == 0 and s2s["mode"] == "fused", s2s
+    assert c["K1"] == run_k1_2d == fused["icp_iters"] > 0, (c, fused)
+    assert c["K2"] == c["K3"] == c["K4"] == c["K5"] == 0, c
+    with open(os.path.join(out, "map.png"), "rb") as fh:
+        assert fh.read(8) == b"\x89PNG\r\n\x1a\n", "map.png is no PNG"
+
+    # (3) the same log as a CARMEN .clf file through cli run
+    log = synthetic.lidar2d_log(n_frames=30, n_beams=360, seed=0,
+                                noise=0.002)
+    xyt = np.stack([log.gt_poses[:, 0, 2], log.gt_poses[:, 1, 2],
+                    np.arctan2(log.gt_poses[:, 1, 0], log.gt_poses[:, 0, 0])],
+                   axis=1)
+    clf = os.path.join(CLI2D_DIR, "sim2d.clf")
+    carmen.write_clf(clf, log.ranges, xyt, max_range=log.max_range)
+    out = os.path.join(CLI2D_DIR, "clf")
+    _zero_counts()
+    rc, crep, _ = _cli(["run", "--dataset", clf, "--frames", "30", "--out",
+                        out])
+    c = _counts()
+    fused = _events(os.path.join(out, "metrics.jsonl"))["fused_run"]
+    clf_poses = np.load(os.path.join(out, "trajectory.npz"))["poses"]
+    back = carmen.load_clf(clf)
+    err = float(np.abs(back.ranges - log.ranges).max())
+    print(f"[config 2 run .clf] {crep['dataset']}: ranges read back within "
+          f"{err:.1e} m of the log's, odometry within "
+          f"{float(np.abs(back.odometry - xyt).max()):.1e} | {crep['frames']} "
+          f"frames (the reader's 180-degree field of view), ICP iterations "
+          f"{fused['icp_iters']} | launches {c}")
+    assert rc == 0 and clf_poses.shape == (30, 3, 3), crep
+    assert np.isfinite(clf_poses).all()
+    assert err < 1e-3 and np.allclose(back.odometry, xyt, atol=1e-5)
+    assert c["K1"] == fused["icp_iters"] > 0, (c, fused)
+
+    # (4) Slam2D streaming with a checkpoint every 20 frames, cut at frame
+    # 49, resumed from frame 41: held to the eval's uninterrupted run
+    cfg = from_json(open(CONFIG2).read())
+    pts, msk = runner.pad_scans(runner.load_dataset(
+        "sim2d_loop", SIM2D_FRAMES).scans, cfg.pipeline.scan_capacity)
+    ck = os.path.join(CLI2D_DIR, "slam2d_ck.npz")
+    t0 = time.perf_counter()
+    slam2d.Slam2D(cfg).run(pts[:50], msk[:50], checkpoint_path=ck,
+                           checkpoint_every=20)
+    crash_s = time.perf_counter() - t0
+    again = slam2d.Slam2D(cfg)
+    t0 = time.perf_counter()
+    res, rrep = again.run(pts, msk, checkpoint_path=ck, resume=True)
+    resume_s = time.perf_counter() - t0
+    gap = float(np.abs(res - poses).max())
+    print(f"[config 2 checkpoint] 50 frames streaming, a checkpoint every "
+          f"20 ({crash_s:.3f} s), resumed at frame 41 to {SIM2D_FRAMES} "
+          f"({resume_s:.3f} s): keyframes {rrep.n_keyframes} (eval "
+          f"{rep.n_keyframes}), closures {rrep.n_loop_closures} "
+          f"({rep.n_loop_closures}), largest pose gap to the eval's run "
+          f"{gap:.3e}")
+    assert again.kf_frames == slam.kf_frames
+    assert [(lc.i, lc.j) for lc in again.closures] == [
+        (lc.i, lc.j) for lc in slam.closures]
+    np.testing.assert_allclose(res, poses, rtol=1e-5, atol=1e-6)
+    return {"eval_batched": batched, "eval_frames": SIM2D_FRAMES - 1,
+            "run_k1": run_k1_2d, "run_frames": 29}
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -1243,7 +1485,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli(full)
     print(f"[cli] phase 14 in {time.perf_counter() - t0:.2f} s")
-    rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row]
+    t0 = time.perf_counter()
+    k1_2d_row, k1_2db_row = phase_k1_2d()
+    c2 = phase_config2()
+    _count(k1_2d_row, c2["run_k1"], c2["run_frames"])
+    _count(k1_2db_row, c2["eval_batched"], c2["eval_frames"])
+    print(f"[config 2] phase 15 in {time.perf_counter() - t0:.2f} s")
+    rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
+            k1_2d_row, k1_2db_row]
     phase_profile(rows)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

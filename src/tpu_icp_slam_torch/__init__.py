@@ -1,38 +1,42 @@
 """tpu_icp_slam_torch — the PyTorch/CUDA port of tpu_icp_slam for NVIDIA Hopper.
 
 The JAX package `tpu_icp_slam` is the reference; this package reproduces its
-3D scan-to-map path (both ICP loop backends, every NN precision), 3D
-scan-to-scan odometry, full config-4 SLAM (loop closure, pose graph,
-checkpoint/resume, persistent maps and relocalization) and the command line
-(`python -m tpu_icp_slam_torch.cli align|run|eval|localize`) in PyTorch,
-with the Pallas kernels rewritten as CUDA C++ kernels for sm_90a (`csrc/`,
-built on first use by `kernels/_build.py`).
+3D scan-to-map path (both ICP loop backends, every NN precision, every ICP
+option), scan-to-scan odometry in 3D and 2D, config 2's 2D lidar SLAM
+(SE(2) ICP, occupancy grid, Slam2D), full config-4 SLAM (loop closure,
+pose graph, checkpoint/resume, persistent maps and relocalization) and the
+command line (`python -m tpu_icp_slam_torch.cli align|run|eval|localize`)
+in PyTorch, with the Pallas kernels rewritten as CUDA C++ kernels for
+sm_90a (`csrc/`, built on first use by `kernels/_build.py`).
 
 Layers, mirroring the reference:
-  core/     — SE(3) algebra, padded point clouds
-  kernels/  — CUDA kernels and their plain-torch versions: K1 exact NN, K2
-              GN accumulation (the steps loop), K3 bf16 packed NN
+  core/     — SE(3) and SE(2) algebra, padded point clouds
+  kernels/  — CUDA kernels and their plain-torch versions: K1 exact NN
+              (3-D and 2-D points), K2 GN accumulation (the steps
+              loop), K3 bf16 packed NN
               (nn_precision="bf16"), K4 the rescore shortlist NN
               (nn_precision="rescore"), K5 the whole fused ICP loop
-              (icp.loop_backend="fused") and its capability probe
+              (icp.loop_backend="fused") and its capability probe; the
+              voxel hash-grid NN (torch ops, nn_backend="voxel")
   icp/      — point-to-plane Gauss-Newton step, point-to-point Umeyama,
               the ICP loop and its batched form (loop verification)
-  mapping/  — voxel map, k-NN normals
+  mapping/  — voxel map, k-NN normals, 2D occupancy grid
   backend/  — loop closure (scan context, candidates, batched
               verification) and the float64 pose graph
   slam/     — scan-to-map and scan-to-scan pipelines, full 3D SLAM
-              (Slam3D), checkpoints, persistent maps, the dataset runner
+              (Slam3D), 2D SLAM (Slam2D), checkpoints, persistent maps,
+              the dataset runner
   obs/      — wall timers, host-copy fences, torch.profiler traces, JSONL
               metrics
   cli       — align / run / eval / localize (`--device`, default cuda)
   interop   — carry state (pipeline, loop detector store, pose graph)
               between the two packages as numpy
-  config/, datasets/ (synthetic, kitti), eval/ (metrics, trajectory_io,
-              golden), native/ — the port's own copies of the reference's
-              numpy and C modules (the config tree, two_scan_pair and
-              velodyne_log, the KITTI reader, ATE/RPE, TUM/KITTI
-              trajectories, the float64 golden oracle, the C voxel
-              downsample)
+  config/, datasets/ (synthetic, kitti, carmen), eval/ (metrics,
+              trajectory_io, golden), native/ — the port's own copies of
+              the reference's numpy and C modules (the config tree,
+              two_scan_pair, lidar2d_log and velodyne_log, the KITTI and
+              CARMEN readers, ATE/RPE, TUM/KITTI trajectories, the
+              float64 golden oracle, the C voxel downsample)
 
 Nothing here imports jax or tpu_icp_slam: configs cross between the two
 packages as JSON (`from_json(tpu_icp_slam.config.to_json(cfg))`). Every

@@ -7,7 +7,8 @@ circular shifts of a column-cosine score. Candidates are gated by keyframe
 separation and odometry position on the device, then verified
 geometrically by coarse-to-fine point-to-point ICP over (candidates × yaw
 hypotheses) in one batched loop (`icp.loop.align_batched`, whose NN is K1's
-batched form on CUDA).
+batched form on CUDA). Scans are 3D (SE(3) verification) or 2D (SE(2),
+Slam2D's keyframes: batched K1 on 2-D points).
 
 Parity notes against the reference: `.at[flat].max` is a `scatter_reduce`
 ("amax") from -inf, floored to 0; `astype(int32)` truncates toward zero, as
@@ -117,11 +118,12 @@ def _gated_candidate_scores(query, descs, positions, qpos, lo: int,
     return top_s, shifts[top_i], top_i
 
 
-def _rotz(yaws: torch.Tensor) -> torch.Tensor:
-    """(...,) float32 yaws -> (..., 4, 4) rotations about z."""
+def _rotz(yaws: torch.Tensor, dim: int = 3) -> torch.Tensor:
+    """(...,) float32 yaws -> (..., D+1, D+1) rotations about z (in the
+    plane for D = 2)."""
     c, s = torch.cos(yaws), torch.sin(yaws)
-    T = torch.eye(4, dtype=torch.float32, device=yaws.device).expand(
-        *yaws.shape, 4, 4).clone()
+    T = torch.eye(dim + 1, dtype=torch.float32, device=yaws.device).expand(
+        *yaws.shape, dim + 1, dim + 1).clone()
     T[..., 0, 0], T[..., 0, 1] = c, -s
     T[..., 1, 0], T[..., 1, 1] = s, c
     return T
@@ -146,14 +148,14 @@ def _batched_verify(query_points, query_mask, match_points, match_mask,
         -math.pi / 2
     yaws = torch.cat([yaw_d, cardinals[:n_card].expand(rows.shape[0],
                                                        n_card)], dim=1)
-    c = yaws.shape[0]
-    inits = _rotz(yaws).reshape(c * n_yaws, 4, 4)
+    c, d = yaws.shape[0], query_points.shape[-1]
+    inits = _rotz(yaws, d).reshape(c * n_yaws, d + 1, d + 1)
     src = PointCloud(points=query_points, mask=query_mask)
     coarse = align_batched(src, match_points, match_mask, inits, cfg_coarse)
     fine = align_batched(src, match_points, match_mask, coarse.T, cfg_fine)
     n_iter = torch.amax(coarse.iters) + torch.amax(fine.iters)
     return ICPResult(
-        T=fine.T.reshape(c, n_yaws, 4, 4),
+        T=fine.T.reshape(c, n_yaws, d + 1, d + 1),
         rmse=fine.rmse.reshape(c, n_yaws),
         iters=fine.iters.reshape(c, n_yaws),
         n_inliers=fine.n_inliers.reshape(c, n_yaws),
@@ -172,7 +174,7 @@ class LoopCandidate:
 class LoopClosure:
     i: int  # earlier keyframe
     j: int  # later keyframe
-    T_ij: np.ndarray  # (4, 4) measured X_i⁻¹ X_j
+    T_ij: np.ndarray  # (D+1, D+1) measured X_i⁻¹ X_j
     rmse: float
     n_inliers: int
 
@@ -322,8 +324,8 @@ class LoopDetector:
         batch; the best-rmse lock that passes the gates wins.
 
         Gates per candidate: rmse ≤ verify_max_rmse, inliers ≥ 30% of the
-        query and, with T_preds (C, 4, 4), the measured translation within
-        verify_max_dev (or max_devs (C,)) of the odometry prediction.
+        query and, with T_preds (C, D+1, D+1), the measured translation
+        within verify_max_dev (or max_devs (C,)) of the odometry prediction.
         query_desc defaults to the stored descriptor of cands[0].query_idx.
         Returns a list aligned with `cands`: LoopClosure (i = match, j =
         query) or None.
@@ -336,9 +338,6 @@ class LoopDetector:
         if self._descs_dev is None or self._n_dev != len(self._descs):
             self._sync_device_store()
         d = int(np.asarray(query_points).shape[1])
-        if d != 3:
-            raise NotImplementedError("2D loop verification needs SE(2) "
-                                      "alignment, which is not ported yet")
 
         def dev(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
@@ -363,7 +362,7 @@ class LoopDetector:
             t_l.append(fine.T.cpu().numpy().astype(np.float64))
         rmses = np.concatenate(rm_l)  # (C, Y)
         inls = np.concatenate(in_l)  # (C, Y)
-        Ts = np.concatenate(t_l)  # (C, Y, 4, 4)
+        Ts = np.concatenate(t_l)  # (C, Y, D+1, D+1)
         n_valid = int(np.asarray(query_mask).sum())
         ok = (rmses <= self.cfg.verify_max_rmse) & (
             inls >= 0.3 * max(n_valid, 1))
@@ -434,7 +433,7 @@ class LoopDetector:
                    topk: int = 3):
         """Global relocalization with no odometry prior: descriptor ranking
         over all keyframes, then multi-yaw verification of the top `topk`.
-        Returns (pose (4, 4), match_idx, rmse) or None."""
+        Returns (pose (D+1, D+1), match_idx, rmse) or None."""
         if not self._descs:
             return None
         d = self._descriptor(query_points, query_mask)

@@ -5,8 +5,9 @@ kernel). Without a card the default raises; nothing moves to the CPU on its
 own.
 
     python -m tpu_icp_slam_torch.cli align --n 4096
-    python -m tpu_icp_slam_torch.cli run --dataset <KITTI dir | sim3d |
-        sim3d_loop> --frames F --config configs/kitti_full_res.json
+    python -m tpu_icp_slam_torch.cli run --dataset <sim2d | sim2d_loop |
+        a .clf/.log file | sim3d | sim3d_loop | KITTI dir> --frames F
+        [--config configs/lidar2d_scan_to_map.json | kitti_full_res.json]
         [--checkpoint-every N | --resume] [--save-map map.npz] --out DIR
     python -m tpu_icp_slam_torch.cli localize --map map.npz --dataset <same>
         --frame i --frames F
@@ -174,15 +175,16 @@ def build_parser() -> argparse.ArgumentParser:
     a.set_defaults(fn=cmd_align)
 
     r = sub.add_parser("run", help="full SLAM over a dataset/log")
-    r.add_argument("--dataset", default="sim3d",
-                   help="sim3d | sim3d_loop | path to a KITTI sequence dir")
+    r.add_argument("--dataset", default="sim2d",
+                   help="sim2d | sim2d_loop | sim3d | sim3d_loop | path to a "
+                        "real log (.clf / .log, a KITTI sequence dir)")
     r.add_argument("--frames", type=int, default=60)
     r.add_argument("--config", default=None, help="JSON config file")
     r.add_argument("--out", default="out", help="artifact directory")
     r.add_argument("--resume", action="store_true")
     r.add_argument("--checkpoint-every", type=int, default=0)
     r.add_argument("--save-map", default=None, help="export the keyframe map "
-                   "(.npz) for a later `localize` (3D backend path)")
+                   "(.npz) for a later `localize` (the backend paths)")
     r.add_argument("overrides", nargs="*", help="dotted config overrides k=v")
     device_arg(r)
     r.set_defaults(fn=cmd_run)
@@ -209,7 +211,7 @@ def build_parser() -> argparse.ArgumentParser:
     b.set_defaults(fn=cmd_bench)
 
     e = sub.add_parser("eval", help="trajectory accuracy evaluation")
-    e.add_argument("--dataset", default="sim3d")
+    e.add_argument("--dataset", default="sim2d")
     e.add_argument("--frames", type=int, default=60)
     e.add_argument("--config", default=None, help="JSON config file")
     e.add_argument("overrides", nargs="*", help="dotted config overrides k=v")

@@ -1,13 +1,16 @@
 """Synthetic scans (NumPy, host-side, deterministic).
 
 The port's own copy of `two_scan_pair` (config 1's pair, what `cli align`
-aligns) and `velodyne_log` (Velodyne-like 3D logs) from
+aligns), `lidar2d_log` and `scan_to_points` (the simulated 2D lidar world of
+config 2) and `velodyne_log` (Velodyne-like 3D logs) from
 tpu_icp_slam/datasets/synthetic.py and the helpers they call, line for
 line: the same seed gives the same clouds, scans and ground truth in both
 packages.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -123,6 +126,16 @@ def _room_outline_cloud(n: int, rng: np.random.Generator, extent: float = 8.0):
     return pts + 0.01 * rng.standard_normal(pts.shape)
 
 
+# Simulated 2D lidar world (Intel-Research-Lab-style log; config 2)
+
+@dataclasses.dataclass
+class Lidar2DLog:
+    ranges: np.ndarray  # (F, B) ranges, max_range where no hit
+    angles: np.ndarray  # (B,) beam angles in sensor frame
+    gt_poses: np.ndarray  # (F, 3, 3) SE(2) ground truth
+    max_range: float
+
+
 def _default_world_segments() -> np.ndarray:
     """Wall segments (x0, y0, x1, y1) of an office-like 2D world."""
     walls = [
@@ -172,6 +185,100 @@ def _raycast_segments(origin, angles_world, segs, max_range):
     t = np.where(valid, t, np.inf)
     r = t.min(axis=1)
     return np.minimum(r, max_range)
+
+
+def lidar2d_log_custom(
+    segs: np.ndarray,
+    waypoints: np.ndarray,
+    n_frames: int = 100,
+    n_beams: int = 360,
+    seed: int = 0,
+    max_range: float = 12.0,
+    noise: float = 0.005,
+    dynamic_fn=None,
+) -> Lidar2DLog:
+    """Raycast a 2D lidar log through caller-provided wall segments.
+
+    `dynamic_fn(frame) -> (S, 4) segments or None` adds per-frame moving
+    geometry (pedestrians, vehicles) — adversarial-world hook: dynamic points
+    violate the static-scene assumption every ICP variant makes, so the
+    robust weighting (Huber + distance gates) has to absorb them.
+    """
+    rng = np.random.default_rng(seed)
+    angles = np.linspace(-np.pi, np.pi, n_beams, endpoint=False)
+    # resample waypoints to n_frames poses with smooth heading
+    seg_lens = np.linalg.norm(np.diff(waypoints, axis=0), axis=1)
+    cum = np.concatenate([[0], np.cumsum(seg_lens)])
+    s = np.linspace(0, cum[-1], n_frames)
+    xy = np.stack(
+        [np.interp(s, cum, waypoints[:, i]) for i in range(2)], axis=1
+    )
+    # smooth polyline corners (robots turn over several frames; raw corners
+    # give >0.5 rad/frame yaw steps no odometry can track). The 2D world uses
+    # a frame-count window (legacy, validated thresholds); the 3D generator
+    # uses the fixed-radius _round_and_resample.
+    win = max(3, n_frames // 16) | 1
+    kern = np.ones(win) / win
+    pad = win // 2
+    xy = np.stack(
+        [
+            np.convolve(np.pad(xy[:, i], pad, mode="edge"), kern, mode="valid")
+            for i in range(2)
+        ],
+        axis=1,
+    )
+    heading = np.arctan2(*np.flip(np.gradient(xy, axis=0), axis=1).T)
+    poses = np.zeros((n_frames, 3, 3))
+    ranges = np.zeros((n_frames, n_beams))
+    for f in range(n_frames):
+        th = heading[f]
+        c, sn = np.cos(th), np.sin(th)
+        poses[f] = [[c, -sn, xy[f, 0]], [sn, c, xy[f, 1]], [0, 0, 1]]
+        frame_segs = segs
+        if dynamic_fn is not None:
+            extra = dynamic_fn(f)
+            if extra is not None and len(extra):
+                frame_segs = np.concatenate([segs, np.asarray(extra, np.float64)])
+        r = _raycast_segments(xy[f], angles + th, frame_segs, max_range)
+        hit = r < max_range
+        r = np.where(hit, r + noise * rng.standard_normal(n_beams), r)
+        ranges[f] = np.clip(r, 0.05, max_range)
+    return Lidar2DLog(ranges=ranges, angles=angles, gt_poses=poses, max_range=max_range)
+
+
+def lidar2d_log(
+    n_frames: int = 100,
+    n_beams: int = 360,
+    seed: int = 0,
+    max_range: float = 12.0,
+    noise: float = 0.005,
+    loop: bool = False,
+) -> Lidar2DLog:
+    """Simulate a robot driving through the 2D world, raycasting each frame.
+
+    If loop=True the trajectory returns near its start (for loop-closure tests).
+    """
+    segs = _default_world_segments()
+    # waypoints along the corridor (y=0) and into rooms
+    if loop:
+        waypoints = np.array(
+            [(-10, 0), (-2, 0), (4, 0), (9, 0), (9, 4), (2, 4.5), (-5, 4.5),
+             (-9.5, 4), (-10, 0.5)]
+        )
+    else:
+        waypoints = np.array([(-10, 0), (-4, 0), (2, 0), (10, 0)])
+    return lidar2d_log_custom(
+        segs, waypoints, n_frames=n_frames, n_beams=n_beams, seed=seed,
+        max_range=max_range, noise=noise,
+    )
+
+
+def scan_to_points(ranges: np.ndarray, angles: np.ndarray, max_range: float):
+    """Polar scan -> (N, 2) Cartesian points in sensor frame (hits only)."""
+    hit = ranges < max_range * 0.999
+    r = ranges[hit]
+    a = angles[hit]
+    return np.stack([r * np.cos(a), r * np.sin(a)], axis=1)
 
 
 def _street_clutter_segments(rng: np.random.Generator, n_boxes: int) -> np.ndarray:

@@ -113,9 +113,10 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.nn_bruteforce_f32.argtypes = [
-                ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                ptr]
             lib.nn_bruteforce_f32.restype = i32
-            lib.nn_bruteforce_blocks_per_sm.argtypes = [ptr]
+            lib.nn_bruteforce_blocks_per_sm.argtypes = [i32, ptr]
             lib.nn_bruteforce_blocks_per_sm.restype = i32
             lib.nn_rescore_f32.argtypes = [
                 ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
@@ -186,17 +187,22 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def require_points(name: str, **clouds: torch.Tensor) -> None:
-    """Raise unless every cloud is a non-empty contiguous (·, 3) float32
-    tensor on one CUDA device: what the kernels take."""
-    device = next(iter(clouds.values())).device
+def require_points(name: str, dims: tuple = (3,),
+                   **clouds: torch.Tensor) -> None:
+    """Raise unless every cloud is a non-empty contiguous (·, D) float32
+    tensor on one CUDA device, with one D of `dims` for all of them: what
+    the kernels take (K1 takes D = 2 or 3, the others D = 3)."""
+    first = next(iter(clouds.values()))
+    device, d = first.device, first.shape[-1]
     for arg, t in clouds.items():
         if t.device.type != "cuda" or t.dtype != torch.float32:
             raise ValueError(f"{name}: {arg} must be float32 on CUDA, "
                              f"got {t.dtype} on {t.device}")
-        if t.dim() != 2 or t.shape[1] != 3 or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous (·, 3), got "
-                             f"{tuple(t.shape)}")
+        if (t.dim() != 2 or t.shape[1] != d or d not in dims
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: {arg} must be contiguous (·, D) with D one of "
+                f"{dims} for every cloud, got {tuple(t.shape)}")
         if t.device != device:
             raise ValueError(f"{name}: inputs on different devices")
         if t.shape[0] == 0:
@@ -204,20 +210,20 @@ def require_points(name: str, **clouds: torch.Tensor) -> None:
 
 
 def require_batched_points(name: str, src: torch.Tensor,
-                           dst: torch.Tensor) -> None:
-    """Raise unless src (B, M, 3) and dst (B/G, N, 3) are non-empty
+                           dst: torch.Tensor, dims: tuple = (3,)) -> None:
+    """Raise unless src (B, M, D) and dst (B/G, N, D) are non-empty
     contiguous float32 tensors on one CUDA device with B a multiple of
-    dst's batch: what the batched kernels take."""
+    dst's batch and D one of `dims`: what the batched kernels take."""
     if src.dim() != 3 or dst.dim() != 3:
         raise ValueError(f"{name}: batched src and dst must both be "
-                         f"(·, ·, 3), got {tuple(src.shape)}, "
+                         f"(·, ·, D), got {tuple(src.shape)}, "
                          f"{tuple(dst.shape)}")
     if 0 in (src.shape[0], dst.shape[0]) or src.shape[0] % dst.shape[0]:
         raise ValueError(f"{name}: src batch {src.shape[0]} is not a "
                          f"multiple of dst batch {dst.shape[0]}")
     if src.shape[0] > 65535:
         raise ValueError(f"{name}: batch {src.shape[0]} > 65535")
-    require_points(name, src=src[0], dst=dst[0])
+    require_points(name, dims, src=src[0], dst=dst[0])
     for arg, t in (("src", src), ("dst", dst)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")

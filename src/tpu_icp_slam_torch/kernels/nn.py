@@ -12,13 +12,17 @@ precision=...)`:
     selection is what it promises);
   - "auto": "pallas" on CUDA tensors, "xla" on CPU tensors — the
     reference's auto routes to its Pallas kernels on the accelerator only;
-  - "voxel": not ported yet.
+  - "voxel" is no backend of this dispatch, as in the reference: the
+    hash-grid search needs the correspondence gate as its voxel, and
+    icp/loop.py builds it once per align (kernels/voxel_nn.py).
 
 tile_n fixes K4's slots (which targets are candidates, so the result);
 tile_m changes nothing in any mode, and K1/K3 take neither: their results do
-not depend on tiles. Batched clouds, src (B, M, 3) and dst (B/G, N, 3),
-run K1's batched form at "highest" (any backend); bf16 and rescore have no
-batched caller and raise.
+not depend on tiles. Points are 3-D or 2-D. K1 searches 2-D points as they
+are; K3 and K4 take 3-D operands, so a 2-D search at "bf16" or "rescore"
+gets a zero z column, as the reference's kernel pads its lanes with zeros.
+Batched clouds, src (B, M, D) and dst (B/G, N, D), run K1's batched form at
+"highest" (any backend); bf16 and rescore have no batched caller and raise.
 """
 
 from __future__ import annotations
@@ -39,11 +43,9 @@ def nearest_neighbor(src: torch.Tensor, dst: torch.Tensor,
                      tile_m: int = 0, tile_n: int = 0,
                      precision: str = "highest"
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(M, 3), (N, 3) -> (idx (M,) int32, dist_sq (M,) f32); batched
-    (B, M, 3), (B/G, N, 3) -> (B, M)."""
+    """(M, D), (N, D) -> (idx (M,) int32, dist_sq (M,) f32); batched
+    (B, M, D), (B/G, N, D) -> (B, M)."""
     del tile_m  # no port kernel's result depends on it
-    if backend == "voxel":
-        raise NotImplementedError("nn_backend='voxel' is not ported yet")
     if backend not in ("auto", "pallas", "xla"):
         raise ValueError(f"unknown NN backend: {backend}")
     if precision not in ("highest", "bf16", "rescore"):
@@ -56,6 +58,8 @@ def nearest_neighbor(src: torch.Tensor, dst: torch.Tensor,
             f"nn_precision={precision!r} has no batched form: only the exact "
             "search (K1) is batched")
     if backend == "pallas":
+        if precision != "highest" and src.shape[-1] == 2:
+            src, dst = (torch.nn.functional.pad(x, (0, 1)) for x in (src, dst))
         if precision == "bf16":
             return nn_bf16(src, dst)
         if precision == "rescore":

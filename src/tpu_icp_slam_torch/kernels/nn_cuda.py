@@ -6,8 +6,12 @@ and runs `nn_bruteforce_ref` on CPU tensors. Both score the exact
 difference form Σ(a-b)² and break ties toward the lowest index; see the
 kernel source for how that relates to the reference's factored form.
 
+Points are 3-D or 2-D (D = 2: the 2D lidar pipelines; the kernel takes D as
+a template parameter, and its 2-D results equal the plain version's bit for
+bit).
+
 Batched form (loop-closure verification, the reference's vmap over align):
-src (B, M, 3) and dst (B/G, N, 3); source b is searched in target b // G,
+src (B, M, D) and dst (B/G, N, D); source b is searched in target b // G,
 so G consecutive batch rows share one target. One launch serves the whole
 batch, and each element gives what the unbatched call gives on it.
 """
@@ -26,10 +30,12 @@ def _nn_one(src: torch.Tensor, dst: torch.Tensor, chunk: int
             ) -> tuple[torch.Tensor, torch.Tensor]:
     idx_out, d2_out = [], []
     for a in torch.split(src, chunk):
-        dx = a[:, None, 0] - dst[None, :, 0]
-        dy = a[:, None, 1] - dst[None, :, 1]
-        dz = a[:, None, 2] - dst[None, :, 2]
-        d = dx * dx + dy * dy + dz * dz  # (chunk, N)
+        # Σ (a_k - b_k)² summed in coordinate order, one rounding a step
+        diff = a[:, None, 0] - dst[None, :, 0]
+        d = diff * diff  # (chunk, N)
+        for k in range(1, src.shape[-1]):
+            diff = a[:, None, k] - dst[None, :, k]
+            d = d + diff * diff
         d2, idx = torch.min(d, dim=1)  # first minimum on ties
         idx_out.append(idx.to(torch.int32))
         d2_out.append(d2)
@@ -38,8 +44,8 @@ def _nn_one(src: torch.Tensor, dst: torch.Tensor, chunk: int
 
 def nn_bruteforce_ref(src: torch.Tensor, dst: torch.Tensor,
                       chunk: int = 2048) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch: (M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32),
-    over (chunk, N) distance tiles; batched (B, M, 3), (B/G, N, 3) ->
+    """Plain torch: (M, D), (N, D) f32 -> (idx (M,) int32, d2 (M,) f32),
+    over (chunk, N) distance tiles; batched (B, M, D), (B/G, N, D) ->
     (B, M) element by element."""
     if src.dim() == 2:
         return _nn_one(src, dst, chunk)
@@ -57,13 +63,13 @@ _BLOCK_OVERHEAD = 64  # a block's staging, rescan and store, in targets
 
 
 @functools.cache
-def blocks_per_sm(index: int) -> int:
-    """Blocks of K1's split kernel that one SM of CUDA device `index` holds
-    at once, read once."""
+def blocks_per_sm(index: int, dim: int = 3) -> int:
+    """Blocks of K1's split kernel for dim-D points that one SM of CUDA
+    device `index` holds at once, read once."""
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
         _build.check(_build.load().nn_bruteforce_blocks_per_sm(
-            ctypes.addressof(out)), "nn_bruteforce_blocks_per_sm")
+            dim, ctypes.addressof(out)), "nn_bruteforce_blocks_per_sm")
     return max(1, out.value)
 
 
@@ -94,22 +100,22 @@ def n_split(m: int, n: int, batch: int, sms: int, resident: int) -> int:
 
 def nn_bruteforce(src: torch.Tensor, dst: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32): the nearest dst
-    point of every src point; batched (B, M, 3), (B/G, N, 3) -> (B, M).
-    CPU tensors take the plain version."""
+    """(M, D), (N, D) f32 -> (idx (M,) int32, d2 (M,) f32), D = 2 or 3: the
+    nearest dst point of every src point; batched (B, M, D), (B/G, N, D) ->
+    (B, M). CPU tensors take the plain version."""
     if src.device.type == "cpu" and dst.device.type == "cpu":
         return nn_bruteforce_ref(src, dst)
     batched = src.dim() == 3
     if batched:
-        _build.require_batched_points("nn_bruteforce", src, dst)
+        _build.require_batched_points("nn_bruteforce", src, dst, dims=(2, 3))
         batch, group = src.shape[0], src.shape[0] // dst.shape[0]
     else:
-        _build.require_points("nn_bruteforce", src=src, dst=dst)
+        _build.require_points("nn_bruteforce", (2, 3), src=src, dst=dst)
         batch, group = 1, 1
-    m, n = src.shape[-2], dst.shape[-2]
+    m, n, dim = src.shape[-2], dst.shape[-2], src.shape[-1]
     lib = _build.load()
     s = n_split(m, n, batch, _build.sm_count(src.device.index),
-                blocks_per_sm(src.device.index))
+                blocks_per_sm(src.device.index, dim))
     lead = src.shape[:-2]
     part_d2 = torch.empty((batch, s, m), dtype=torch.float32,
                           device=src.device)
@@ -119,14 +125,16 @@ def nn_bruteforce(src: torch.Tensor, dst: torch.Tensor
     idx = torch.empty((*lead, m), dtype=torch.int32, device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = lib.nn_bruteforce_f32(
-        src.data_ptr(), dst.data_ptr(), batch, group, m, n, s,
+        src.data_ptr(), dst.data_ptr(), batch, group, m, n, dim, s,
         part_d2.data_ptr(), part_idx.data_ptr(), d2.data_ptr(),
         idx.data_ptr(), stream)
     _build.check(err, "nn_bruteforce_f32")
     nn_bruteforce.launches += 1
     nn_bruteforce.batched_launches += batched
+    nn_bruteforce.launches_2d += dim == 2
     return idx, d2
 
 
 nn_bruteforce.launches = 0  # every launch
 nn_bruteforce.batched_launches = 0  # launches of the batched form
+nn_bruteforce.launches_2d = 0  # launches on 2-D points, either form

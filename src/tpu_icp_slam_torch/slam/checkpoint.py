@@ -1,14 +1,15 @@
 """Checkpoint / resume (port of tpu_icp_slam/slam/checkpoint.py).
 
-A run's front-end state — scan-to-scan (pose, motion, previous scan) or
-scan-to-map (pose, motion, voxel map, carried local model) — the next frame
-index and the trajectory so far go to one .npz; `run --resume` continues a
-log mid-stream from it.
+A run's front-end state — scan-to-scan (pose, motion, previous scan, and
+in 2D the occupancy grid) or scan-to-map (pose, motion, voxel map, carried
+local model) — the next frame index and the trajectory so far go to one
+.npz; `run --resume` continues a log mid-stream from it.
 
 Two granularities, as in the reference:
 - `save_checkpoint`/`load_checkpoint`: odometry-only pipelines (front-end
   state + trajectory).
-- `save_slam_checkpoint`/`load_slam_checkpoint`: full SLAM (Slam3D) — the
+- `save_slam_checkpoint`/`load_slam_checkpoint`: full SLAM (Slam3D, Slam2D
+  with its front end of kind "odom" or "scan_to_map") — the
   front-end state plus what the pose graph needs: keyframe frames, poses,
   descriptors and positions, per-frame anchors, accepted closures, the
   candidate count and the per-frame strain flags. The write is atomic (a
@@ -17,8 +18,10 @@ Two granularities, as in the reference:
 The on-disk layout is the reference's: `kind`, `next_frame`, `poses`,
 `n_leaves`, `leaf_{i}` in the reference's tree-flatten order (the state's
 dataclass fields in order, the voxel map's points/normals/mask in place of
-`vmap`; 14 leaves for `MapOdomState`, 5 for `OdomState`) and
-`config_hash`. A checkpoint written by either package loads in the other.
+`vmap`, the grid's logodds/origin/resolution in place of `grid`, nothing for
+a grid that is None; 14 leaves for `MapOdomState`, 5 for an `OdomState`
+without a grid, 8 with one) and `config_hash`. A checkpoint written by
+either package loads in the other.
 Loaded leaves take the dtypes the state needs (float32, bool, int32).
 """
 
@@ -34,11 +37,13 @@ import torch
 from tpu_icp_slam_torch.backend.loop_closure import LoopClosure
 from tpu_icp_slam_torch.config import config_hash
 from tpu_icp_slam_torch.interop import load_detector_store, state_leaf
+from tpu_icp_slam_torch.mapping.occupancy2d import OccupancyGrid2D
 from tpu_icp_slam_torch.mapping.voxel_map import VoxelMap
 from tpu_icp_slam_torch.slam.pipeline import OdomState
 from tpu_icp_slam_torch.slam.scan_to_map import MapOdomState
 
 _KINDS = {"scan_to_map": MapOdomState, "odom": OdomState}
+_NESTED = {"vmap": VoxelMap, "grid": OccupancyGrid2D}  # inlined by flatten
 
 
 def _kind_of(state) -> str:
@@ -61,23 +66,27 @@ def _flatten(state) -> list:
 
 def _unflatten(kind: str, leaves: list, device):
     """Rebuild a front-end state from its leaves (no pickled structure: the
-    state's own field list is the template)."""
+    state's own field list is the template; an `OdomState` has its grid iff
+    the leaf count says so, as in the reference)."""
     cls = _KINDS[kind]
-    vmap_fields = dataclasses.fields(VoxelMap)
-    n_want = sum(len(vmap_fields) if f.name == "vmap" else 1
-                 for f in dataclasses.fields(cls))
-    if len(leaves) != n_want:
-        if cls is OdomState and len(leaves) == n_want + 3:
-            raise NotImplementedError(
-                "checkpoint of a 2D scan-to-scan run (occupancy grid): the "
-                "2D pipeline is not ported yet")
+    fields = dataclasses.fields(cls)
+    widths = {f.name: len(dataclasses.fields(_NESTED[f.name]))
+              if f.name in _NESTED else 1 for f in fields}
+    n_full = sum(widths.values())
+    absent = set()
+    if cls is OdomState and len(leaves) == n_full - widths["grid"]:
+        absent = {"grid"}
+    elif len(leaves) != n_full:
         raise ValueError(f"{kind} checkpoint has {len(leaves)} leaves, "
-                         f"expected {n_want}")
+                         f"expected {n_full}")
     it = iter(state_leaf(a, device) for a in leaves)
     kw = {}
-    for f in dataclasses.fields(cls):
-        if f.name == "vmap":
-            kw[f.name] = VoxelMap(**{g.name: next(it) for g in vmap_fields})
+    for f in fields:
+        if f.name in absent:
+            kw[f.name] = None
+        elif f.name in _NESTED:
+            kw[f.name] = _NESTED[f.name](**{
+                g.name: next(it) for g in dataclasses.fields(_NESTED[f.name])})
         else:
             kw[f.name] = next(it)
     return cls(**kw)

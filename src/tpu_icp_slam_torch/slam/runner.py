@@ -1,17 +1,18 @@
 """Dataset-to-trajectory runner behind `cli run` / `cli eval` (port of
-tpu_icp_slam/slam/runner.py, 3D).
+tpu_icp_slam/slam/runner.py).
 
-Loads a dataset (the synthetic 3D logs or a KITTI sequence), pads scans to
-a fixed capacity, drives the pipeline the config names on `device` — full
-SLAM (`Slam3D`), scan-to-map odometry (`ScanToMapPipeline`) or scan-to-scan
-odometry (`OdometryPipeline`) — and writes the artifacts: trajectory .npz
-with its TUM and KITTI text forms, the map render .png, metrics .jsonl and
+Loads a dataset (the synthetic 2D and 3D logs, a CARMEN `.clf`/`.log` file
+or a KITTI sequence), pads scans to a fixed capacity, drives the pipeline
+the config names on `device` — full 3D SLAM (`Slam3D`), 2D SLAM (`Slam2D`,
+for a 2D log with the backend on or a scan-to-map config), scan-to-map
+odometry (`ScanToMapPipeline`) or scan-to-scan odometry (`OdometryPipeline`,
+2D with its occupancy grid) — and writes the artifacts: trajectory .npz with
+its TUM and KITTI text forms, the map render .png, metrics .jsonl and
 report.json. The report's keys are the reference's.
 
-Not ported yet, and refused with NotImplementedError: the 2D datasets and
-pipelines (config 2: `sim2d`, `sim2d_loop`, a CARMEN `.clf`/`.log`) and
-RGB-D (config 3: `simrgbd`, `simrgbd_fullres`, a TUM dir). The reference's
-`apply_debug` sets JAX flags and has no counterpart here.
+Not ported yet, and refused with NotImplementedError: RGB-D (config 3:
+`simrgbd`, `simrgbd_fullres`, a TUM dir). The reference's `apply_debug`
+sets JAX flags and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -31,15 +32,16 @@ from tpu_icp_slam_torch.config import (
     override,
 )
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD, voxel_downsample_np
-from tpu_icp_slam_torch.datasets import kitti, synthetic
+from tpu_icp_slam_torch.datasets import carmen, kitti, synthetic
 from tpu_icp_slam_torch.eval import metrics as em
 from tpu_icp_slam_torch.eval import trajectory_io as tio
-from tpu_icp_slam_torch.mapping import voxel_map
+from tpu_icp_slam_torch.mapping import occupancy2d, voxel_map
 from tpu_icp_slam_torch.obs import MetricsLogger, Timer
 from tpu_icp_slam_torch.slam import map_io
 from tpu_icp_slam_torch.slam.checkpoint import load_checkpoint, save_checkpoint
 from tpu_icp_slam_torch.slam.pipeline import OdometryPipeline
 from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+from tpu_icp_slam_torch.slam.slam2d import Slam2D
 from tpu_icp_slam_torch.slam.slam3d import Slam3D
 
 
@@ -51,7 +53,17 @@ class LoadedDataset:
     name: str
 
 
+def _polar_scans(log, n: int) -> list:
+    return [synthetic.scan_to_points(log.ranges[i], log.angles,
+                                     log.max_range) for i in range(n)]
+
+
 def load_dataset(spec: str, frames: int, seed: int = 0) -> LoadedDataset:
+    if spec in ("sim2d", "sim2d_loop"):
+        log = synthetic.lidar2d_log(n_frames=frames, n_beams=360, seed=seed,
+                                    noise=0.002, loop=spec == "sim2d_loop")
+        return LoadedDataset(scans=_polar_scans(log, len(log.ranges)),
+                             gt_poses=log.gt_poses, dim=2, name=spec)
     if spec in ("sim3d", "sim3d_loop"):
         # pin inter-frame motion to ~1.1 m/frame (the KITTI 10 Hz regime):
         # the generator resamples its fixed route by frame count; the loop
@@ -62,16 +74,17 @@ def load_dataset(spec: str, frames: int, seed: int = 0) -> LoadedDataset:
             path_fraction=frac,
         )
         return LoadedDataset(scans=scans, gt_poses=poses, dim=3, name=spec)
-    if spec in ("sim2d", "sim2d_loop") or spec.endswith((".clf", ".log")):
-        raise NotImplementedError(
-            f"dataset {spec!r} is a 2D lidar log: the 2D pipelines "
-            "(configs/lidar2d_scan_to_map.json, config 2) are not ported yet")
     if spec in ("simrgbd", "simrgbd_fullres") or (
             os.path.isdir(spec)
             and os.path.exists(os.path.join(spec, "depth.txt"))):
         raise NotImplementedError(
             f"dataset {spec!r} is RGB-D: projective odometry "
             "(configs/rgbd.json, config 3) is not ported yet")
+    if spec.endswith((".clf", ".log")):
+        log = carmen.load_clf(spec)
+        n = min(frames, len(log.ranges)) if frames > 0 else len(log.ranges)
+        return LoadedDataset(scans=_polar_scans(log, n), gt_poses=None,
+                             dim=2, name=os.path.basename(spec))
     if os.path.isdir(spec) and os.path.exists(os.path.join(spec, "velodyne")):
         scans, poses = kitti.load_sequence(spec, max_frames=frames)
         return LoadedDataset(scans=scans, gt_poses=poses, dim=3,
@@ -152,6 +165,46 @@ def _render(vmap, poses):
                                             trajectory=poses[:, :3, 3])
 
 
+def _run_slam2d(cfg, data, pts, msk, timer, metrics_log, out_dir, mode,
+                ckpt_path, checkpoint_every, resume, save_map_path, device):
+    """The 2D family with a map-based front end and/or loop closure and the
+    pose graph (Slam2D)."""
+    slam = Slam2D(cfg, device=device)
+    with timer.span("slam2d"):
+        poses, srep = slam.run(
+            pts, msk, mode="streaming" if mode == "streaming" else "fused",
+            checkpoint_path=ckpt_path, checkpoint_every=checkpoint_every,
+            resume=resume)
+    metrics_log.log("slam2d_run", frames=len(poses),
+                    icp_iters=int(slam.frontend_iters.sum()),
+                    verify_iters=slam.detector.verify_iters,
+                    backend_s=slam.backend_s)
+    report = _make_report(poses, data, cfg, "slam2d", timer, extra={
+        "n_keyframes": srep.n_keyframes,
+        "n_loop_candidates": srep.n_loop_candidates,
+        "n_loop_closures": srep.n_loop_closures,
+        "n_loops_rejected": srep.n_loops_rejected,
+        "n_suspect_closures": srep.n_suspect_closures,
+        "closures": srep.closure_table,
+    })
+
+    def render(png):
+        # the grid rebuilt from the (possibly loop-corrected) trajectory
+        occupancy2d.render_png(slam.rebuild_grid(poses, pts, msk), png,
+                               trajectory=poses[:, :2, 2])
+
+    if save_map_path:
+        # 2D persistent map: keyframe scans, SE(2) poses, descriptors
+        map_io.save_map(save_map_path,
+                        [(pts[f], msk[f]) for f in slam.kf_frames],
+                        np.stack(slam.kf_poses_out), detector=slam.detector,
+                        closure_info=srep.closure_table)
+        report["map_file"] = save_map_path
+    _write_artifacts(out_dir, poses, report, render)
+    _finish(metrics_log, report)
+    return poses, report
+
+
 def run_slam(
     cfg: SlamConfig,
     data: LoadedDataset,
@@ -162,14 +215,14 @@ def run_slam(
     save_map_path: Optional[str] = None,
     device: torch.device | str = "cuda",
 ):
-    """Returns (poses (F, 4, 4) np.ndarray, report dict).
+    """Returns (poses (F, D+1, D+1) np.ndarray, report dict).
 
     Beside the reference's fields, metrics.jsonl holds the front end's
     total ICP iterations (`icp_iters`) of a fused odometry run and of full
     SLAM, with loop verification's batched iterations (`verify_iters`) in
-    the latter's `slam3d_run` event."""
-    if data.dim != 3:
-        raise NotImplementedError("2D runs (config 2) are not ported yet")
+    the latter's `slam3d_run` or `slam2d_run` event."""
+    if data.dim not in (2, 3):
+        raise ValueError(f"{data.dim}-D scans: the runner takes 2D and 3D")
     timer = Timer()
     metrics_log = MetricsLogger(
         os.path.join(out_dir, "metrics.jsonl") if out_dir else None,
@@ -180,6 +233,11 @@ def run_slam(
                              cfg.pipeline.scan_capacity)
 
     ckpt_path = os.path.join(out_dir, "checkpoint.npz") if out_dir else None
+    if data.dim == 2 and (cfg.backend.enabled
+                          or cfg.pipeline.mode == "scan_to_map"):
+        return _run_slam2d(cfg, data, pts, msk, timer, metrics_log, out_dir,
+                           mode, ckpt_path, checkpoint_every, resume,
+                           save_map_path, device)
     if cfg.pipeline.mode == "scan_to_map" and cfg.backend.enabled:
         # full config-4 path: scan-to-map + loop closure + pose graph;
         # checkpoint/resume carries the whole SLAM state (Slam3D.run)
@@ -285,8 +343,12 @@ def run_slam(
 
     poses = np.stack(poses)
     report = _make_report(poses, data, cfg, mode, timer)
-    render = (_render(state.vmap, poses)
-              if getattr(state, "vmap", None) is not None else None)
+    render = None
+    if getattr(state, "vmap", None) is not None:
+        render = _render(state.vmap, poses)
+    elif getattr(state, "grid", None) is not None:
+        render = lambda png: occupancy2d.render_png(  # noqa: E731
+            state.grid, png, trajectory=poses[:, :2, 2])
     _write_artifacts(out_dir, poses, report, render)
     _finish(metrics_log, report)
     return poses, report

@@ -233,7 +233,7 @@ def test_slam_checkpoint_strain_roundtrip(tmp_path):
     (the strain flags weight the odometry factors; a resume must keep them)."""
     state = OdomState(pose=torch.eye(4), T_rel=torch.eye(4),
                       prev_points=torch.zeros(4, 3),
-                      prev_mask=torch.ones(4, dtype=torch.bool),
+                      prev_mask=torch.ones(4, dtype=torch.bool), grid=None,
                       frame=torch.tensor(3, dtype=torch.int32))
     strain = [False, True, False, True]
     ck = str(tmp_path / "ck.npz")

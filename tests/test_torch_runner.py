@@ -11,6 +11,7 @@ streaming steps equal its fused run bit for bit.
 """
 
 import json
+import os
 import struct
 import zlib
 
@@ -125,10 +126,17 @@ def test_odometry_pipeline_matches_reference(data, mode):
 
 
 def test_odometry_pipeline_refuses_2d():
-    with pytest.raises(NotImplementedError):
-        OdometryPipeline(_port(_cfg()), dim=2, device="cpu")
+    """2D scan-to-scan odometry is ported (tests/test_torch_2d.py): a 2D
+    pipeline keeps an occupancy grid by default. What it still refuses:
+    other dimensions, and a grid on 3D scans."""
+    pipe2 = OdometryPipeline(_port(_cfg()), dim=2, device="cpu")
+    st = pipe2.init_state(np.zeros((4, 2)), np.ones(4, bool))
+    assert st.grid is not None and st.pose.shape == (3, 3)
+    with pytest.raises(ValueError):
+        OdometryPipeline(_port(_cfg()), dim=4, device="cpu")
     pipe = OdometryPipeline(_port(_cfg()), dim=3, device="cpu")
-    with pytest.raises(NotImplementedError):
+    assert pipe.init_state(np.zeros((4, 3)), np.ones(4, bool)).grid is None
+    with pytest.raises(ValueError):
         pipe.init_state(np.zeros((4, 3)), np.ones(4, bool), with_grid=True)
 
 
@@ -254,11 +262,24 @@ def test_load_dataset_reads_kitti_dir(tmp_path, data):
 @pytest.mark.parametrize("spec", ["sim2d", "sim2d_loop", "simrgbd",
                                   "simrgbd_fullres", "tum", "log.clf"])
 def test_2d_and_rgbd_datasets_raise(tmp_path, spec):
+    """The RGB-D datasets (config 3) are still refused; the 2D ones (config
+    2) load as the reference's do (tests/test_torch_state2d.py runs them)."""
     if spec == "tum":
         (tmp_path / "depth.txt").write_text("")
         spec = str(tmp_path)
+    if spec == "log.clf":
+        from tpu_icp_slam.datasets import carmen
+
+        log = synthetic.lidar2d_log(n_frames=4, n_beams=90, seed=0)
+        spec = str(tmp_path / spec)
+        carmen.write_clf(spec, log.ranges, np.zeros((4, 3)),
+                         max_range=log.max_range)
+    if spec.startswith("sim2d") or spec.endswith(".clf"):
+        got, want = runner.load_dataset(spec, 4), jrunner.load_dataset(spec, 4)
+        assert (got.dim, got.name) == (want.dim, want.name) == (
+            2, os.path.basename(spec))
+        for a, b in zip(got.scans, want.scans):
+            np.testing.assert_array_equal(a, b)
+        return
     with pytest.raises(NotImplementedError):
         runner.load_dataset(spec, 4)
-    with pytest.raises(NotImplementedError):  # a 2D log built by hand
-        runner.run_slam(_port(_cfg()), runner.LoadedDataset(
-            [np.zeros((4, 2))] * 2, None, 2, "flat"), device="cpu")

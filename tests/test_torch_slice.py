@@ -180,7 +180,8 @@ def test_port_imports_without_jax():
     """The port, chip_smoke.py and chip_ab.py import and run with both jax
     and the reference package blocked, lazy imports included: the native
     voxel downsample, a preset through from_json, velodyne_log, ATE, a
-    3-frame scan-to-map run, `cli align` and a 3-frame `cli run` on the
+    3-frame scan-to-map run, `cli align`, a 3-frame `cli run` and a
+    3-frame 2D `cli run` (sim2d, its occupancy grid and map.png) on the
     CPU."""
     code = (
         "import importlib, sys\n"
@@ -231,6 +232,13 @@ def test_port_imports_without_jax():
         "                     'pipeline.scan_capacity=1024',\n"
         "                     'icp.max_iters=10']) == 0\n"
         "assert json.load(open(out + '/report.json'))['frames'] == 3\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert cli.main(['run', '--dataset', 'sim2d', '--frames', '3',\n"
+        "                     '--device', 'cpu', '--out', out + '/2d',\n"
+        "                     'pipeline.scan_capacity=512']) == 0\n"
+        "assert np.load(out + '/2d/trajectory.npz')['poses'].shape == (\n"
+        "    3, 3, 3)\n"
+        "assert open(out + '/2d/map.png', 'rb').read(4) == b'\\x89PNG'\n"
         "assert not [k for k, v in sys.modules.items() if v is not None\n"
         "            and k.split('.')[0] in ('jax', 'tpu_icp_slam')]\n"
         "print('imported', len(sys.modules), 'ate', ate)\n"
