@@ -92,7 +92,24 @@ nonzero and the final line is not printed:
      Slam2D streaming run checkpointing every 20 frames, resumed, held to
      (2)'s run: the same keyframes and closures, poses within rtol 1e-5 /
      atol 1e-6.
- 16. profile: torch.profiler over each kernel's back-to-back calls (its
+ 16. config 3 (RGB-D projective odometry) and the mapping options,
+     everything under build/chip_cli3/. (1) K2 at the TUM sensor grid's M =
+     307,200 rows (frame 1 of the 640x480 simrgbd_fullres log, one
+     projective lookup into frame 0's maps) against its plain version, each
+     entry of H and g within RGBD_K2_RTOL of the sum of its terms' absolute
+     values; bit-reproducible. (2) `cli run --config configs/rgbd.json
+     --dataset simrgbd_fullres --frames 30` (640x480, rgbd_src_stride 1):
+     rc 0, finite poses, ATE < 0.03 m, one K2 launch per ICP iteration and
+     no K1/K3/K4/K5; then RGBDOdometry.run_fused on the same log, timed
+     (fenced) and bit-equal to a loop of step. (3) the same 30 frames
+     written as a TUM directory (datasets/tum.write_sequence) read back as
+     the written uint16 / 5000 exactly, and `cli run` over it: ATE <
+     0.03 m. (4) `cli eval` on simrgbd_fullres, 30 frames, with the preset:
+     tpu_ate < 0.03 m. (5) phase 4's log with mapping.insert_backend="hash"
+     and mapping.extract_approx=True: ATE < 0.15 m, K1 = K2 = the ICP
+     iterations, frames/s beside phase 4's; insert_hash on the card equal
+     to its CPU run on one insert, entry for entry.
+ 17. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4 must make their four launches and no
      more). Last, because a process that has run the profiler keeps its
@@ -108,7 +125,7 @@ time of one call (CUDA events around 50 back-to-back calls behind a sleep
 kernel that keeps the card ahead of the host, divided by 50; 10 for K5);
 kernel_ms, the device time of the port's own CUDA kernels in one call,
 summed from a torch.profiler run over 20 back-to-back calls (10 for K5) in
-phase 16, and kernel_parts, the same by kernel; call_ms, one call timed
+phase 17, and kernel_parts, the same by kernel; call_ms, one call timed
 alone (device time plus the wrapper's host work); plain_ms, the plain
 version's time; bound_ms and bound_by, the least time the card could take
 (FP32 or bf16 operations over the published H100 peak, or bytes over 3.35
@@ -568,7 +585,7 @@ def phase_slice(pts, msk, gt):
     assert np.isfinite(poses).all(), "non-finite pose"
     assert ate < 0.15, f"ATE {ate} m"
     assert k1 == k2 == int(iters.sum()) > 0, (k1, k2, int(iters.sum()))
-    return k1, k2, n_frames
+    return k1, k2, n_frames, n_frames / dt
 
 
 def phase_cpu_agreement():
@@ -1433,6 +1450,259 @@ def phase_config2():
             "run_k1": run_k1_2d, "run_frames": 29}
 
 
+# ---- config 3: RGB-D projective odometry, and the mapping options ---------
+
+CONFIG3 = os.path.join(ROOT, "configs", "rgbd.json")
+CLI3_DIR = os.path.join(ROOT, "build", "chip_cli3")
+RGBD_FRAMES = 30
+# Largest |K2 - plain| of an entry of H or g at M = 307,200 that phase 16
+# accepts, over the sum of that entry's terms' absolute values (Σ|w J_a J_b|,
+# Σ|w r J_a|): two float32 sums of the same terms in different orders.
+RGBD_K2_RTOL = 1e-5
+
+
+def k2_rgbd_inputs():
+    """K2's inputs on the RGB-D path at full width, and the log: frame 1
+    of the 640x480 log as the source (invalid pixels at the sentinel)
+    looked up projectively in frame 0's maps at identity, with the weights
+    the ICP loop gives it (gate x mask), all contiguous on the card;
+    (depths, ground truth, intrinsics)."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.core.pointcloud import PAD_COORD
+    from tpu_icp_slam_torch.icp import projective
+    from tpu_icp_slam_torch.mapping.normals import normals_from_depth
+
+    depths, gt, ki = synthetic.rgbd_log(
+        n_frames=RGBD_FRAMES, K=synthetic.Intrinsics.tum_default(640, 480))
+    K = projective.CameraIntrinsics(ki.fx, ki.fy, ki.cx, ki.cy, ki.width,
+                                    ki.height)
+    maps = []
+    for f in (0, 1):
+        d = torch.as_tensor(depths[f], dtype=torch.float32, device="cuda")
+        v, ok = projective.backproject_depth(d, K)
+        n, nok = normals_from_depth(v, ok)
+        maps.append((v, n, ok & nok))
+    (v0, n0, ok0), (v1, _, ok1) = maps
+    mask = ok1.reshape(-1)
+    p = torch.where(mask[:, None], v1.reshape(-1, 3),
+                    torch.full_like(v1.reshape(-1, 3), PAD_COORD))
+    cfg = _rgbd_cfg()
+    q, n, gate, _ = projective.projective_correspondence(
+        K, v0, n0, ok0, max_corr_dist=cfg.icp.max_corr_dist)(p)
+    return (p, q, n, gate * mask.to(gate.dtype)), (depths, gt, K)
+
+
+def _rgbd_cfg():
+    from tpu_icp_slam_torch import from_json
+
+    with open(CONFIG3) as fh:
+        return from_json(fh.read())
+
+
+def phase_k2_rgbd():
+    """K2 at M = 307,200 against its plain version; returns its row and
+    the log."""
+    from tpu_icp_slam_torch.kernels import gn_cuda
+
+    (p, q, n, w), log = k2_rgbd_inputs()
+    m = p.shape[0]
+    assert all(t.is_contiguous() for t in (p, q, n, w))
+    H_k, g_k = gn_cuda.gn_accum(p, q, n, w)
+    H_r, g_r = gn_cuda.gn_accum_ref(p, q, n, w)
+    # the sums of the terms' absolute values, in float64
+    p64, q64, n64, w64 = (t.double() for t in (p, q, n, w))
+    J = torch.cat([n64, torch.linalg.cross(p64, n64, dim=-1)], dim=-1)
+    r = torch.sum(n64 * (p64 - q64), dim=-1)
+    aJw = (J * w64[:, None]).abs()
+    scale_H = (J.abs().T @ aJw).float()
+    scale_g = (aJw.T @ r.abs()).float()
+    rel = float(max(torch.max(torch.abs(H_k - H_r) / scale_H.clamp(min=1e-30)),
+                    torch.max(torch.abs(g_k - g_r) / scale_g.clamp(min=1e-30))))
+    err = float(max(torch.max(torch.abs(H_k - H_r)),
+                    torch.max(torch.abs(g_k - g_r))))
+    again = gn_cuda.gn_accum(p, q, n, w)
+    assert torch.equal(again[0], H_k) and torch.equal(again[1], g_k), \
+        "K2 is not bit-reproducible at M = 307,200"
+    assert rel <= RGBD_K2_RTOL, f"K2 at M = {m}: relative error {rel}"
+    t = _timings(lambda: gn_cuda.gn_accum(p, q, n, w),
+                 lambda: gn_cuda.gn_accum_ref(p, q, n, w), plain_n=50,
+                 bound=k2_bound(m))
+    print(f"[K2 RGB-D] {card()} | M={m} (640x480, "
+          f"{int((w > 0).sum())} weighted rows) max |H,g - plain| {err:.3e},"
+          f" over the sum of |terms| {rel:.3e} (limit {RGBD_K2_RTOL:.0e}) | "
+          f"{_fmt(t)} | share of bound {t['bound_ms'] / t['ms']:.1%}")
+    return {"name": "gn_accum[rgbd]", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/gn_accum.cu",
+            "replaces": "src/tpu_icp_slam/kernels/gn_pallas.py:28",
+            "max_abs_err": err, **t}, log
+
+
+def _ate_ok(rep, limit, what):
+    assert np.isfinite(rep["ate_rmse"]) and rep["ate_rmse"] < limit, \
+        f"{what}: ATE {rep['ate_rmse']} m"
+
+
+def phase_config3(log):
+    """Config 3 through the command line with the default device, then
+    RGBDOdometry directly; returns the K2 launches of the cli run and its
+    frame count."""
+    from tpu_icp_slam_torch.datasets import tum
+    from tpu_icp_slam_torch.slam.rgbd import RGBDOdometry
+
+    depths, gt, K = log
+    shutil.rmtree(CLI3_DIR, ignore_errors=True)
+    os.makedirs(CLI3_DIR)
+    n_frames = RGBD_FRAMES - 1
+
+    # (1) cli run at the TUM sensor grid, stride 1
+    out = os.path.join(CLI3_DIR, "run")
+    _zero_counts()
+    rc, rep, dt = _cli(["run", "--config", CONFIG3, "--dataset",
+                        "simrgbd_fullres", "--frames", str(RGBD_FRAMES),
+                        "--out", out])
+    c = _counts()
+    iters = _events(os.path.join(out, "metrics.jsonl"))["rgbd_run"][
+        "icp_iters"]
+    poses = np.load(os.path.join(out, "trajectory.npz"))["poses"]
+    run_s = rep["timers"]["compile+run"]["total_s"]
+    print(f"[config 3 run] {card()} | simrgbd_fullres 640x480, "
+          f"{RGBD_FRAMES} frames, configs/rgbd.json: {n_frames / run_s:.3f} "
+          f"frames/s in RGBDOdometry.run_fused ({run_s:.3f} s, the first "
+          f"run of the process; {dt:.3f} s with the log and artifacts) | "
+          f"ICP iterations {iters} ({iters / n_frames:.3f} a frame) | ATE "
+          f"{rep['ate_rmse']:.5f} m, RPE {rep['rpe_trans']:.5f} m "
+          f"{rep['rpe_rot']:.5f} rad | launches {c}")
+    assert rc == 0 and poses.shape == (RGBD_FRAMES, 4, 4), rep
+    assert np.isfinite(poses).all()
+    _ate_ok(rep, 0.03, "config 3 run")
+    assert c["K2"] == iters > 0, (c, iters)
+    assert c["K1"] == c["K3"] == c["K4"] == c["K5"] == 0, c
+    k2_launches = c["K2"]
+
+    # (2) RGBDOdometry itself: run_fused timed, and a loop of step
+    cfg = _rgbd_cfg()
+    odo = RGBDOdometry(cfg, K, device="cuda")
+    dev_depths = torch.as_tensor(depths, dtype=torch.float32, device="cuda")
+    state0 = odo.init_state(dev_depths[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, infos = odo.run_fused(state0, dev_depths[1:])
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    st = state0
+    for f in range(1, RGBD_FRAMES):
+        st, info = odo.step(st, dev_depths[f])
+        assert torch.equal(info["pose"], infos["pose"][f - 1]), \
+            f"step and run_fused differ at frame {f}"
+    gap = float(np.abs(infos["pose"].cpu().numpy() - poses[1:]).max())
+    print(f"[config 3 odometry] RGBDOdometry.run_fused {n_frames} frames in "
+          f"{fused_s:.4f} s = {n_frames / fused_s:.3f} frames/s (fenced, "
+          f"warm) | a loop of step bit-equal | largest gap to the cli run "
+          f"{gap:.3e}")
+
+    # (3) the same frames as a TUM directory
+    seq_dir = os.path.join(CLI3_DIR, "tum")
+    t0 = time.perf_counter()
+    tum.write_sequence(seq_dir, depths, gt_poses=gt)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = tum.load_sequence(seq_dir)
+    read_s = time.perf_counter() - t0
+    img = np.clip(depths * tum.DEPTH_FACTOR, 0, 65535).astype(np.uint16)
+    assert np.array_equal(seq.depths, img / tum.DEPTH_FACTOR), \
+        "TUM depths read back differ from the written uint16 / 5000"
+    rc, trep, dt = _cli(["run", "--config", CONFIG3, "--dataset", seq_dir,
+                         "--frames", str(RGBD_FRAMES), "--out",
+                         os.path.join(CLI3_DIR, "run_tum")])
+    print(f"[config 3 TUM dir] {RGBD_FRAMES} frames written in {write_s:.3f}"
+          f" s, read in {read_s:.3f} s (the port's PNG codec), depths equal "
+          f"the written uint16 / 5000 | cli run: ATE {trep['ate_rmse']:.5f} m"
+          f" | {dt:.3f} s")
+    assert rc == 0 and trep["frames"] == RGBD_FRAMES, trep
+    _ate_ok(trep, 0.03, "config 3 TUM dir")
+
+    # (4) cli eval: the run's ATE alone (no scans, no golden oracle)
+    rc, ev, dt = _cli(["eval", "--config", CONFIG3, "--dataset",
+                       "simrgbd_fullres", "--frames", str(RGBD_FRAMES)])
+    print(f"[config 3 eval] tpu_ate {ev['tpu_ate']:.5f} m (the run's "
+          f"{rep['ate_rmse']:.5f}) | keys {sorted(ev)} | {dt:.3f} s")
+    assert rc == 0 and set(ev) == {"dataset", "frames", "mode", "tpu_ate"}
+    assert ev["tpu_ate"] < 0.03, ev
+    return k2_launches, n_frames
+
+
+def phase_mapping_options(pts, msk, gt, slice_fps):
+    """Phase 4's log with both mapping options on; insert_hash on the card
+    against the CPU on one insert."""
+    from tpu_icp_slam_torch.mapping import voxel_map
+    from tpu_icp_slam_torch.mapping.normals import normals_knn
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    cfg = slice_config()
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, insert_backend="hash", extract_approx=True))
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    state0 = pipe.init_state(pts[0], msk[0])
+    pipe.run_fused(state0, pts[1:], msk[1:])  # warm-up
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, infos = pipe.run_fused(state0, pts[1:], msk[1:])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = _counts()
+    n_frames = len(pts) - 1
+    iters = int(infos["iters"].sum())
+    poses = np.concatenate(
+        [np.eye(4)[None], infos["pose"].cpu().numpy().astype(np.float64)])
+    ate = _ate(poses, gt)
+
+    # one insert of frame 1 into the seeded map, on the card and the CPU
+    p = state0.vmap
+    pose = infos["pose"][0]
+    pts1 = torch.as_tensor(pts[1], device="cuda")
+    m1 = torch.as_tensor(msk[1], device="cuda")
+    world = torch.where(m1[:, None], pts1 @ pose[:3, :3].T + pose[:3, 3],
+                        torch.full_like(pts1, 1.0e6))
+    nrm = normals_knn(pts1, m1, k=cfg.pipeline.normal_k,
+                      ref_stride=cfg.pipeline.normal_ref_stride) \
+        @ pose[:3, :3].T
+    args = (world, m1, nrm)
+    kw = dict(voxel=cfg.mapping.map_voxel, center=pose[:3, 3])
+
+    def ins(fn):
+        return fn(p, *args, **kw)
+
+    card_map = ins(voxel_map.insert_hash)
+    cpu = voxel_map.VoxelMap(*(t.cpu() for t in (p.points, p.normals,
+                                                   p.mask)))
+    cpu_map = voxel_map.insert_hash(cpu, *(a.cpu() for a in args),
+                                    voxel=kw["voxel"],
+                                    center=kw["center"].cpu())
+    for f in ("points", "normals", "mask"):
+        assert torch.equal(getattr(card_map, f).cpu(), getattr(cpu_map, f)), \
+            f"insert_hash on the card differs from the CPU in {f}"
+    # device time (events around 10 calls; a call that synchronizes puts
+    # its host time in the window), one call alone, host syncs a call
+    cost = {name: (_device_ms(lambda: ins(fn), n=10, strict=False),
+                   _call_ms(lambda: ins(fn), reps=10),
+                   _host_syncs(lambda: ins(fn)))
+            for name, fn in (("hash", voxel_map.insert_hash),
+                             ("sort", voxel_map.insert))}
+    print(f"[mapping options] insert_backend=hash, extract_approx: "
+          f"{n_frames / dt:.3f} frames/s (phase 4 in this call "
+          f"{slice_fps:.3f}) | ICP iterations {iters} | map inserts "
+          f"{int(infos['map_inserted'].sum())}, map points "
+          f"{int(infos['map_points'][-1])} | ATE {ate:.5f} m | launches {c}"
+          f" | insert_hash on the card = CPU entry for entry | an insert "
+          f"(10 back to back, one alone, host syncs): hash "
+          f"{cost['hash'][0]:.4f} / {cost['hash'][1]:.4f} ms, "
+          f"{cost['hash'][2]}; the sort-based insert {cost['sort'][0]:.4f} "
+          f"/ {cost['sort'][1]:.4f} ms, {cost['sort'][2]}")
+    assert np.isfinite(poses).all() and ate < 0.15, ate
+    assert c["K1"] == c["K2"] == iters > 0, (c, iters)
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -1466,7 +1736,7 @@ def main() -> int:
                           SCAN_POINTS)
     k1_row, src, dst = phase_k1(pts, msk)
     k2_row = phase_k2(src, msk[1])
-    k1, k2, n_frames = phase_slice(pts, msk, gt)
+    k1, k2, n_frames, slice_fps = phase_slice(pts, msk, gt)
     phase_cpu_agreement()
     _count(k1_row, k1, n_frames)
     _count(k2_row, k2, n_frames)
@@ -1491,8 +1761,13 @@ def main() -> int:
     _count(k1_2d_row, c2["run_k1"], c2["run_frames"])
     _count(k1_2db_row, c2["eval_batched"], c2["eval_frames"])
     print(f"[config 2] phase 15 in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k2_rgbd_row, log = phase_k2_rgbd()
+    _count(k2_rgbd_row, *phase_config3(log))
+    phase_mapping_options(pts, msk, gt, slice_fps)
+    print(f"[config 3] phase 16 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
-            k1_2d_row, k1_2db_row]
+            k1_2d_row, k1_2db_row, k2_rgbd_row]
     phase_profile(rows)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

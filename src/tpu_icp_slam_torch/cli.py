@@ -6,9 +6,11 @@ own.
 
     python -m tpu_icp_slam_torch.cli align --n 4096
     python -m tpu_icp_slam_torch.cli run --dataset <sim2d | sim2d_loop |
-        a .clf/.log file | sim3d | sim3d_loop | KITTI dir> --frames F
-        [--config configs/lidar2d_scan_to_map.json | kitti_full_res.json]
-        [--checkpoint-every N | --resume] [--save-map map.npz] --out DIR
+        a .clf/.log file | sim3d | sim3d_loop | KITTI dir | simrgbd |
+        simrgbd_fullres | TUM RGB-D dir> --frames F
+        [--config configs/lidar2d_scan_to_map.json | kitti_full_res.json |
+        rgbd.json] [--checkpoint-every N | --resume] [--save-map map.npz]
+        --out DIR
     python -m tpu_icp_slam_torch.cli localize --map map.npz --dataset <same>
         --frame i --frames F
     python -m tpu_icp_slam_torch.cli eval --dataset <same> --frames F
@@ -176,8 +178,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     r = sub.add_parser("run", help="full SLAM over a dataset/log")
     r.add_argument("--dataset", default="sim2d",
-                   help="sim2d | sim2d_loop | sim3d | sim3d_loop | path to a "
-                        "real log (.clf / .log, a KITTI sequence dir)")
+                   help="sim2d | sim2d_loop | sim3d | sim3d_loop | simrgbd "
+                        "| simrgbd_fullres | path to a real log (.clf / .log, "
+                        "a KITTI sequence dir, a TUM RGB-D dir)")
     r.add_argument("--frames", type=int, default=60)
     r.add_argument("--config", default=None, help="JSON config file")
     r.add_argument("--out", default="out", help="artifact directory")
@@ -211,7 +214,9 @@ def build_parser() -> argparse.ArgumentParser:
     b.set_defaults(fn=cmd_bench)
 
     e = sub.add_parser("eval", help="trajectory accuracy evaluation")
-    e.add_argument("--dataset", default="sim2d")
+    e.add_argument("--dataset", default="sim2d",
+                   help="as for run; an RGB-D dataset has no scans, so it "
+                        "runs no golden oracle and reports tpu_ate alone")
     e.add_argument("--frames", type=int, default=60)
     e.add_argument("--config", default=None, help="JSON config file")
     e.add_argument("overrides", nargs="*", help="dotted config overrides k=v")

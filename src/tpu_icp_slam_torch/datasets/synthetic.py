@@ -2,10 +2,11 @@
 
 The port's own copy of `two_scan_pair` (config 1's pair, what `cli align`
 aligns), `lidar2d_log` and `scan_to_points` (the simulated 2D lidar world of
-config 2) and `velodyne_log` (Velodyne-like 3D logs) from
+config 2), `velodyne_log` (Velodyne-like 3D logs) and `Intrinsics`,
+`depth_scene` and `rgbd_log` (the synthetic depth camera of config 3) from
 tpu_icp_slam/datasets/synthetic.py and the helpers they call, line for
-line: the same seed gives the same clouds, scans and ground truth in both
-packages.
+line: the same seed gives the same clouds, scans, depth images and ground
+truth in both packages.
 """
 
 from __future__ import annotations
@@ -448,3 +449,109 @@ def velodyne_log(
             pts.append(np.stack([x, y, zz - sensor_h], axis=1))
         scans.append(np.concatenate(pts, axis=0))
     return scans, np.stack(poses)
+
+
+# ---------------------------------------------------------------------------
+# Synthetic depth camera (TUM-style RGB-D; config 3)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Intrinsics:
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    width: int
+    height: int
+
+    @staticmethod
+    def tum_default(width: int = 160, height: int = 120) -> "Intrinsics":
+        # fr1 intrinsics scaled from 640x480
+        s = width / 640.0
+        return Intrinsics(
+            fx=517.3 * s, fy=516.5 * s, cx=318.6 * s, cy=255.3 * s,
+            width=width, height=height,
+        )
+
+
+def depth_scene(cam_T_world: np.ndarray, K: Intrinsics, seed: int = 0):
+    """Render a synthetic depth image of a fixed scene (wall + floor + spheres).
+
+    cam_T_world: (4, 4) world-to-camera. Camera looks down +z. Returns (H, W)
+    depth in meters, 0 where invalid.
+    """
+    H, W = K.height, K.width
+    us, vs = np.meshgrid(np.arange(W), np.arange(H))
+    dirs_cam = np.stack(
+        [(us - K.cx) / K.fx, (vs - K.cy) / K.fy, np.ones_like(us, dtype=np.float64)],
+        axis=-1,
+    )  # (H, W, 3), unnormalized (z=1)
+    R = cam_T_world[:3, :3]
+    t = cam_T_world[:3, 3]
+    # camera center in world, ray dirs in world
+    Cw = -R.T @ t
+    dirs_w = dirs_cam @ R  # (H, W, 3) = R^T @ dirs_cam
+
+    depth = np.full((H, W), np.inf)
+
+    def plane(n, d0):
+        # n . x = d0 ; ray Cw + s*dir -> s = (d0 - n.Cw)/(n.dir); depth = s*z_cam...
+        denom = dirs_w @ n
+        s = np.where(np.abs(denom) > 1e-9, (d0 - Cw @ n) / denom, np.inf)
+        return np.where(s > 0.05, s, np.inf)
+
+    # scene: floor z=0, back wall y=3, side wall x=2.5 (partial)
+    cands = [
+        plane(np.array([0.0, 0.0, 1.0]), 0.0),
+        plane(np.array([0.0, 1.0, 0.0]), 3.0),
+        plane(np.array([1.0, 0.0, 0.0]), 2.5),
+    ]
+    rng = np.random.default_rng(seed)
+    centers = np.array([[0.4, 1.8, 0.5], [-0.6, 2.2, 0.9], [0.1, 1.2, 1.3]])
+    radii = np.array([0.35, 0.45, 0.25])
+    for cth, rad in zip(centers, radii):
+        oc = Cw - cth
+        ndirs = dirs_w / np.linalg.norm(dirs_w, axis=-1, keepdims=True)
+        b = ndirs @ oc
+        cc = oc @ oc - rad * rad
+        disc = b * b - cc
+        s = np.where(disc > 0, -b - np.sqrt(np.maximum(disc, 0)), np.inf)
+        # convert unit-ray param to z=1-ray param
+        s = s / np.linalg.norm(dirs_w, axis=-1)
+        cands.append(np.where(s > 0.05, s, np.inf))
+    for c in cands:
+        depth = np.minimum(depth, c)
+    # s is the parameter along the z=1 camera ray, so depth (z in camera) = s
+    depth = np.where(np.isfinite(depth) & (depth < 10.0), depth, 0.0)
+    _ = rng  # reserved for future noise
+    return depth
+
+
+def rgbd_log(n_frames: int = 10, K: Intrinsics | None = None, seed: int = 0):
+    """Camera sweeping through the depth scene; returns (depths, gt_poses).
+
+    gt_poses are camera-to-world (4, 4); depths (F, H, W) meters, 0 invalid.
+    """
+    K = K or Intrinsics.tum_default()
+    rng = np.random.default_rng(seed)
+    depths, poses = [], []
+    for f in range(n_frames):
+        u = f / max(n_frames - 1, 1)
+        # translate sideways + slight yaw, looking at the wall (+y)
+        x = -0.5 + 1.0 * u
+        z = 1.0 + 0.2 * np.sin(2 * np.pi * u * 0.5)
+        yaw = 0.15 * (u - 0.5)
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        # camera axes in world: z_cam = view dir (toward +y), x_cam right, y_cam down
+        zc = np.array([sy, cy, 0.0])
+        xc = np.array([cy, -sy, 0.0])
+        yc = np.cross(zc, xc)
+        Rwc = np.stack([xc, yc, zc], axis=1)  # world-from-camera
+        Twc = np.eye(4)
+        Twc[:3, :3] = Rwc
+        Twc[:3, 3] = [x, 0.2, z]
+        Tcw = np.linalg.inv(Twc)
+        depths.append(depth_scene(Tcw, K, seed=seed))
+        poses.append(Twc)
+    _ = rng
+    return np.stack(depths), np.stack(poses), K

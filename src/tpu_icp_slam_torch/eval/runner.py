@@ -1,7 +1,9 @@
 """`cli eval` (port of tpu_icp_slam/eval/runner.py): run the port's pipeline
 AND the golden float64 CPU oracle (eval/golden.py) on the same log, and
 report the ATE of each against ground truth and of the run against the
-oracle. The keys are the reference's (`tpu_ate` is the port's run)."""
+oracle. The keys are the reference's (`tpu_ate` is the port's run). An
+RGB-D dataset has no scans for the oracle: its report holds the run's
+`tpu_ate` alone, as the reference's does."""
 
 from __future__ import annotations
 

@@ -20,6 +20,8 @@ body; `icp.anderson` (AA(1) on twists) runs in either.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import logging
 from typing import Callable, Optional
 
 import torch
@@ -50,11 +52,14 @@ def _lie(d: int):
     return se3 if d == 3 else se2
 
 
-def _check_supported(cfg: ICPConfig) -> None:
-    if cfg.method not in ("point_to_plane", "point_to_point"):
-        raise NotImplementedError(
-            f"icp.method={cfg.method!r}: only point_to_plane and "
-            "point_to_point are ported")
+@functools.cache
+def _warn_fused_ignored() -> None:
+    """Once a process, as the reference warns: the generic loop below
+    runs the per-iteration steps path whatever icp.loop_backend says."""
+    logging.getLogger(__name__).warning(
+        "icp.loop_backend='fused' is only honored by the scan-to-map "
+        "pipeline (3D point_to_plane); this align() call runs the "
+        "per-iteration steps path.")
 
 
 def _gate(cfg: ICPConfig, cur_pts: torch.Tensor, d2: torch.Tensor
@@ -295,10 +300,15 @@ def align_with_correspondence(src: PointCloud, corr_fn: Callable,
     """ICP with a pluggable correspondence function.
 
     corr_fn(cur_pts (M, D)) -> (q (M, D), n (M, D) or None, gate (M,),
-    d2 (M,)). loop_backend is not read here: like the reference's generic
-    align_with_correspondence, this always runs the per-iteration steps path.
+    d2 (M,)): a nearest-neighbour search or the projective lookup of RGB-D
+    odometry (icp/projective.py). icp.method "point_to_plane" takes the
+    Gauss-Newton step; every other method, "projective" included, takes
+    the point-to-point Umeyama step, as in the reference. Like the
+    reference's, this always runs the per-iteration steps path, and warns
+    once when loop_backend="fused" reaches it.
     """
-    _check_supported(cfg)
+    if cfg.loop_backend == "fused":
+        _warn_fused_ignored()
     d = src.dim
     dtype = src.points.dtype
     T0 = (torch.eye(d + 1, dtype=dtype, device=src.points.device)
@@ -326,7 +336,6 @@ def align_batched(src: PointCloud, dst_points: torch.Tensor,
     once per iteration. Returns an ICPResult with a leading (B,) on every
     field; the loop ran max(iters) batched iterations.
     """
-    _check_supported(cfg)
     if cfg.method != "point_to_point":
         raise NotImplementedError(
             "align_batched runs point_to_point (loop-closure verification)")

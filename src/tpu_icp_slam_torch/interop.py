@@ -6,7 +6,9 @@ pose graph. `state_to_numpy` flattens a port state into a dict of numpy
 arrays, with the map under "vmap" as a dict of points/normals/mask;
 `state_from_numpy` builds a port state from such a dict. A reference
 `MapOdomState` converted field by field with `np.asarray` has the same
-layout, so both packages can start from one map. `load_detector_store`
+layout, so both packages can start from one map. `rgbd_state_to_numpy` and
+`rgbd_state_from_numpy` do the same for RGB-D odometry's `RGBDState`
+(pose, motion, the previous frame's vertex, normal and validity maps). `load_detector_store`
 gives a port LoopDetector the host store (descriptors, positions) of a
 reference detector, and `pose_graph_from_numpy` builds a port PoseGraph from
 a reference one, so both packages can work on identical inputs.
@@ -22,6 +24,7 @@ import torch
 from tpu_icp_slam_torch.backend.loop_closure import LoopDetector
 from tpu_icp_slam_torch.backend.pose_graph import PoseGraph
 from tpu_icp_slam_torch.mapping.voxel_map import VoxelMap
+from tpu_icp_slam_torch.slam.rgbd import RGBDState
 from tpu_icp_slam_torch.slam.scan_to_map import MapOdomState
 
 _VMAP_FIELDS = ("points", "normals", "mask")
@@ -62,6 +65,19 @@ def state_from_numpy(d: dict, device: torch.device | str = "cuda"
     return MapOdomState(**{
         f.name: vm if f.name == "vmap" else state_leaf(d[f.name], device)
         for f in dataclasses.fields(MapOdomState)})
+
+
+def rgbd_state_to_numpy(state: RGBDState) -> dict:
+    return {f.name: getattr(state, f.name).cpu().numpy()
+            for f in dataclasses.fields(RGBDState)}
+
+
+def rgbd_state_from_numpy(d: dict, device: torch.device | str = "cuda"
+                          ) -> RGBDState:
+    """Port RGBDState from a dict of numpy arrays keyed by its fields (a
+    reference RGBDState's leaves), converted by `state_leaf`."""
+    return RGBDState(**{f.name: state_leaf(d[f.name], device)
+                        for f in dataclasses.fields(RGBDState)})
 
 
 def load_detector_store(det: LoopDetector, descs, positions) -> None:

@@ -1,5 +1,7 @@
-"""k-NN plane-fit normals (port of the unorganized-cloud path of
-tpu_icp_slam/mapping/normals.py)."""
+"""Normal estimation (port of tpu_icp_slam/mapping/normals.py), two paths:
+cross products of central differences of an organized depth map's vertex
+map (projective RGB-D ICP, config 3), and k-NN plane fits for unorganized
+clouds."""
 
 from __future__ import annotations
 
@@ -8,6 +10,33 @@ import math
 import torch
 
 from tpu_icp_slam_torch.kernels.nn_plain import knn_bruteforce
+
+
+def normals_from_depth(vertex_map: torch.Tensor, valid: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(H, W, 3) camera-frame vertex map + (H, W) validity -> (H, W, 3)
+    unit normals, zero where invalid, and their (H, W) validity.
+
+    Normals face the camera (n_z < 0 for a surface seen down +z). The
+    central differences wrap around the image, so the one-pixel border is
+    invalid.
+    """
+    dx = torch.roll(vertex_map, -1, dims=1) - torch.roll(vertex_map, 1, dims=1)
+    dy = torch.roll(vertex_map, -1, dims=0) - torch.roll(vertex_map, 1, dims=0)
+    n = torch.linalg.cross(dx, dy, dim=-1)
+    norm = torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True))
+    n = n / torch.clamp(norm, min=1e-12)
+    flip = torch.sum(n * vertex_map, dim=-1, keepdim=True) > 0
+    n = torch.where(flip, -n, n)
+    ok = (valid
+          & torch.roll(valid, -1, dims=1) & torch.roll(valid, 1, dims=1)
+          & torch.roll(valid, -1, dims=0) & torch.roll(valid, 1, dims=0)
+          & (norm[..., 0] > 1e-12))
+    ok[0, :] = False
+    ok[-1, :] = False
+    ok[:, 0] = False
+    ok[:, -1] = False
+    return torch.where(ok[..., None], n, torch.zeros_like(n)), ok
 
 
 def smallest_eigvec_sym3(C: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_icp_slam_torch.mapping.voxel_map import _write_png
+from tpu_icp_slam_torch.datasets import png
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,4 +126,4 @@ def render_png(grid: OccupancyGrid2D, path: str, trajectory=None) -> None:
         r = h - 1 - np.floor((traj[:, 1] - org[1]) / res).astype(int)
         keep = (c >= 0) & (c < w) & (r >= 0) & (r < h)
         img[r[keep], c[keep]] = (255, 0, 0)
-    _write_png(path, np.ascontiguousarray(img))
+    png.write_rgb8(path, np.ascontiguousarray(img))

@@ -1,25 +1,26 @@
 """Fixed-capacity voxel-deduplicated 3D map (port of
-tpu_icp_slam/mapping/voxel_map.py, sort-based insert, exact extract and a
-top-down PNG render).
+tpu_icp_slam/mapping/voxel_map.py: the sort-based and the hash-probe
+insert, the local-model extract and a top-down PNG render).
 
 The map is a static-shape point store (capacity C) with a validity mask.
-Insert concatenates map + scan, sorts by quantized voxel key (stable, map
+`insert` concatenates map + scan, sorts by quantized voxel key (stable, map
 points first so they win their voxel), keeps the first point per voxel and
 compacts back to capacity, evicting the points farthest from the sensor.
 The reference's `jnp.lexsort` becomes one stable sort on a packed int64
-key; the results are bitwise those of the reference.
+key. `insert_hash` (mapping.insert_backend="hash") leaves map points in
+their slots and finds a scan point's voxel in an open-addressing table
+instead. The results of both are bitwise those of the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import struct
-import zlib
 
 import numpy as np
 import torch
 
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD
+from tpu_icp_slam_torch.datasets import png
 
 # quantized voxel coordinates live in [-2^19, 2^19); invalid slots sort last
 _QMAX = 1 << 19
@@ -99,8 +100,125 @@ def insert(vm: VoxelMap, pts: torch.Tensor, msk: torch.Tensor,
     return VoxelMap(points=new_pts, normals=new_nrm, mask=new_msk)
 
 
+_U32 = 0xFFFFFFFF
+_HASH_MULT = (2654435761, 0x9E3779B1, 0x85EBCA77)
+
+
+def _mul_u32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 a in [0, 2^32) and c < 2^32, in halves so
+    that no int64 product overflows."""
+    lo = (a & 0xFFFF) * c
+    hi = ((a >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _U32
+
+
+def _hash(q: torch.Tensor, tsize: int) -> torch.Tensor:
+    """The reference's uint32 voxel hash of (N, 3) int32 keys, mod tsize:
+    keys wrap to uint32, products wrap mod 2^32, emulated in int64."""
+    u = q.to(torch.int64) & _U32
+    h = (_mul_u32(u[:, 0], _HASH_MULT[0]) ^ _mul_u32(u[:, 1], _HASH_MULT[1])
+         ^ _mul_u32(u[:, 2], _HASH_MULT[2]))
+    return h % tsize
+
+
+def insert_hash(vm: VoxelMap, pts: torch.Tensor, msk: torch.Tensor,
+                nrm: torch.Tensor, *, voxel: float,
+                center: torch.Tensor | None = None, table_mult: int = 2,
+                probes: int = 8) -> VoxelMap:
+    """Hash-probe voxel-dedup insert: map points stay in their slots.
+
+    1. A fresh open-addressing table (table_mult x capacity slots, `probes`
+       linear-probe rounds) maps the map's voxel keys to slots, built by
+       scatter-min and verified by a gather.
+    2. The scan dedups within itself by one small stable sort.
+    3. Probing the table drops scan points whose voxel is mapped (the map
+       point wins, as in `insert`).
+    4. The survivors, nearest the sensor first, go to victim slots: empty
+       slots first, then (with `center`) the occupied slots farthest from
+       it, each only if its score is worse than the incoming point's.
+
+    A voxel whose key overflows `probes` collisions can rarely be admitted
+    twice (a wasted slot, no lost point). Ties keep the reference's order:
+    victims by a stable descending sort (`lax.top_k` puts the lower index
+    first), survivors by a stable ascending one.
+    """
+    cap = vm.capacity
+    n_new = pts.shape[0]
+    tsize = table_mult * cap
+    dev = pts.device
+    q_map = _quantize(vm.points, vm.mask, voxel)  # (C, 3)
+    q_new = _quantize(pts, msk, voxel)  # (N, 3)
+
+    # 1. build: scatter-min claims a slot; each round moves the unplaced to
+    # the next probe offset
+    empty = cap  # sentinel > any real index
+    table = torch.full((tsize,), empty, dtype=torch.int64, device=dev)
+    h_map = _hash(q_map, tsize)
+    idx_map = torch.arange(cap, dtype=torch.int64, device=dev)
+    placed = ~vm.mask
+    for p in range(probes):
+        slot = (h_map + p) % tsize
+        attempt = torch.where(placed, torch.full_like(idx_map, empty),
+                              idx_map)
+        table.scatter_reduce_(0, slot, attempt, "amin", include_self=True)
+        placed = placed | (table[slot] == idx_map)
+
+    # 2. dedup within the scan
+    _, order = torch.sort(_voxel_key(q_new), stable=True)
+    qs = q_new[order]
+    dup = torch.all(qs == torch.roll(qs, 1, dims=0), dim=1)
+    dup[0] = False
+    first_of_voxel = torch.zeros(n_new, dtype=torch.bool, device=dev)
+    first_of_voxel[order] = ~dup
+
+    # 3. membership: probe the table, verify by the exact key
+    h_new = _hash(q_new, tsize)
+    present = torch.zeros(n_new, dtype=torch.bool, device=dev)
+    for p in range(probes):
+        cand = table[(h_new + p) % tsize]  # (N,) slot or `empty`
+        cand_q = q_map[torch.clamp(cand, max=cap - 1)]
+        present = present | ((cand < cap) & torch.all(cand_q == q_new,
+                                                      dim=1))
+    need = msk & first_of_voxel & ~present
+
+    # 4. victims and placement
+    c = (center if center is not None
+         else torch.zeros(3, dtype=pts.dtype, device=dev))
+    inf = torch.full((cap,), float("inf"), dtype=pts.dtype, device=dev)
+    if center is not None:
+        # occupied slots score their distance from the sensor; empty ones
+        # +inf, chosen first and always overwritable
+        diff = vm.points - c[None, :]
+        evict_score = torch.where(vm.mask, torch.sum(diff * diff, dim=-1),
+                                  inf)
+    else:
+        # no eviction: only empty slots are victims
+        evict_score = torch.where(vm.mask, -inf, inf)
+    k_victims = min(n_new, cap)
+    v_score, v_slot = torch.sort(evict_score, descending=True, stable=True)
+    v_score, v_slot = v_score[:k_victims], v_slot[:k_victims]
+    diff = pts - c[None, :]
+    d2_new = torch.sum(diff * diff, dim=-1)
+    rank_new = torch.sort(torch.where(need, d2_new, torch.full_like(
+        d2_new, float("inf"))), stable=True).indices[:k_victims]
+    do = need[rank_new] & (v_score > d2_new[rank_new])  # inf always wins
+    tgt = torch.where(do, v_slot, torch.full_like(v_slot, cap))  # cap: drop
+    src_pts = torch.where(do[:, None], pts[rank_new],
+                          torch.full_like(pts[rank_new], PAD_COORD))
+    src_nrm = torch.where(do[:, None], nrm[rank_new],
+                          torch.zeros_like(nrm[rank_new]))
+    new_points = torch.cat([vm.points, vm.points[:1]])
+    new_normals = torch.cat([vm.normals, vm.normals[:1]])
+    new_mask = torch.cat([vm.mask, vm.mask[:1]])
+    new_points[tgt] = src_pts
+    new_normals[tgt] = src_nrm
+    new_mask[tgt] = new_mask[tgt] | do
+    return VoxelMap(points=new_points[:cap], normals=new_normals[:cap],
+                    mask=new_mask[:cap])
+
+
 def extract_local(vm: VoxelMap, center: torch.Tensor, size: int,
-                  radius: float = 0.0):
+                  radius: float = 0.0, approx: bool = False):
     """Nearest `size` map points to `center`:
     (pts (S, 3), nrm (S, 3), msk (S,), r_cover ()).
 
@@ -110,7 +228,13 @@ def extract_local(vm: VoxelMap, center: torch.Tensor, size: int,
     rescore NN depends on that adjacency). r_cover is the distance to the
     farthest selected point, or inf while the map holds no more than `size`
     points (everything known is in the model).
+
+    approx=True (mapping.extract_approx) selects exactly as well. The
+    reference's `lax.approx_max_k` keeps ~0.95 of the nearest points on a
+    TPU and is an exact top-k on every other backend; the port selects
+    exactly on both devices, a stated deviation from the TPU's recall.
     """
+    del approx
     diff = vm.points - center[None, :]
     d2 = torch.sum(diff * diff, dim=-1)
     d2 = torch.where(vm.mask, d2, torch.full_like(d2, float("inf")))
@@ -179,22 +303,4 @@ def render_png(vm: VoxelMap, path: str, trajectory=None) -> None:
         line = (traj[:-1] + s * (traj[1:] - traj[:-1])).reshape(-1, 2)
         r, c = pixel(line)
         img[r, c] = (255, 0, 0)
-    _write_png(path, img)
-
-
-def _write_png(path: str, rgb) -> None:
-    """(H, W, 3) uint8 -> PNG file: signature, IHDR (8-bit RGB), one zlib
-    IDAT of unfiltered rows, IEND."""
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           rgb.reshape(h, w * 3)], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n"
-                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                 + chunk(b"IEND", b""))
+    png.write_rgb8(path, img)

@@ -1,18 +1,17 @@
 """Dataset-to-trajectory runner behind `cli run` / `cli eval` (port of
 tpu_icp_slam/slam/runner.py).
 
-Loads a dataset (the synthetic 2D and 3D logs, a CARMEN `.clf`/`.log` file
-or a KITTI sequence), pads scans to a fixed capacity, drives the pipeline
-the config names on `device` — full 3D SLAM (`Slam3D`), 2D SLAM (`Slam2D`,
-for a 2D log with the backend on or a scan-to-map config), scan-to-map
-odometry (`ScanToMapPipeline`) or scan-to-scan odometry (`OdometryPipeline`,
-2D with its occupancy grid) — and writes the artifacts: trajectory .npz with
-its TUM and KITTI text forms, the map render .png, metrics .jsonl and
-report.json. The report's keys are the reference's.
-
-Not ported yet, and refused with NotImplementedError: RGB-D (config 3:
-`simrgbd`, `simrgbd_fullres`, a TUM dir). The reference's `apply_debug`
-sets JAX flags and has no counterpart here.
+Loads a dataset (the synthetic 2D, 3D and RGB-D logs, a CARMEN
+`.clf`/`.log` file, a KITTI sequence or a TUM RGB-D directory), pads scans
+to a fixed capacity, drives the pipeline the config names on `device` —
+full 3D SLAM (`Slam3D`), 2D SLAM (`Slam2D`, for a 2D log with the backend
+on or a scan-to-map config), scan-to-map odometry (`ScanToMapPipeline`),
+scan-to-scan odometry (`OdometryPipeline`, 2D with its occupancy grid) or,
+for depth images, RGB-D odometry (`RGBDOdometry`, config 3) — and writes
+the artifacts: trajectory .npz with its TUM and KITTI text forms, the map
+render .png, metrics .jsonl and report.json. The report's keys are the
+reference's. The reference's `apply_debug` sets JAX flags and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -32,14 +31,16 @@ from tpu_icp_slam_torch.config import (
     override,
 )
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD, voxel_downsample_np
-from tpu_icp_slam_torch.datasets import carmen, kitti, synthetic
+from tpu_icp_slam_torch.datasets import carmen, kitti, synthetic, tum
 from tpu_icp_slam_torch.eval import metrics as em
 from tpu_icp_slam_torch.eval import trajectory_io as tio
+from tpu_icp_slam_torch.icp.projective import CameraIntrinsics
 from tpu_icp_slam_torch.mapping import occupancy2d, voxel_map
 from tpu_icp_slam_torch.obs import MetricsLogger, Timer
 from tpu_icp_slam_torch.slam import map_io
 from tpu_icp_slam_torch.slam.checkpoint import load_checkpoint, save_checkpoint
 from tpu_icp_slam_torch.slam.pipeline import OdometryPipeline
+from tpu_icp_slam_torch.slam.rgbd import RGBDOdometry
 from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
 from tpu_icp_slam_torch.slam.slam2d import Slam2D
 from tpu_icp_slam_torch.slam.slam3d import Slam3D
@@ -47,10 +48,13 @@ from tpu_icp_slam_torch.slam.slam3d import Slam3D
 
 @dataclasses.dataclass
 class LoadedDataset:
-    scans: list  # list of (N_i, D) float arrays (sensor frame)
+    scans: list  # list of (N_i, D) float arrays (sensor frame); empty for rgbd
     gt_poses: Optional[np.ndarray]  # (F, D+1, D+1) or None
     dim: int
     name: str
+    kind: str = "scan"  # scan | rgbd
+    depths: Optional[np.ndarray] = None  # (F, H, W) metres, for rgbd
+    intrinsics: Optional[tuple] = None  # (fx, fy, cx, cy, W, H), for rgbd
 
 
 def _polar_scans(log, n: int) -> list:
@@ -74,12 +78,26 @@ def load_dataset(spec: str, frames: int, seed: int = 0) -> LoadedDataset:
             path_fraction=frac,
         )
         return LoadedDataset(scans=scans, gt_poses=poses, dim=3, name=spec)
-    if spec in ("simrgbd", "simrgbd_fullres") or (
-            os.path.isdir(spec)
-            and os.path.exists(os.path.join(spec, "depth.txt"))):
-        raise NotImplementedError(
-            f"dataset {spec!r} is RGB-D: projective odometry "
-            "(configs/rgbd.json, config 3) is not ported yet")
+    if spec in ("simrgbd", "simrgbd_fullres"):
+        # fullres: TUM fr1's 640x480 sensor grid (307,200 pixels a frame),
+        # config 3's regime; simrgbd: the 160x120 stand-in
+        K_in = (synthetic.Intrinsics.tum_default(640, 480)
+                if spec == "simrgbd_fullres" else None)
+        depths, poses, K = synthetic.rgbd_log(n_frames=frames, K=K_in,
+                                              seed=seed)
+        return LoadedDataset(
+            scans=[], gt_poses=poses, dim=3, name=spec, kind="rgbd",
+            depths=depths,
+            intrinsics=(K.fx, K.fy, K.cx, K.cy, K.width, K.height))
+    if os.path.isdir(spec) and os.path.exists(os.path.join(spec,
+                                                           "depth.txt")):
+        # read with fr1's intrinsics, whatever the image size
+        seq = tum.load_sequence(spec, max_frames=frames)
+        h, w = seq.depths.shape[1:]
+        return LoadedDataset(
+            scans=[], gt_poses=seq.gt_poses, dim=3,
+            name=os.path.basename(spec.rstrip("/")), kind="rgbd",
+            depths=seq.depths, intrinsics=(*seq.intrinsics, w, h))
     if spec.endswith((".clf", ".log")):
         log = carmen.load_clf(spec)
         n = min(frames, len(log.ranges)) if frames > 0 else len(log.ranges)
@@ -205,6 +223,45 @@ def _run_slam2d(cfg, data, pts, msk, timer, metrics_log, out_dir, mode,
     return poses, report
 
 
+def run_rgbd(cfg: SlamConfig, data: LoadedDataset,
+             out_dir: Optional[str] = None, mode: str = "fused",
+             device: torch.device | str = "cuda"):
+    """RGB-D odometry (config 3): projective point-to-plane ICP a frame,
+    always point-to-plane whatever icp.method says, as in the reference.
+    Returns (poses (F, 4, 4), report). Beside the reference's artifacts,
+    metrics.jsonl holds the run's ICP iterations (`icp_iters`)."""
+    fx, fy, cx, cy, w, h = data.intrinsics
+    K = CameraIntrinsics(fx=fx, fy=fy, cx=cx, cy=cy, width=w, height=h)
+    if cfg.icp.method != "point_to_plane":
+        cfg = dataclasses.replace(cfg, icp=dataclasses.replace(
+            cfg.icp, method="point_to_plane"))
+    timer = Timer()
+    metrics_log = MetricsLogger(
+        os.path.join(out_dir, "metrics.jsonl") if out_dir else None,
+        static_fields={"config_hash": config_hash(cfg), "dataset": data.name},
+    )
+    pipe = RGBDOdometry(cfg, K, device=device)
+    state = pipe.init_state(data.depths[0])
+    poses = [np.eye(4, dtype=np.float32)]
+    iters = []
+    with timer.span("compile+run"):
+        if mode == "fused":
+            state, infos = pipe.run_fused(state, data.depths[1:])
+            poses.extend(list(infos["pose"].cpu().numpy()))
+            iters = infos["iters"].tolist()
+        else:
+            for i in range(1, len(data.depths)):
+                state, info = pipe.step(state, data.depths[i])
+                poses.append(info["pose"].cpu().numpy())
+                iters.append(int(info["iters"]))
+    poses = np.stack(poses)
+    metrics_log.log("rgbd_run", frames=len(poses), icp_iters=int(sum(iters)))
+    report = _make_report(poses, data, cfg, mode, timer)
+    _write_artifacts(out_dir, poses, report)
+    _finish(metrics_log, report)
+    return poses, report
+
+
 def run_slam(
     cfg: SlamConfig,
     data: LoadedDataset,
@@ -220,7 +277,10 @@ def run_slam(
     Beside the reference's fields, metrics.jsonl holds the front end's
     total ICP iterations (`icp_iters`) of a fused odometry run and of full
     SLAM, with loop verification's batched iterations (`verify_iters`) in
-    the latter's `slam3d_run` or `slam2d_run` event."""
+    the latter's `slam3d_run` or `slam2d_run` event. Depth images (kind
+    "rgbd") go to `run_rgbd`."""
+    if data.kind == "rgbd":
+        return run_rgbd(cfg, data, out_dir=out_dir, mode=mode, device=device)
     if data.dim not in (2, 3):
         raise ValueError(f"{data.dim}-D scans: the runner takes 2D and 3D")
     timer = Timer()

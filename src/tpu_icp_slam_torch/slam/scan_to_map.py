@@ -5,7 +5,8 @@ Per frame:
     → point-to-plane ICP of the scan against the model, in the PREDICTED
       SENSOR frame (world coordinates wreck f32 conditioning)
     → keyframe and map-health gates
-    → on map inserts only: k-NN normals + voxel-dedup insert of the scan.
+    → on map inserts only: k-NN normals + voxel-dedup insert of the scan
+      (`insert`, or `insert_hash` with mapping.insert_backend="hash").
 
 The reference's two `lax.cond`s (re-extract with hysteresis, map insert)
 become host branches. Its ICP runs one of two ways, as in the reference:
@@ -51,19 +52,10 @@ class MapOdomState:
     need_extract: torch.Tensor  # () bool; set after map inserts
 
 
-def _check_supported(cfg: SlamConfig) -> None:
-    if cfg.mapping.insert_backend == "hash":
-        raise NotImplementedError("mapping.insert_backend='hash' is not "
-                                  "ported yet")
-    if cfg.mapping.extract_approx:
-        raise NotImplementedError("mapping.extract_approx is not ported yet")
-
-
 class ScanToMapPipeline:
     """3D scan-to-map ICP odometry against a voxel-deduplicated map."""
 
     def __init__(self, cfg: SlamConfig, device: torch.device | str = "cuda"):
-        _check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -144,7 +136,8 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
                  > m.extract_hysteresis)
         if bool(state.need_extract | moved):
             loc_pts, loc_nrm, loc_msk, r_cover = voxel_map.extract_local(
-                state.vmap, center, m.local_model_size)
+                state.vmap, center, m.local_model_size,
+                approx=m.extract_approx)
             ex_center = center
         else:
             loc_pts, loc_nrm, loc_msk, r_cover, ex_center = (
@@ -153,7 +146,7 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
         stale_off = torch.linalg.vector_norm(center - ex_center)
     else:
         loc_pts, loc_nrm, loc_msk, r_cover = voxel_map.extract_local(
-            state.vmap, center, m.local_model_size)
+            state.vmap, center, m.local_model_size, approx=m.extract_approx)
         ex_center = center
         stale_off = torch.zeros((), dtype=torch.float32, device=center.device)
     # move the small model into the predicted sensor frame once; the hot
@@ -235,8 +228,10 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
                           ref_stride=p.normal_ref_stride,
                           approx=p.normal_approx,
                           oversample=p.normal_oversample) @ pose[:3, :3].T
-        vm = voxel_map.insert(vm, world_pts, mask, nrm, voxel=m.map_voxel,
-                              center=pose[:3, 3])
+        insert = (voxel_map.insert_hash if m.insert_backend == "hash"
+                  else voxel_map.insert)
+        vm = insert(vm, world_pts, mask, nrm, voxel=m.map_voxel,
+                    center=pose[:3, 3])
     new_state = MapOdomState(
         pose=pose,
         T_rel=T_rel,

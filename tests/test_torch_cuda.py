@@ -1254,3 +1254,138 @@ def test_slam2d_on_cuda_matches_cpu(cuda_device):
     assert grep.n_loop_closures >= 1
     assert batched == g.detector.verify_iters > 0
     np.testing.assert_allclose(gp[:, :2, 2], cp[:, :2, 2], atol=1e-3)
+
+
+# ---- config 3 (RGB-D) and the mapping options --------------------------------
+
+
+def _rgbd_maps(device, size=(640, 480), frames=(0, 1), n_frames=30):
+    """Vertex, normal and validity maps of frames of the synthetic depth
+    log, computed on the CPU and copied to `device` (the same inputs on
+    both devices), and its intrinsics."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.icp import projective
+    from tpu_icp_slam_torch.mapping.normals import normals_from_depth
+
+    depths, _, ki = synthetic.rgbd_log(
+        n_frames=n_frames, K=synthetic.Intrinsics.tum_default(*size))
+    K = projective.CameraIntrinsics(ki.fx, ki.fy, ki.cx, ki.cy, ki.width,
+                                    ki.height)
+    out = []
+    for f in frames:
+        v, ok = projective.backproject_depth(
+            torch.as_tensor(depths[f], dtype=torch.float32), K)
+        n, nok = normals_from_depth(v, ok)
+        out.append(tuple(t.to(device) for t in (v, n, ok & nok)))
+    return K, out, depths
+
+
+def test_gn_kernel_at_the_rgbd_grid(cuda_device):
+    """K2 at M = 307,200 (640x480, frame 1 looked up in frame 0's maps):
+    each entry of H and g within 1e-5 of the sum of its terms' absolute
+    values of the plain version (two float32 sums of the same terms in
+    different orders); bit-reproducible."""
+    from tpu_icp_slam_torch.icp import projective
+
+    K, ((v0, n0, ok0), (v1, _, ok1)), _ = _rgbd_maps(cuda_device)
+    mask = ok1.reshape(-1)
+    p = torch.where(mask[:, None], v1.reshape(-1, 3),
+                    torch.full_like(v1.reshape(-1, 3), 1.0e6))
+    q, n, gate, _ = projective.projective_correspondence(
+        K, v0, n0, ok0, max_corr_dist=0.3)(p)
+    w = gate * mask.float()
+    assert p.shape == (307200, 3) and q.is_contiguous() and n.is_contiguous()
+    H, g = gn_cuda.gn_accum(p, q, n, w)
+    H_ref, g_ref = gn_cuda.gn_accum_ref(p, q, n, w)
+    p64, q64, n64, w64 = (t.double() for t in (p, q, n, w))
+    J = torch.cat([n64, torch.linalg.cross(p64, n64, dim=-1)], dim=-1)
+    r = torch.sum(n64 * (p64 - q64), dim=-1)
+    aJw = (J * w64[:, None]).abs()
+    assert torch.all((H - H_ref).abs().double() <= 1e-5 * (J.abs().T @ aJw))
+    assert torch.all((g - g_ref).abs().double() <= 1e-5 * (aJw.T @ r.abs()))
+    H2, g2 = gn_cuda.gn_accum(p, q, n, w)
+    assert torch.equal(H, H2) and torch.equal(g, g2)
+
+
+def test_projective_correspondence_on_cuda_matches_cpu(cuda_device):
+    """The lookup of a moved full-width frame on the card and the CPU from
+    the same maps: q, n and the gate equal, d2 within 1e-6 relative (its
+    3-term sum may round differently), except at pixel-boundary points (u
+    or v within 1e-4 of k + 0.5), at most 1e-4 of the rows."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.icp import projective
+
+    K, ((v0, n0, ok0), (v1, _, ok1)), _ = _rgbd_maps("cpu")
+    T = synthetic.rigid_transform(3, np.random.default_rng(4),
+                                  rot_scale=0.02, trans_scale=0.03)
+    pts = (v1.reshape(-1, 3).double() @ torch.as_tensor(T[:3, :3]).T
+           + torch.as_tensor(T[:3, 3])).float()
+    pts[~ok1.reshape(-1)] = 1.0e6
+    got = {}
+    for dev in ("cpu", cuda_device):
+        corr = projective.projective_correspondence(
+            K, v0.to(dev), n0.to(dev), ok0.to(dev), max_corr_dist=0.3)
+        got[str(dev)] = [t.cpu() for t in corr(pts.to(dev))]
+    (q, n, gate, d2), (qc, nc, gc, d2c) = got["cpu"], got["cuda"]
+    p64 = pts.double()
+    u = p64[:, 0] / p64[:, 2] * K.fx + K.cx
+    v = p64[:, 1] / p64[:, 2] * K.fy + K.cy
+    edge = (((u - u.floor() - 0.5).abs() < 1e-4)
+            | ((v - v.floor() - 0.5).abs() < 1e-4))
+    same = (q == qc).all(1) & (n == nc).all(1) & (gate == gc)
+    assert int((~same & ~edge).sum()) == 0
+    assert int((~same).sum()) <= 1e-4 * len(pts)
+    torch.testing.assert_close(d2c[same], d2[same], rtol=1e-6, atol=0)
+    assert gate.sum() > 0.3 * len(pts)
+
+
+@pytest.mark.parametrize("size,stride", [((160, 120), 1), ((640, 480), 1),
+                                         ((640, 480), 2)])
+def test_rgbd_odometry_on_cuda_matches_cpu(cuda_device, size, stride):
+    """One RGBDOdometry frame (init, then frame 1) with configs/rgbd.json on
+    the card and the CPU: poses within 1e-5, the same iterations, one K2
+    launch per iteration on the card."""
+    from tpu_icp_slam_torch import from_json
+    from tpu_icp_slam_torch.slam.rgbd import RGBDOdometry
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = from_json((root / "configs" / "rgbd.json").read_text())
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, rgbd_src_stride=stride))
+    K, _, depths = _rgbd_maps("cpu", size=size, frames=())
+    out = {}
+    for dev in ("cpu", cuda_device):
+        odo = RGBDOdometry(cfg, K, device=dev)
+        gn_cuda.gn_accum.launches = 0
+        _, info = odo.step(odo.init_state(depths[0]), depths[1])
+        out[str(dev)] = (info["pose"].cpu(), int(info["iters"]),
+                         gn_cuda.gn_accum.launches)
+    (pc, ic, _), (pg, ig, launches) = out["cpu"], out["cuda"]
+    assert ig == ic == launches > 0
+    torch.testing.assert_close(pg, pc, rtol=0, atol=1e-5)
+
+
+def test_insert_hash_on_cuda_matches_cpu(cuda_device):
+    """insert_hash on the card equals the CPU entry for entry: without
+    eviction into a filling map, and with spatial eviction."""
+    from tpu_icp_slam_torch.mapping import voxel_map
+
+    rng = np.random.default_rng(9)
+    for center in (False, True):
+        maps = {d: voxel_map.create(4096, device=d)
+                for d in ("cpu", str(cuda_device))}
+        for _ in range(3):
+            pts = rng.uniform(-30, 30, (3000, 3)).astype(np.float32)
+            msk = rng.uniform(size=3000) > 0.1
+            pts[~msk] = 1.0e6
+            nrm = rng.standard_normal((3000, 3)).astype(np.float32)
+            c = rng.uniform(-5, 5, 3).astype(np.float32)
+            for d in maps:
+                maps[d] = voxel_map.insert_hash(
+                    maps[d], *(torch.as_tensor(a, device=d)
+                               for a in (pts, msk, nrm)), voxel=0.5,
+                    center=torch.as_tensor(c, device=d) if center else None)
+            for f in ("points", "normals", "mask"):
+                assert torch.equal(getattr(maps["cpu"], f),
+                                   getattr(maps[str(cuda_device)], f).cpu()), f
+        assert int(voxel_map.count(maps["cpu"])) == 4096

@@ -120,17 +120,12 @@ def test_align_max_iters_cap_matches_reference():
     {"degen_eps": 0.01}, {"nn_backend": "voxel"},
 ])
 def test_unported_icp_options_raise(override):
-    """Only the projective method is still refused. The options that the
-    earlier slices refused (anderson, unroll_iters, degen_eps, the voxel
-    backend) now run, and match the reference's align under the same
-    config: equal iterations and inliers, T within 1e-4."""
+    """No ICP option is refused any more: the projective method (in align,
+    the reference's point-to-point Umeyama branch), anderson, unroll_iters,
+    degen_eps and the voxel backend run, and match the reference's align
+    under the same config: equal iterations and inliers, T within 1e-4."""
     src, dst, nrm, _ = _align_pair()
     cfg = dataclasses.replace(_CFG, **override)
-    if cfg.method == "projective":
-        with pytest.raises(NotImplementedError):
-            tloop.align(tpc.make(src, device="cpu"),
-                        tpc.make(dst, normals=nrm, device="cpu"), cfg=cfg)
-        return
     ra = jloop.align(jpc.make(src, 1100), jpc.make(dst, 1200, normals=nrm),
                      cfg=cfg)
     rb = tloop.align(tpc.make(src, 1100, device="cpu"),

@@ -33,7 +33,7 @@ from tpu_icp_slam.datasets import synthetic
 from tpu_icp_slam.slam import runner as jrunner
 from tpu_icp_slam.slam.pipeline import OdometryPipeline as JaxOdometry
 from tpu_icp_slam_torch.config import from_json as tfrom_json
-from tpu_icp_slam_torch.datasets import kitti
+from tpu_icp_slam_torch.datasets import kitti, tum
 from tpu_icp_slam_torch.eval import trajectory_io as tio
 from tpu_icp_slam_torch.slam import runner
 from tpu_icp_slam_torch.slam.pipeline import OdometryPipeline
@@ -262,10 +262,14 @@ def test_load_dataset_reads_kitti_dir(tmp_path, data):
 @pytest.mark.parametrize("spec", ["sim2d", "sim2d_loop", "simrgbd",
                                   "simrgbd_fullres", "tum", "log.clf"])
 def test_2d_and_rgbd_datasets_raise(tmp_path, spec):
-    """The RGB-D datasets (config 3) are still refused; the 2D ones (config
-    2) load as the reference's do (tests/test_torch_state2d.py runs them)."""
+    """No dataset spec is refused any more: the 2D ones (config 2) and the
+    RGB-D ones (config 3: simrgbd, simrgbd_fullres, a TUM directory) load
+    as the reference's do (tests/test_torch_state2d.py runs the 2D ones,
+    tests/test_torch_rgbd.py and tests/test_torch_tum.py the RGB-D
+    ones)."""
     if spec == "tum":
-        (tmp_path / "depth.txt").write_text("")
+        depths, poses, _ = synthetic.rgbd_log(n_frames=3)
+        tum.write_sequence(str(tmp_path), depths, gt_poses=poses)
         spec = str(tmp_path)
     if spec == "log.clf":
         from tpu_icp_slam.datasets import carmen
@@ -281,5 +285,9 @@ def test_2d_and_rgbd_datasets_raise(tmp_path, spec):
         for a, b in zip(got.scans, want.scans):
             np.testing.assert_array_equal(a, b)
         return
-    with pytest.raises(NotImplementedError):
-        runner.load_dataset(spec, 4)
+    got, want = runner.load_dataset(spec, 3), jrunner.load_dataset(spec, 3)
+    assert (got.kind, got.dim, got.name, got.scans, got.intrinsics) == (
+        want.kind, want.dim, want.name, want.scans, want.intrinsics)
+    assert got.kind == "rgbd" and got.depths.shape[0] == 3
+    np.testing.assert_array_equal(got.depths, want.depths)
+    np.testing.assert_array_equal(got.gt_poses, want.gt_poses)

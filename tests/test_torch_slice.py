@@ -162,11 +162,17 @@ def test_streaming_steps_equal_run_fused():
     ("mapping", "extract_approx", True),
 ])
 def test_unported_pipeline_options_raise(section, field, value):
+    """The mapping options that earlier slices refused now run: the slice
+    with each one on matches the reference's on the main log, within the
+    main bounds (tests/test_torch_mapping_options.py holds the functions
+    themselves entry for entry)."""
     cfg = _s2m_cfg()
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
         getattr(cfg, section), **{field: value})})
-    with pytest.raises(NotImplementedError):
-        ScanToMapPipeline(cfg, device="cpu")
+    pts, msk, gt = _log()
+    ji, ti = _run_both(cfg, pts, msk)
+    _assert_slice_agrees(ji, ti, gt, GAPS["main"])
+    assert ti["map_inserted"].sum() >= 1
 
 
 def _port_modules():
@@ -177,16 +183,19 @@ def _port_modules():
 
 
 def test_port_imports_without_jax():
-    """The port, chip_smoke.py and chip_ab.py import and run with both jax
-    and the reference package blocked, lazy imports included: the native
-    voxel downsample, a preset through from_json, velodyne_log, ATE, a
-    3-frame scan-to-map run, `cli align`, a 3-frame `cli run` and a
-    3-frame 2D `cli run` (sim2d, its occupancy grid and map.png) on the
+    """The port, chip_smoke.py and chip_ab.py import and run with jax, the
+    reference package and cv2 blocked (the card's machine has none of
+    them), lazy imports included: the native voxel downsample, a preset
+    through from_json, velodyne_log, ATE, a 3-frame scan-to-map run, `cli
+    align`, a 3-frame `cli run`, a 3-frame 2D `cli run` (sim2d, its
+    occupancy grid and map.png), a 3-frame RGB-D `cli run` (simrgbd with
+    configs/rgbd.json) and a TUM directory written and read back, on the
     CPU."""
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['tpu_icp_slam'] = None\n"
+        "sys.modules['cv2'] = None\n"
         f"for m in {_port_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "import dataclasses\n"
@@ -239,8 +248,20 @@ def test_port_imports_without_jax():
         "assert np.load(out + '/2d/trajectory.npz')['poses'].shape == (\n"
         "    3, 3, 3)\n"
         "assert open(out + '/2d/map.png', 'rb').read(4) == b'\\x89PNG'\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert cli.main(['run', '--dataset', 'simrgbd', '--frames', '3',\n"
+        "                     '--device', 'cpu', '--out', out + '/rgbd',\n"
+        "                     '--config', 'configs/rgbd.json']) == 0\n"
+        "rep = json.load(open(out + '/rgbd/report.json'))\n"
+        "assert rep['frames'] == 3 and np.isfinite(rep['ate_rmse']), rep\n"
+        "from tpu_icp_slam_torch.datasets import tum\n"
+        "d, p, _ = synthetic.rgbd_log(n_frames=2)\n"
+        "tum.write_sequence(out + '/tum', d, gt_poses=p)\n"
+        "seq = tum.load_sequence(out + '/tum')\n"
+        "img = np.clip(d * 5000.0, 0, 65535).astype(np.uint16)\n"
+        "assert np.array_equal(seq.depths, img / 5000.0)\n"
         "assert not [k for k, v in sys.modules.items() if v is not None\n"
-        "            and k.split('.')[0] in ('jax', 'tpu_icp_slam')]\n"
+        "            and k.split('.')[0] in ('jax', 'tpu_icp_slam', 'cv2')]\n"
         "print('imported', len(sys.modules), 'ate', ate)\n"
     )
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -252,13 +273,15 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    """Neither jax nor the reference package is imported by any port file,
-    chip_smoke.py or chip_ab.py, at top level or inside a function."""
+    """Neither jax, the reference package nor cv2 is imported by any port
+    file, chip_smoke.py or chip_ab.py, at top level or inside a
+    function."""
     files = list((ROOT / "src" / "tpu_icp_slam_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
-    jax_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|cv2)\b", re.M)
     ref_import = re.compile(r"^\s*(import|from)\s+tpu_icp_slam\b(?!_)", re.M)
-    ref_name = re.compile(r"import_module\(\s*['\"](jax|tpu_icp_slam)\b(?!_)")
+    ref_name = re.compile(
+        r"import_module\(\s*['\"](jax|cv2|tpu_icp_slam)\b(?!_)")
     assert len(files) > 10
     for f in files:
         text = f.read_text()
