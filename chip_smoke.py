@@ -109,7 +109,28 @@ nonzero and the final line is not printed:
      and mapping.extract_approx=True: ATE < 0.15 m, K1 = K2 = the ICP
      iterations, frames/s beside phase 4's; insert_hash on the card equal
      to its CPU run on one insert, entry for entry.
- 17. profile: torch.profiler over each kernel's back-to-back calls (its
+ 17. config 5 (the distributed layer), everything under build/chip_dist/.
+     (1) A world of one rank on NCCL (a FileStore): ShardedAligner on B = 4
+     problems of phase 4's log (frame i+1's 16,384 points against frame
+     i's, k-NN normals, point-to-plane at "highest", T0 the ground-truth
+     motion) within 1e-4 / 1e-5 of the port's CPU run of them (run in a
+     process of its own alongside), K1 launches = the loop's trips and K2 =
+     B x trips; Slam3D on phase 13's loop with dist.mesh_shape=(4,) (one
+     Schur block): phase 13's keyframes and kept closures, poses within
+     1e-5 m of phase 13's, keyframe poses within rtol 1e-7 / atol 1e-8
+     (the reference's Schur-vs-dense bound), and the Schur solve's wall
+     beside the dense solve's on the same graph; make_multi_sequence_runner
+     over S = 4 logs at phase 4's shape (seeds 0-3): each sequence
+     bit-equal to its own run_fused, ATE < 0.15 m each, frames/s (fenced);
+     one sequence at loop_backend="fused": one K5 launch a frame. (2) Two
+     gloo ranks sharing the card (dist.spawn, every step under
+     with_timeout): the sharded problems at sp = 2 within 1e-5 of (1)'s,
+     optimize_distributed over 2 blocks on phase 13's pose graph within
+     rtol 1e-7 / atol 1e-8 of the dense solve (chi2 rtol 1e-6), the runner
+     at dp = 2 bit-equal to (1)'s; two ranks on one card measure no
+     scaling. (3) `cli bench --config-id 1..5 --json` on the card: platform
+     "cuda", the card's name, rung 5 one row.
+ 18. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4 must make their four launches and no
      more). Last, because a process that has run the profiler keeps its
@@ -125,7 +146,7 @@ time of one call (CUDA events around 50 back-to-back calls behind a sleep
 kernel that keeps the card ahead of the host, divided by 50; 10 for K5);
 kernel_ms, the device time of the port's own CUDA kernels in one call,
 summed from a torch.profiler run over 20 back-to-back calls (10 for K5) in
-phase 17, and kernel_parts, the same by kernel; call_ms, one call timed
+phase 18, and kernel_parts, the same by kernel; call_ms, one call timed
 alone (device time plus the wrapper's host work); plain_ms, the plain
 version's time; bound_ms and bound_by, the least time the card could take
 (FP32 or bf16 operations over the published H100 peak, or bytes over 3.35
@@ -135,12 +156,14 @@ library_ms, null: no single PyTorch call computes any of these functions.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
 import io
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -197,14 +220,14 @@ def slice_config(**icp):
 
 
 def _scans(n_frames, n_rings, n_azimuth, path_fraction, voxel, capacity,
-           waypoints=None):
+           waypoints=None, seed=0):
     from tpu_icp_slam_torch import synthetic
     from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
     from tpu_icp_slam_torch.slam.runner import pad_scans
 
     scans, gt = synthetic.velodyne_log(
         n_frames=n_frames, n_rings=n_rings, n_azimuth=n_azimuth,
-        path_fraction=path_fraction, waypoints=waypoints)
+        path_fraction=path_fraction, waypoints=waypoints, seed=seed)
     scans = [voxel_downsample_np(s, voxel) for s in scans]
     pts, msk = pad_scans(scans, capacity)
     return pts, msk, gt
@@ -292,9 +315,10 @@ OWN_KERNELS = ("nn_split_kernel", "nn_fold_kernel", "gn_accum_kernel",
 def _kernel_ms(fn, n=20, names=OWN_KERNELS):
     """Device time per call of the kernels `names` (the port's own) in fn:
     a torch.profiler run over n back-to-back calls (after a warm-up), the
-    kernels' own time divided by n; (total, {kernel: ms}). A sleep kernel
-    opens the traced window: the tracer can miss the first kernels of a
-    window (seen on an H100), and then misses the sleep instead."""
+    kernels' own time divided by n; (total, {kernel: ms}). Sleep kernels
+    open the traced window: the tracer can miss the first kernels of a
+    window (seen on an H100; once, on a slow host, the sleep and the one
+    probe launch after it), and then misses a sleep instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -302,7 +326,8 @@ def _kernel_ms(fn, n=20, names=OWN_KERNELS):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(int(0.1 * _sleep_cycles_per_ms()))
+        for _ in range(2):
+            torch.cuda._sleep(int(0.5 * _sleep_cycles_per_ms()))
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -674,7 +699,7 @@ def phase_probe():
             "launches": launches, "launches_per_frame": None,
             "max_abs_err": 0.0, "ms": ms, "call_ms": ms, "plain_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "_profile": (lambda: coop_probe.capability_probe("cuda"), 1)}
+            "_profile": (lambda: coop_probe.capability_probe("cuda"), 3)}
 
 
 def phase_k3(pts, msk):
@@ -1703,6 +1728,278 @@ def phase_mapping_options(pts, msk, gt, slice_fps):
     assert c["K1"] == c["K2"] == iters > 0, (c, iters)
 
 
+# ---- config 5: the distributed layer ---------------------------------------
+
+DIST_DIR = os.path.join(ROOT, "build", "chip_dist")
+N_SEQ = 4
+STEP_TIMEOUT_S = 240.0  # a step of phase 17 that takes longer has hung
+
+
+def _sharded_problems(pts, msk, gt):
+    """Phase 17's sharded align: frame i+1 against frame i of phase 4's
+    log (i < 4), the targets' k-NN normals made on the card as the main
+    path makes them, T0 the ground-truth motion; (ICPConfig, arrays)."""
+    from tpu_icp_slam_torch.mapping.normals import normals_knn
+
+    cfg = slice_config()
+    p = cfg.pipeline
+    nrm = [normals_knn(torch.as_tensor(pts[i], device="cuda"),
+                       torch.as_tensor(msk[i], device="cuda"), k=p.normal_k,
+                       ref_stride=p.normal_ref_stride,
+                       approx=p.normal_approx,
+                       oversample=p.normal_oversample).cpu().numpy()
+           for i in range(4)]
+    T0 = np.stack([np.linalg.inv(gt[i]) @ gt[i + 1]
+                   for i in range(4)]).astype(np.float32)
+    return cfg.icp, (pts[1:5], msk[1:5], pts[:4], np.stack(nrm), T0)
+
+
+def _sharded_cpu(icp, arrays):
+    """The port's CPU run of the sharded problems (no world: one rank)."""
+    from tpu_icp_slam_torch.dist import ShardedAligner, make_mesh
+
+    res = ShardedAligner(make_mesh(1, device="cpu"), icp)(*arrays)
+    return res.T.numpy(), res.iters.numpy()
+
+
+def _graph_arrays(g):
+    return {f.name: getattr(g, f.name).cpu().numpy()
+            for f in dataclasses.fields(g)}
+
+
+def _graph(arrays, device):
+    from tpu_icp_slam_torch.backend import pose_graph as pg
+
+    return pg.PoseGraph(**{k: torch.as_tensor(v, device=device)
+                           for k, v in arrays.items()})
+
+
+def _round_ms(mesh, axis, n=50):
+    """Host ms of one all-reduce of the sharded align's (B, 45) float32
+    statistics on the card over `axis`: n rounds back to back, fenced."""
+    from tpu_icp_slam_torch.dist.mesh import all_reduce
+
+    x = torch.zeros(4, 45, device=mesh.device)
+    all_reduce(x, mesh, axis).cpu()  # the communicator's set-up
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x = all_reduce(x, mesh, axis)
+    x.cpu()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _rank_config5(rank, icp, backend_kw):
+    """Phase 17 (2): one of two gloo ranks sharing the card. Every step
+    runs under the watchdog; a hang raises WorkerFailure."""
+    from tpu_icp_slam_torch.backend import schur
+    from tpu_icp_slam_torch.dist import (
+        ShardedAligner, make_mesh, make_multi_sequence_runner, with_timeout,
+    )
+
+    dev = torch.device("cuda", 0)
+    a = np.load(os.path.join(DIST_DIR, "sharded.npz"))
+    arrays = tuple(a[k] for k in ("src", "msk", "dst", "nrm", "T0"))
+    mesh = make_mesh(2, axes=("dp", "sp"), shape=(1, 2), device=dev)
+    round_ms = with_timeout(lambda: _round_ms(mesh, "sp"), STEP_TIMEOUT_S)
+    T = with_timeout(lambda: ShardedAligner(mesh, icp)(*arrays).T.cpu()
+                     .numpy(), STEP_TIMEOUT_S)
+    g = _graph(dict(np.load(os.path.join(DIST_DIR, "graph13.npz"))), dev)
+    gmesh = make_mesh(2, axes=("graph",), device=dev)
+
+    def solve():
+        out, chis = schur.optimize_distributed(g, gmesh, **backend_kw)
+        return out.poses.cpu().numpy(), chis.cpu().numpy()
+
+    poses, chis = with_timeout(solve, STEP_TIMEOUT_S)
+    P = np.load(os.path.join(DIST_DIR, "seq_pts.npy"))
+    M = np.load(os.path.join(DIST_DIR, "seq_msk.npy"))
+    run = make_multi_sequence_runner(make_mesh(2, axes=("dp",), device=dev),
+                                     slice_config())
+    seq = with_timeout(lambda: run(P, M).cpu().numpy(), STEP_TIMEOUT_S)
+    return {"T": T, "graph_poses": poses, "chi2": chis, "seq": seq,
+            "round_ms": round_ms}
+
+
+def phase_config5(pts, msk, gt, full):
+    """Phase 17; `full` is phase 13's (config, points, masks, poses,
+    Slam3D)."""
+    import torch.distributed as tdist
+
+    from tpu_icp_slam_torch.backend import pose_graph as pg
+    from tpu_icp_slam_torch.backend import schur
+    from tpu_icp_slam_torch.dist import (
+        ShardedAligner, make_mesh, make_multi_sequence_runner,
+        multihost_init, with_timeout,
+    )
+    from tpu_icp_slam_torch.dist.spawn import spawn
+    from tpu_icp_slam_torch.kernels import nn_cuda
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+    from tpu_icp_slam_torch.slam.slam3d import Slam3D
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    icp, arrays = _sharded_problems(pts, msk, gt)
+    np.savez(os.path.join(DIST_DIR, "sharded.npz"),
+             **dict(zip(("src", "msk", "dst", "nrm", "T0"), arrays)))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=ctx) as pool:
+        cpu = pool.submit(_sharded_cpu, icp, arrays)  # alongside the card
+
+        # (1) a world of one rank on NCCL
+        multihost_init("file://" + os.path.join(DIST_DIR, "nccl_store"),
+                       world_size=1, rank=0, device="cuda")
+        assert tdist.get_backend() == "nccl"
+        mesh = make_mesh(1, axes=("dp", "sp"))
+        nccl_ms = with_timeout(lambda: _round_ms(mesh, "sp"), STEP_TIMEOUT_S)
+        aligner = ShardedAligner(mesh, icp)
+        with_timeout(lambda: aligner(*arrays).T.cpu(), STEP_TIMEOUT_S)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = with_timeout(lambda: aligner(*arrays), STEP_TIMEOUT_S)
+        T1 = res.T.cpu().numpy()
+        dt = time.perf_counter() - t0
+        c, batched = _counts(), nn_cuda.nn_bruteforce.batched_launches
+        iters = res.iters.cpu().numpy()
+        trips = int(iters.max())
+        print(f"[config 5] NCCL world of 1 | sharded align B=4 M=N="
+              f"{arrays[0].shape[1]}: iterations {iters.tolist()}, "
+              f"{dt:.4f} s | one NCCL all-reduce of the (4, 45) statistics "
+              f"{nccl_ms:.4f} ms | launches K1 {c['K1']} (batched {batched}) = "
+              f"trips {trips}; K2 {c['K2']} = B x trips = {4 * trips}")
+        assert c["K1"] == batched == trips > 0 and c["K2"] == 4 * trips, c
+        assert c["K3"] == c["K4"] == c["K5"] == 0, c
+
+        # (1) Schur: phase 13's loop with dist.mesh_shape=(4,)
+        cfg13, pts13, msk13, poses13, slam13 = full
+        cfg = dataclasses.replace(cfg13, dist=dataclasses.replace(
+            cfg13.dist, mesh_shape=(4,)))
+        slam = Slam3D(cfg, device="cuda")
+        t0 = time.perf_counter()
+        poses, rep = slam.run(pts13, msk13, mode="fused")
+        run_s = time.perf_counter() - t0
+        kept = [(lc.i, lc.j) for lc in slam.closures_kept]
+        gap = float(np.abs(poses[:, :3, 3] - poses13[:, :3, 3]).max())
+        assert slam.kf_frames == slam13.kf_frames
+        assert kept == [(lc.i, lc.j) for lc in slam13.closures_kept]
+        assert gap < 1e-5, gap
+        np.testing.assert_allclose(np.stack(slam.kf_poses_out),
+                                   np.stack(slam13.kf_poses_out),
+                                   rtol=1e-7, atol=1e-8)
+        g13 = slam13.pose_graph
+        np.savez(os.path.join(DIST_DIR, "graph13.npz"), **_graph_arrays(g13))
+        scans = [(pts, msk, gt)] + [
+            _scans(FRAMES, 48, 1024, FRAMES / 110.0, 0.15, SCAN_POINTS,
+                   seed=s) for s in range(1, N_SEQ)]
+        P = np.stack([x[0] for x in scans])
+        M = np.stack([x[1] for x in scans])
+        np.save(os.path.join(DIST_DIR, "seq_pts.npy"), P)
+        np.save(os.path.join(DIST_DIR, "seq_msk.npy"), M)
+        # untimed while the CPU run finishes: each sequence's own run, and
+        # one sequence at loop_backend="fused"
+        sl = slice_config()
+        pipe = ScanToMapPipeline(sl, device="cuda")
+        own = [pipe.run_fused(pipe.init_state(P[s, 0], M[s, 0]), P[s, 1:],
+                              M[s, 1:])[1]["pose"].cpu().numpy()
+               for s in range(N_SEQ)]
+        fused = make_multi_sequence_runner(make_mesh(1, axes=("dp",)),
+                                           slice_config(loop_backend="fused"))
+        _zero_counts()
+        fposes = fused(P[1:2], M[1:2]).cpu().numpy()
+        fc = _counts()
+        T_cpu, it_cpu = cpu.result(timeout=STEP_TIMEOUT_S)
+    err = float(np.abs(T1 - T_cpu).max())
+    print(f"[config 5] sharded align against the port's CPU run: largest "
+          f"|T - T_cpu| {err:.3e}, iterations {it_cpu.tolist()}")
+    np.testing.assert_allclose(T1, T_cpu, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(iters, it_cpu)
+
+    bk = dict(iters=cfg13.backend.pg_iters, damping=cfg13.backend.pg_damping,
+              huber_delta=cfg13.backend.huber_delta)
+    mesh1 = make_mesh(1, axes=("graph",))
+    walls = {}
+    for name, fn in (("schur", lambda: schur.optimize_distributed(
+            g13, mesh1, **bk)), ("dense", lambda: pg.optimize(g13, **bk))):
+        fn()[0].poses.cpu()
+        t0 = time.perf_counter()
+        fn()[0].poses.cpu()
+        walls[name] = time.perf_counter() - t0
+    print(f"[config 5] Slam3D with mesh_shape (4,), one Schur block: "
+          f"{len(pts13)} frames in {run_s:.3f} s | keyframes "
+          f"{rep.n_keyframes} kept closures {len(kept)} as phase 13 | "
+          f"largest position gap to phase 13 {gap:.3e} m | pose graph of "
+          f"{int(g13.pose_mask.sum())} keyframes, {bk['iters']} GN "
+          f"iterations: Schur {walls['schur']:.4f} s, dense "
+          f"{walls['dense']:.4f} s")
+
+    # (1) the multi-sequence runner, timed, against the sequences' own runs
+    run = make_multi_sequence_runner(make_mesh(1, axes=("dp",)), sl)
+    run(P[:1, :3], M[:1, :3])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = with_timeout(lambda: run(P, M).cpu().numpy(), STEP_TIMEOUT_S)
+    seq_s = time.perf_counter() - t0
+    ates = []
+    for s in range(N_SEQ):
+        np.testing.assert_array_equal(seq[s, 1:], own[s])
+        ates.append(_ate(seq[s].astype(np.float64), scans[s][2]))
+    n_fr = N_SEQ * (FRAMES - 1)
+    print(f"[config 5] multi-sequence S={N_SEQ} x {FRAMES} frames: "
+          f"{n_fr / seq_s:.3f} frames/s ({seq_s:.3f} s, fenced), each "
+          f"sequence bit-equal to its own run_fused, ATE "
+          f"{', '.join(f'{a:.5f}' for a in ates)} m")
+    assert max(ates) < 0.15, ates
+    fate = _ate(fposes[0].astype(np.float64), scans[1][2])
+    print(f"[config 5] one sequence at loop_backend=\"fused\": ATE "
+          f"{fate:.5f} m, launches {fc}")
+    assert fc["K5"] == FRAMES - 1 and fc["K1"] == fc["K2"] == 0, fc
+    assert fate < 0.15, fate
+
+    # (2) two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn(_rank_config5, 2, icp, bk,
+                  init_file=os.path.join(DIST_DIR, "gloo_store"),
+                  backend="gloo", timeout_s=2 * STEP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    dense, dchis = pg.optimize(g13, **bk)
+    dense = dense.poses.cpu().numpy()
+    for r, out in enumerate(ranks):
+        np.testing.assert_allclose(out["T"], T1, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(out["graph_poses"], dense, rtol=1e-7,
+                                   atol=1e-8)
+        np.testing.assert_allclose(out["chi2"], dchis.cpu().numpy(),
+                                   rtol=1e-6)
+        np.testing.assert_array_equal(out["seq"], seq)
+    rounds = ", ".join(f"{o['round_ms']:.4f}" for o in ranks)
+    print(f"[config 5] two gloo ranks sharing the card ({spawn_s:.2f} s "
+          f"with start-up): sharded align at sp=2 within "
+          f"{max(float(np.abs(o['T'] - T1).max()) for o in ranks):.3e} of "
+          f"the one-rank run; Schur over 2 blocks within "
+          f"{max(float(np.abs(o['graph_poses'] - dense).max()) for o in ranks):.3e}"
+          f" of the dense solve; the runner at dp=2 bit-equal | one gloo "
+          f"all-reduce of the (4, 45) statistics {rounds} ms (ranks 0, 1)."
+          f" Two ranks on one card measure no scaling.")
+
+    # (3) cli bench, rungs 1-5, on the card
+    name = torch.cuda.get_device_name(0)
+    for cid in range(1, 6):
+        rc, rep, dt = _cli(["bench", "--config-id", str(cid), "--frames",
+                            "10", "--json"])
+        assert rc == 0 and rep["platform"] == "cuda", rep
+        assert rep["device_name"] == name and rep["devices"] == 1, rep
+        if cid == 5:
+            assert [r["devices"] for r in rep["rows"]] == [1], rep
+            assert [r["devices"] for r in rep["schur_rows"]] == [1], rep
+            assert rep["comm_model"] == [], rep
+            what = (f"{rep['rows'][0]['aligns_per_s']} aligns/s, "
+                    f"{rep['schur_rows'][0]['gn_steps_per_s']} GN steps/s "
+                    f"(one row: one card)")
+        else:
+            what = f"{rep['metric']} {rep['value']} {rep['unit']}"
+        print(f"[cli bench] config {cid}: {what} | {dt:.2f} s")
+    tdist.destroy_process_group()
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -1766,6 +2063,9 @@ def main() -> int:
     _count(k2_rgbd_row, *phase_config3(log))
     phase_mapping_options(pts, msk, gt, slice_fps)
     print(f"[config 3] phase 16 in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_config5(pts, msk, gt, full)
+    print(f"[config 5] phase 17 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
             k1_2d_row, k1_2db_row, k2_rgbd_row]
     phase_profile(rows)

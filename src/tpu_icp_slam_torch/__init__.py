@@ -6,8 +6,11 @@ option), scan-to-scan odometry in 3D and 2D, config 2's 2D lidar SLAM
 (SE(2) ICP, occupancy grid, Slam2D), config 3's RGB-D projective
 odometry (RGBDOdometry, TUM RGB-D directories), full config-4 SLAM (loop
 closure, pose graph, checkpoint/resume, persistent maps and
-relocalization), both mapping options and the command line (`python -m tpu_icp_slam_torch.cli align|run|eval|localize`)
-in PyTorch, with the Pallas kernels rewritten as CUDA C++ kernels for
+relocalization), both mapping options, config 5's distributed layer (SPMD
+over torch.distributed ranks: the point-sharded ICP, the multi-sequence
+runner, the distributed Schur pose-graph solve) and the command line
+(`python -m tpu_icp_slam_torch.cli align|run|eval|localize|bench`) in
+PyTorch, with the Pallas kernels rewritten as CUDA C++ kernels for
 sm_90a (`csrc/`, built on first use by `kernels/_build.py`).
 
 Layers, mirroring the reference:
@@ -25,13 +28,19 @@ Layers, mirroring the reference:
   mapping/  — voxel map (sort and hash inserts), k-NN and depth-map
               normals, 2D occupancy grid
   backend/  — loop closure (scan context, candidates, batched
-              verification) and the float64 pose graph
+              verification), the float64 pose graph and its distributed
+              Schur solve
+  dist/     — meshes over torch.distributed ranks and their collectives,
+              the point-sharded ICP, the multi-sequence runner,
+              communication accounting, the failure watchdog, a local
+              launcher (spawn)
   slam/     — scan-to-map and scan-to-scan pipelines, RGB-D odometry,
               full 3D SLAM (Slam3D), 2D SLAM (Slam2D), checkpoints,
               persistent maps, the dataset runner
-  obs/      — wall timers, host-copy fences, torch.profiler traces, JSONL
-              metrics
-  cli       — align / run / eval / localize (`--device`, default cuda)
+  obs/      — wall timers, host-copy fences, torch.profiler traces and
+              spans, JSONL metrics, the benchmark harness (cli bench)
+  cli       — align / run / eval / localize / bench (`--device`, default
+              cuda)
   interop   — carry state (pipeline, loop detector store, pose graph)
               between the two packages as numpy
   config/, datasets/ (synthetic, kitti, carmen, tum), eval/ (metrics,

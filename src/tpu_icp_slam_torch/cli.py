@@ -16,7 +16,9 @@ own.
     python -m tpu_icp_slam_torch.cli eval --dataset <same> --frames F
         --config ...
 
-`bench` (obs/bench.py) is not ported yet and raises NotImplementedError.
+    python -m tpu_icp_slam_torch.cli bench --config-id 1..5 [--json]
+        (obs/bench.py; rung 5 scales over the ranks of a torchrun world on
+        distinct cards)
 """
 
 from __future__ import annotations
@@ -100,9 +102,9 @@ def cmd_run(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    raise NotImplementedError(
-        "cli bench (obs/bench.py, the frames/s harness) is not ported yet: "
-        "ROADMAP.md queue 1, item 8")
+    from tpu_icp_slam_torch.obs.bench import bench_from_cli
+
+    return bench_from_cli(args)
 
 
 def cmd_eval(args) -> int:
@@ -206,11 +208,11 @@ def build_parser() -> argparse.ArgumentParser:
     device_arg(l)
     l.set_defaults(fn=cmd_localize)
 
-    b = sub.add_parser("bench", help="frames/s benchmark harness (not "
-                       "ported yet)")
+    b = sub.add_parser("bench", help="frames/s benchmark harness")
     b.add_argument("--config-id", type=int, default=1, choices=[1, 2, 3, 4, 5])
     b.add_argument("--frames", type=int, default=50)
     b.add_argument("--json", action="store_true", help="one-line JSON output")
+    device_arg(b)
     b.set_defaults(fn=cmd_bench)
 
     e = sub.add_parser("eval", help="trajectory accuracy evaluation")

@@ -54,6 +54,40 @@ def make(points, capacity: Optional[int] = None, normals=None, *,
     return PointCloud(points=out, mask=mask, normals=nrm)
 
 
+def count(pc: PointCloud) -> torch.Tensor:
+    return torch.sum(pc.mask.to(torch.int32))
+
+
+def fill_invalid(pc: PointCloud) -> PointCloud:
+    """Force padded slots to the sentinel coordinate (idempotent)."""
+    pts = torch.where(pc.mask[:, None], pc.points,
+                      torch.full_like(pc.points, PAD_COORD))
+    return dataclasses.replace(pc, points=pts)
+
+
+def transform(T: torch.Tensor, pc: PointCloud) -> PointCloud:
+    """Apply a rigid transform; sentinel slots are re-pinned afterwards."""
+    d = pc.dim
+    R = T[..., :d, :d]
+    t = T[..., :d, d]
+    pts = pc.points @ R.T + t
+    pts = torch.where(pc.mask[:, None], pts, torch.full_like(pts, PAD_COORD))
+    normals = None
+    if pc.normals is not None:
+        normals = torch.where(pc.mask[:, None], pc.normals @ R.T,
+                              torch.zeros_like(pc.normals))
+    return PointCloud(points=pts, mask=pc.mask, normals=normals)
+
+
+def valid_points_np(pc: PointCloud) -> np.ndarray:
+    """Host-side: extract only the valid points as a NumPy array."""
+    return pc.points.cpu().numpy()[pc.mask.cpu().numpy()]
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
 def voxel_downsample_np(points: np.ndarray, voxel: float) -> np.ndarray:
     """Host-side voxel-grid downsample: first point per voxel, in scan order.
 

@@ -150,9 +150,25 @@ def translation(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3, 3]
 
 
+def identity(dtype=torch.float32, batch: tuple = (),
+             device: torch.device | str = "cuda") -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device).expand(*batch, 4, 4)
+
+
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
 def inverse(T: torch.Tensor) -> torch.Tensor:
     Rt = rotation(T).transpose(-1, -2)
     return from_rt(Rt, -torch.einsum("...ij,...j->...i", Rt, translation(T)))
+
+
+def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
+    R = rotation(T)
+    t = translation(T)
+    return torch.einsum("...ij,...nj->...ni", R, pts) + t[..., None, :]
 
 
 def rotation_geodesic(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,13 @@
 The port's own copy of `two_scan_pair` (config 1's pair, what `cli align`
 aligns), `lidar2d_log` and `scan_to_points` (the simulated 2D lidar world of
 config 2), `velodyne_log` (Velodyne-like 3D logs) and `Intrinsics`,
-`depth_scene` and `rgbd_log` (the synthetic depth camera of config 3) from
-tpu_icp_slam/datasets/synthetic.py and the helpers they call, line for
-line: the same seed gives the same clouds, scans, depth images and ground
-truth in both packages.
+`depth_scene` and `rgbd_log` (the synthetic depth camera of config 3), and
+the adversarial 2D scenes of the reference's tests
+(`aliased_world_segments`, `aliased_racetrack_segments`,
+`racetrack_waypoints`, `crossing_pedestrian`), copied with the helpers they
+call from tpu_icp_slam/datasets/synthetic.py, line for line: the same seed
+gives the same clouds, scans, depth images and ground truth in both
+packages.
 """
 
 from __future__ import annotations
@@ -272,6 +275,132 @@ def lidar2d_log(
         segs, waypoints, n_frames=n_frames, n_beams=n_beams, seed=seed,
         max_range=max_range, noise=noise,
     )
+
+
+def aliased_world_segments(
+    n_bays: int = 6, bay_len: float = 8.0, corridor_half_w: float = 2.0
+) -> np.ndarray:
+    """Perceptually ALIASED world: a corridor of structurally IDENTICAL bays.
+
+    Every bay repeats the same door frames, pillars and furniture with zero
+    variation, so scan-context descriptors at bay k and bay k+j are nearly
+    identical — the classic false-loop trap (warehouse aisles, hotel
+    corridors). Built for must-REJECT closure tests: any closure between
+    different bays on a non-revisiting route is a false positive.
+    """
+    L = n_bays * bay_len
+    x0, x1 = -L / 2, L / 2
+    walls = [
+        (x0, -corridor_half_w - 4, x1, -corridor_half_w - 4),
+        (x1, -corridor_half_w - 4, x1, corridor_half_w + 4),
+        (x1, corridor_half_w + 4, x0, corridor_half_w + 4),
+        (x0, corridor_half_w + 4, x0, -corridor_half_w - 4),
+    ]
+    for side in (-1.0, 1.0):
+        _aliased_bays(walls, x0, n_bays, bay_len,
+                      wall_y=side * corridor_half_w, side=side)
+    return np.asarray(walls, dtype=np.float64)
+
+
+def _aliased_bays(walls: list, x0: float, n_bays: float, bay_len: float,
+                  wall_y: float, side: float) -> None:
+    """Append one corridor wall at y=wall_y with identical bays opening to
+    `side` (+1 above / −1 below): door gaps, door-frame pillars, furniture
+    box, and bay dividers — the repeated structure that makes descriptors
+    alias."""
+    for b in range(int(n_bays)):
+        bx = x0 + b * bay_len
+        walls += [
+            (bx, wall_y, bx + bay_len * 0.35, wall_y),
+            (bx + bay_len * 0.65, wall_y, bx + bay_len, wall_y),
+        ]
+        for px in (bx + bay_len * 0.35, bx + bay_len * 0.65):
+            walls += [
+                (px, wall_y, px, wall_y + side * 0.3),
+                (px, wall_y + side * 0.3, px + 0.2, wall_y + side * 0.3),
+                (px + 0.2, wall_y + side * 0.3, px + 0.2, wall_y),
+            ]
+        fy0 = wall_y + side * 1.5
+        fy1 = wall_y + side * 2.5
+        fx0, fx1 = bx + bay_len * 0.42, bx + bay_len * 0.58
+        walls += [
+            (fx0, fy0, fx1, fy0), (fx1, fy0, fx1, fy1),
+            (fx1, fy1, fx0, fy1), (fx0, fy1, fx0, fy0),
+        ]
+        walls += [(bx, wall_y, bx, wall_y + side * 4)]
+
+
+def aliased_racetrack_segments(
+    n_bays: int = 5, bay_len: float = 8.0
+) -> np.ndarray:
+    """Loopable ALIASED world: two identical-bay corridors joined into a ring.
+
+    The out-and-back corridor (aliased_world_segments) cannot be soaked —
+    the 2D log generator derives heading from the path gradient, which flips
+    instantaneously at a reversal, so any U-turn breaks tracking by
+    construction. The racetrack keeps every turn at 90° (trackable) while
+    maximizing aliasing pressure: the bottom corridor's bays repeat along x
+    AND are duplicated exactly in the top corridor, so descriptor matches
+    exist both along-corridor (false), cross-corridor (false), and
+    same-bay-next-lap (true).
+
+    Geometry: outer rectangle (±(L/2+2+4), −6..18 with L = n_bays·bay_len
+    at default), inner island (±(L/2−2), 2..10), bays hanging off the
+    bottom (y=−2, opening down) and top (y=14, opening up) corridor walls.
+    Drive the centerline ring: (−L/2,0)→(L/2,0)→(L/2,12)→(−L/2,12)→loop.
+    """
+    L = n_bays * bay_len
+    xo = L / 2 + 4  # outer x
+    walls = [
+        # outer boundary
+        (-xo, -6, xo, -6), (xo, -6, xo, 18), (xo, 18, -xo, 18),
+        (-xo, 18, -xo, -6),
+        # inner island
+        (-(L / 2 - 2), 2, (L / 2 - 2), 2),
+        ((L / 2 - 2), 2, (L / 2 - 2), 10),
+        ((L / 2 - 2), 10, -(L / 2 - 2), 10),
+        (-(L / 2 - 2), 10, -(L / 2 - 2), 2),
+    ]
+    _aliased_bays(walls, -L / 2, n_bays, bay_len, wall_y=-2.0, side=-1.0)
+    _aliased_bays(walls, -L / 2, n_bays, bay_len, wall_y=14.0, side=1.0)
+    return np.asarray(walls, dtype=np.float64)
+
+
+def racetrack_waypoints(n_laps: int, half_len: float = 20.0) -> np.ndarray:
+    """Centerline ring waypoints for aliased_racetrack_segments, n_laps."""
+    lap = [(-half_len, 0.0), (half_len, 0.0), (half_len, 12.0),
+           (-half_len, 12.0)]
+    wp = []
+    for _ in range(n_laps):
+        wp.extend(lap)
+    wp.append(lap[0])
+    return np.asarray(wp)
+
+
+def crossing_pedestrian(
+    n_frames: int,
+    y0: float = -1.5,
+    y1: float = 1.5,
+    x: float = 0.0,
+    size: float = 0.4,
+):
+    """dynamic_fn factory: a box crossing the corridor over the whole log."""
+
+    def fn(f):
+        t = f / max(n_frames - 1, 1)
+        cy = y0 + (y1 - y0) * t
+        h = size / 2
+        return np.asarray(
+            [
+                (x - h, cy - h, x + h, cy - h),
+                (x + h, cy - h, x + h, cy + h),
+                (x + h, cy + h, x - h, cy + h),
+                (x - h, cy + h, x - h, cy - h),
+            ],
+            np.float64,
+        )
+
+    return fn
 
 
 def scan_to_points(ranges: np.ndarray, angles: np.ndarray, max_range: float):

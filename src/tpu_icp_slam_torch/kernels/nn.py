@@ -22,7 +22,9 @@ not depend on tiles. Points are 3-D or 2-D. K1 searches 2-D points as they
 are; K3 and K4 take 3-D operands, so a 2-D search at "bf16" or "rescore"
 gets a zero z column, as the reference's kernel pads its lanes with zeros.
 Batched clouds, src (B, M, D) and dst (B/G, N, D), run K1's batched form at
-"highest" (any backend); bf16 and rescore have no batched caller and raise.
+"highest" (any backend); at "bf16" and "rescore" K3/K4 run unbatched once a
+row (the sharded align's local rows), which is what the reference's vmap of
+the same kernel computes.
 """
 
 from __future__ import annotations
@@ -54,9 +56,14 @@ def nearest_neighbor(src: torch.Tensor, dst: torch.Tensor,
     if backend == "auto":
         backend = "pallas" if on_cuda else "xla"
     if src.dim() == 3 and precision != "highest" and backend == "pallas":
-        raise NotImplementedError(
-            f"nn_precision={precision!r} has no batched form: only the exact "
-            "search (K1) is batched")
+        # the reference vmaps the same pallas_call over the rows: one
+        # unbatched K3/K4 call a row, row b against target b // G
+        group = src.shape[0] // dst.shape[0]
+        rows = [nearest_neighbor(s, dst[b // group], backend, chunk,
+                                 tile_n=tile_n, precision=precision)
+                for b, s in enumerate(src)]
+        return (torch.stack([r[0] for r in rows]),
+                torch.stack([r[1] for r in rows]))
     if backend == "pallas":
         if precision != "highest" and src.shape[-1] == 2:
             src, dst = (torch.nn.functional.pad(x, (0, 1)) for x in (src, dst))

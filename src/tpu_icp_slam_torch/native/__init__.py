@@ -74,6 +74,11 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_double), ctypes.c_long, ctypes.c_int,
             ctypes.c_double, ctypes.POINTER(ctypes.c_long),
         ]
+        lib.polar_to_cartesian_f64.restype = ctypes.c_long
+        lib.polar_to_cartesian_f64.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+            ctypes.c_long, ctypes.c_double, ctypes.POINTER(ctypes.c_double),
+        ]
         _lib = lib
         return _lib
 
@@ -100,3 +105,23 @@ def voxel_downsample(points: np.ndarray, voxel: float) -> Optional[np.ndarray]:
     if kept < 0:
         return None
     return points[out[:kept]]
+
+
+def polar_to_cartesian(ranges: np.ndarray, angles: np.ndarray,
+                       max_range: float) -> Optional[np.ndarray]:
+    """Hits (range < 0.999 max_range) of a polar scan as (K, 2) float64
+    points, by the C pass. None if the library is absent."""
+    lib = _load()
+    if lib is None:
+        return None
+    r = np.ascontiguousarray(ranges, dtype=np.float64)
+    a = np.ascontiguousarray(angles, dtype=np.float64)
+    out = np.empty((len(r), 2), dtype=np.float64)
+    k = lib.polar_to_cartesian_f64(
+        r.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        a.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ctypes.c_long(len(r)),
+        ctypes.c_double(float(max_range)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return out[:k]

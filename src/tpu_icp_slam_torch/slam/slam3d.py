@@ -9,9 +9,11 @@ After optimization every frame pose is corrected rigidly relative to its
 anchor keyframe. Host code only orchestrates, once per keyframe.
 
 A run can checkpoint its whole state (front end, keyframe database,
-closures, strain flags; slam/checkpoint.py) and resume from it. Not ported
-here, and refused with NotImplementedError: the distributed Schur solve
-(prod(cfg.dist.mesh_shape) > 1).
+closures, strain flags; slam/checkpoint.py) and resume from it. With
+prod(cfg.dist.mesh_shape) > 1 the pose graph is solved by the distributed
+Schur complement (backend/schur.py) over min(prod(mesh_shape), world size)
+keyframe blocks, one a rank, as the reference takes min(n_blocks,
+devices): one block in a single-process run.
 """
 
 from __future__ import annotations
@@ -55,8 +57,9 @@ class Slam3D:
     trajectory. After a run, `backend_s` is the wall time of the
     per-keyframe backend work (descriptors and loop verification),
     `frontend_poses` the front end's own poses (F, 4, 4), before the pose
-    graph's correction, and `frontend_iters` its ICP iterations per frame
-    (F - 1,)."""
+    graph's correction, `frontend_iters` its ICP iterations per frame
+    (F - 1,), and `pose_graph` the graph the backend optimized (None when
+    no closure was kept)."""
 
     def __init__(self, cfg: SlamConfig, progress: bool = False,
                  device: torch.device | str = "cuda"):
@@ -84,10 +87,6 @@ class Slam3D:
         chunk); resume restarts from checkpoint_path when it exists.
         """
         cfg = self.cfg
-        if cfg.backend.enabled and math.prod(cfg.dist.mesh_shape) > 1:
-            raise NotImplementedError(
-                "the distributed Schur pose-graph solve (dist.mesh_shape "
-                "with more than one block) is not ported yet")
         if mode not in ("fused", "streaming"):
             raise ValueError(f"unknown mode: {mode}")
         if checkpoint_every or resume:
@@ -96,6 +95,7 @@ class Slam3D:
         closures: list[LoopClosure] = []
         n_cands = 0
         self.closures_kept: list = []
+        self.pose_graph = None
         self.closure_scores = np.zeros(0)
         self.closure_suspect = np.zeros(0, bool)
         ck = None
@@ -282,9 +282,27 @@ class Slam3D:
              "suspect": bool(suspect[k])}
             for k, lc in enumerate(closures)]
         report.n_suspect_closures = int(suspect.sum())
-        graph_opt, chis = pg.optimize(
-            graph, iters=cfg.backend.pg_iters, damping=cfg.backend.pg_damping,
-            huber_delta=cfg.backend.huber_delta)
+        self.pose_graph = graph
+        n_blocks = math.prod(cfg.dist.mesh_shape)
+        if n_blocks > 1:
+            # config-5 path: keyframe blocks partitioned over the ranks,
+            # Schur-reduced separator system (backend/schur.py)
+            from tpu_icp_slam_torch.backend import schur
+            from tpu_icp_slam_torch.dist.mesh import local_mesh, make_mesh, world
+
+            mesh = make_mesh(min(n_blocks, world()[1]), axes=("graph",),
+                             device=dev)
+            if mesh.coords is None:  # a rank beyond the blocks solves alone
+                mesh = local_mesh(("graph",), dev)
+            graph_opt, chis = schur.optimize_distributed(
+                graph, mesh, iters=cfg.backend.pg_iters,
+                damping=cfg.backend.pg_damping,
+                huber_delta=cfg.backend.huber_delta)
+        else:
+            graph_opt, chis = pg.optimize(
+                graph, iters=cfg.backend.pg_iters,
+                damping=cfg.backend.pg_damping,
+                huber_delta=cfg.backend.huber_delta)
         kf_opt = graph_opt.poses.cpu().numpy()[: len(kf_poses)]
         self.kf_poses_out = [kf_opt[i] for i in range(len(kf_poses))]
         report.chi2 = [float(c) for c in chis.cpu().numpy()]

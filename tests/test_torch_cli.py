@@ -1,7 +1,7 @@
 """The port's command line (tpu_icp_slam_torch.cli) on the CPU
 (`--device cpu`): run --save-map then localize (mirrors
 tests/test_cli_localize.py), align, eval against the reference's eval, the
-checkpoint/resume flags, the refused bench verb and the default device.
+checkpoint/resume flags, the bench verb and the default device.
 
 Tolerances: localize within 3.0 m of ground truth (the reference's bound);
 align recovers the transform to 1e-3 (config 1's criterion); eval's golden
@@ -121,9 +121,17 @@ def test_run_checkpoint_then_resume(tmp_path, capsys):
     assert "resume" in (tmp_path / "b" / "metrics.jsonl").read_text()
 
 
-def test_bench_is_refused_and_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        cli.main(["bench"])
+def test_bench_is_refused_and_names_its_roadmap_item(capsys):
+    """`cli bench` is ported (obs/bench.py): it runs on the CPU with
+    --device cpu and prints the reference's rung (here 3, RGB-D frames/s)
+    with the platform and the port's name; tests/test_torch_obs.py holds
+    every rung's keys to the reference's."""
+    assert cli.main(["bench", "--device", "cpu", "--config-id", "3",
+                     "--frames", "3", "--json"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["metric"] == "rgbd_frames_per_s" and rep["value"] > 0
+    assert rep["frames"] == 3 and rep["platform"] == "cpu"
+    assert rep["impl"] == "torch"
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),
@@ -133,6 +141,7 @@ def test_bench_is_refused_and_names_its_roadmap_item():
     ["run", "--dataset", "sim3d", "--frames", "2"],
     ["eval", "--dataset", "sim3d", "--frames", "2"],
     ["localize", "--map", "none.npz"],
+    ["bench", "--config-id", "1"],
 ])
 def test_default_device_raises_without_a_card(verb):
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -267,9 +267,13 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
         nn_bf16.nn_bf16(a, a.cpu())
     with pytest.raises(ValueError):
         nn_bf16.nn_bf16(a.t().contiguous().t(), a)
-    with pytest.raises(NotImplementedError):  # no batched K4
-        nearest_neighbor(a[None], a[None], backend="pallas",
-                         precision="rescore")
+    # batched K4: one unbatched launch a row, as the reference's vmap
+    before = nn_rescore.nn_rescore.launches
+    idx, d2 = nearest_neighbor(a[None], a[None], backend="pallas",
+                               precision="rescore")
+    one = nn_rescore.nn_rescore(a, a)
+    assert torch.equal(idx[0], one[0]) and torch.equal(d2[0], one[1])
+    assert nn_rescore.nn_rescore.launches == before + 2
     with pytest.raises(ValueError):
         nn_rescore.nn_rescore(a, a.cpu())
     with pytest.raises(ValueError):
@@ -526,8 +530,17 @@ def test_batched_wrappers_raise_and_count(cuda_device):
         nn_cuda.nn_bruteforce(a, a[:2].cpu())
     with pytest.raises(ValueError):
         nn_cuda.nn_bruteforce(a.transpose(0, 1), a[:1])
-    with pytest.raises(NotImplementedError):
-        nearest_neighbor(a, a[:2], backend="pallas", precision="bf16")
+    # batched K3: one unbatched launch a row against target b // G, each
+    # equal to its own call
+    rng = torch.Generator(device="cpu").manual_seed(0)
+    s = torch.rand(4, 64, 3, generator=rng).to(cuda_device)
+    t = torch.rand(2, 80, 3, generator=rng).to(cuda_device)
+    n0 = nn_bf16.nn_bf16.launches
+    idx, d2 = nearest_neighbor(s, t, backend="pallas", precision="bf16")
+    assert nn_bf16.nn_bf16.launches == n0 + 4
+    for b in range(4):
+        one = nn_bf16.nn_bf16(s[b], t[b // 2])
+        assert torch.equal(idx[b], one[0]) and torch.equal(d2[b], one[1])
     before = (nn_cuda.nn_bruteforce.launches,
               nn_cuda.nn_bruteforce.batched_launches,
               nn_rescore.nn_rescore.launches)
@@ -1389,3 +1402,120 @@ def test_insert_hash_on_cuda_matches_cpu(cuda_device):
                 assert torch.equal(getattr(maps["cpu"], f),
                                    getattr(maps[str(cuda_device)], f).cpu()), f
         assert int(voxel_map.count(maps["cpu"])) == 4096
+
+
+# ---- config 5: the distributed layer on the card ----------------------------
+
+
+def _plane_cases(b=2, m=2048, seed=5):
+    """B point-to-plane problems (float32, normals of a plane-rich cloud)
+    for the sharded align, with the ICP config the card runs them at."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.mapping.normals import normals_knn
+
+    rng = np.random.default_rng(seed)
+    src_b, dst_b, nrm_b = [], [], []
+    for _ in range(b):
+        src = synthetic.surface_cloud(m, rng).astype(np.float32)
+        T = synthetic.rigid_transform(3, rng, rot_scale=0.05,
+                                      trans_scale=0.1)
+        dst = (src @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        d = torch.as_tensor(dst)
+        nrm_b.append(normals_knn(d, torch.ones(m, dtype=torch.bool),
+                                 k=12).numpy())
+        src_b.append(src)
+        dst_b.append(dst)
+    cfg = ICPConfig(method="point_to_plane", max_iters=10, damping=1e-6)
+    return cfg, (np.stack(src_b), np.ones((b, m), bool), np.stack(dst_b),
+                 np.stack(nrm_b))
+
+
+def _cpu_align(cfg, arrays):
+    from tpu_icp_slam_torch.dist import ShardedAligner, make_mesh
+
+    res = ShardedAligner(make_mesh(1, device="cpu"), cfg)(*arrays)
+    return res.T.numpy(), res.iters.numpy()
+
+
+@pytest.mark.parametrize("world,shape,backend", [
+    (1, (1, 1), "nccl"),  # one rank, the collectives through NCCL
+    (2, (1, 2), "gloo"),  # two ranks sharing the card: gloo, sp = 2
+])
+def test_sharded_align_on_card_matches_cpu(cuda_device, tmp_path, world,
+                                           shape, backend):
+    """The sharded align on the card (K1 batched, K2 once a row) against
+    the port on the CPU (the plain versions), rtol 1e-4 / atol 1e-5."""
+    import _torch_dist_workers as workers
+    from tpu_icp_slam_torch.dist.spawn import spawn
+
+    cfg, arrays = _plane_cases()
+    out = spawn(workers.align_cases, world, [(cfg, *arrays)], shape, "cuda",
+                init_file=str(tmp_path / "store"), backend=backend,
+                timeout_s=300)
+    T_cpu, it_cpu = _cpu_align(cfg, arrays)
+    for rank_out in out:
+        np.testing.assert_allclose(rank_out[0]["T"], T_cpu, rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(rank_out[0]["iters"], it_cpu)
+
+
+def test_multi_sequence_on_card_bit_equal(cuda_device):
+    """One rank, no world: the runner's sequences equal their own run_fused
+    on the card bit for bit."""
+    from tpu_icp_slam_torch.dist import make_mesh, make_multi_sequence_runner
+
+    pipe, log, log_msk, _ = _small_scan_to_map(cuda_device)
+    pts = np.stack([log, log[::-1].copy()])  # out, and the way back
+    msk = np.stack([log_msk, log_msk[::-1].copy()])
+    run = make_multi_sequence_runner(make_mesh(1, axes=("dp",)), pipe.cfg)
+    got = run(pts, msk).cpu().numpy()
+    for s in range(2):
+        _, infos = pipe.run_fused(pipe.init_state(pts[s, 0], msk[s, 0]),
+                                  pts[s, 1:], msk[s, 1:])
+        np.testing.assert_array_equal(got[s, 1:], infos["pose"].cpu().numpy())
+        np.testing.assert_array_equal(got[s, 0], np.eye(4))
+
+
+def test_schur_float64_on_card(cuda_device):
+    """optimize_distributed in float64 on the card (one block, no world)
+    against the dense solve on the card and the Schur solve on the CPU."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.backend import pose_graph as pg
+    from tpu_icp_slam_torch.backend import schur
+    from tpu_icp_slam_torch.dist import make_mesh
+
+    rng = np.random.default_rng(0)
+    chain, factors = [np.eye(4)], []
+    for i in range(1, 24):
+        rel = synthetic.rigid_transform(3, rng, rot_scale=0.1,
+                                        trans_scale=1.0)
+        chain.append(chain[-1] @ rel)
+        factors.append((i - 1, i, rel, 1.0))
+    factors.append((0, 23, synthetic.rigid_transform(3, rng) @ chain[-1],
+                    2.0))
+    def graph(dev):
+        return pg.from_arrays(np.stack(chain), factors, dtype=torch.float64,
+                              device=dev)
+
+    def solve(dev):
+        return schur.optimize_distributed(
+            graph(dev), make_mesh(1, axes=("graph",), device=dev), iters=4)
+
+    got = solve(cuda_device)
+    assert got[0].poses.device.type == cuda_device.type
+    for ref in (pg.optimize(graph(cuda_device), iters=4), solve("cpu")):
+        np.testing.assert_allclose(got[0].poses.cpu().numpy(),
+                                   ref[0].poses.cpu().numpy(), rtol=1e-7,
+                                   atol=1e-8)
+        np.testing.assert_allclose(got[1].cpu().numpy(),
+                                   ref[1].cpu().numpy(), rtol=1e-6)
+
+
+def test_cli_bench_on_card(cuda_device, capsys):
+    from tpu_icp_slam_torch import cli
+
+    assert cli.main(["bench", "--config-id", "1", "--json"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["platform"] == "cuda" and rep["devices"] == 1
+    assert rep["device_name"] == torch.cuda.get_device_name(0)
+    assert rep["value"] > 0 and rep["impl"] == "torch"

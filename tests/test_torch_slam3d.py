@@ -101,12 +101,30 @@ def test_slam3d_matches_reference(reference, mode, chunk):
     assert slam.backend_s > 0.0 and slam.detector.verify_iters > 0
 
 
+@pytest.fixture(scope="module")
+def dense_and_schur():
+    """The out-and-back log's fused run with the dense pose graph and with
+    dist.mesh_shape=(2,) in a world of one rank (one Schur block)."""
+    pts, msk = _out_and_back()
+    runs = []
+    for shape in ((1,), (2,)):
+        cfg = dataclasses.replace(_slam_cfg(),
+                                  dist=DistConfig(mesh_shape=shape))
+        slam = Slam3D(cfg, device="cpu")
+        runs.append((slam, *slam.run(pts, msk)))
+    return runs
+
+
 @pytest.mark.parametrize("kw", [{"checkpoint_path": "ck.npz"},
                                 {"checkpoint_every": 3}, {"resume": True}])
-def test_slam3d_unported_options_raise(kw, tmp_path):
-    """The checkpoint options are ported (tests/test_torch_checkpoint.py):
-    alone, without a record to write or read, they change nothing. The
-    distributed Schur solve is still refused."""
+def test_slam3d_unported_options_raise(kw, tmp_path, dense_and_schur):
+    """Every option is ported now. The checkpoint options
+    (tests/test_torch_checkpoint.py), alone, without a record to write or
+    read, change nothing. dist.mesh_shape=(2,), once refused, takes the
+    Schur branch over min(2, world size) = 1 block here: the same keyframes
+    and kept closures as the dense solve, poses and chi2 within the
+    reference's own Schur-vs-dense bound (rtol 1e-7 / atol 1e-8, chi2 rtol
+    1e-6, tests/test_schur.py:49-54)."""
     pts, msk = _out_and_back()
     kw = {k: str(tmp_path / v) if k == "checkpoint_path" else v
           for k, v in kw.items()}
@@ -115,9 +133,13 @@ def test_slam3d_unported_options_raise(kw, tmp_path):
     plain, _ = Slam3D(_slam_cfg(), device="cpu").run(pts[:3], msk[:3])
     np.testing.assert_array_equal(poses, plain)
     assert rep.n_frames == 3 and not os.listdir(tmp_path)
-    cfg = dataclasses.replace(_slam_cfg(), dist=DistConfig(mesh_shape=(2,)))
-    with pytest.raises(NotImplementedError):  # the distributed Schur solve
-        Slam3D(cfg, device="cpu").run(pts[:2], msk[:2])
+    (dense, d_poses, d_rep), (schur, s_poses, s_rep) = dense_and_schur
+    assert d_rep.n_loop_closures >= 1 and len(dense.closures_kept) >= 1
+    assert schur.kf_frames == dense.kf_frames
+    assert [(c.i, c.j) for c in schur.closures_kept] == \
+        [(c.i, c.j) for c in dense.closures_kept]
+    np.testing.assert_allclose(s_poses, d_poses, rtol=1e-7, atol=1e-8)
+    np.testing.assert_allclose(s_rep.chi2, d_rep.chi2, rtol=1e-6)
 
 
 def test_slice_at_rescore_matches_reference():

@@ -189,7 +189,8 @@ def test_port_imports_without_jax():
     through from_json, velodyne_log, ATE, a 3-frame scan-to-map run, `cli
     align`, a 3-frame `cli run`, a 3-frame 2D `cli run` (sim2d, its
     occupancy grid and map.png), a 3-frame RGB-D `cli run` (simrgbd with
-    configs/rgbd.json) and a TUM directory written and read back, on the
+    configs/rgbd.json), a TUM directory written and read back, a one-rank
+    ShardedAligner (dist/, no world) and `cli bench --config-id 1`, on the
     CPU."""
     code = (
         "import importlib, sys\n"
@@ -260,6 +261,17 @@ def test_port_imports_without_jax():
         "seq = tum.load_sequence(out + '/tum')\n"
         "img = np.clip(d * 5000.0, 0, 65535).astype(np.uint16)\n"
         "assert np.array_equal(seq.depths, img / 5000.0)\n"
+        "from tpu_icp_slam_torch.dist import ShardedAligner, make_mesh\n"
+        "from tpu_icp_slam_torch.config import ICPConfig\n"
+        "res = ShardedAligner(make_mesh(1, device='cpu'), ICPConfig(\n"
+        "    method='point_to_point', max_iters=5))(pts[1:2], msk[1:2],\n"
+        "                                           pts[:1])\n"
+        "assert res.T.shape == (1, 4, 4) and int(res.iters[0]) >= 1\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    assert cli.main(['bench', '--device', 'cpu', '--config-id',\n"
+        "                     '1', '--json']) == 0\n"
+        "assert json.loads(buf.getvalue())['impl'] == 'torch'\n"
         "assert not [k for k, v in sys.modules.items() if v is not None\n"
         "            and k.split('.')[0] in ('jax', 'tpu_icp_slam', 'cv2')]\n"
         "print('imported', len(sys.modules), 'ate', ate)\n"
