@@ -6,6 +6,7 @@ builds of the kernels K1, K3, K4 and K5.
     python3 chip_ab.py --old-csrc DIR
     python3 chip_ab.py --profiler-effect
     python3 chip_ab.py --sass
+    python3 chip_ab.py --trip-ab OLD_ROOT
 
 With --sass, the kernels are built anew with ptxas's register, shared-memory
 and spill report, the library is disassembled with cuobjdump, and for the
@@ -69,6 +70,17 @@ warmed up once; then:
   K5       one align of chip_smoke's phase-8 problem at a fixed 1, 4 and 8
            iterations (tol and tol_update off), per precision, device time
            per align (chip_smoke._device_ms).
+
+With --trip-ab OLD_ROOT, the sharded align of chip_smoke's phase 17 (B = 4
+of phase 4's frame pairs, 16,384 points each, point-to-plane, T0 the
+ground-truth motion) runs on one card without a process group (every
+collective the identity) at nn_precision "highest", "bf16" and "rescore",
+in four processes taking the package from OLD_ROOT/src, this tree's src,
+this tree's again and OLD_ROOT's again (each builds its own kernels).
+Each prints its ms a trip (host clock, fenced by the result's copy to the
+host) over --rounds runs after a warm-up, and the kernel launches a trip
+from the package's counters. OLD_ROOT is a checkout of an earlier commit,
+e.g. `git archive <commit> | tar -x -C build/old_tree`.
 
 Prints one line per measurement and, last, {"done": true}. Exits nonzero
 without CUDA.
@@ -557,6 +569,68 @@ def sass_report():
     return out
 
 
+def trip_worker(src_dir, rounds):
+    """One process of --trip-ab: the package from src_dir; prints one JSON
+    line {"src", "trips", "trip_ms": {precision: [ms a trip, ...]},
+    "launches_per_trip": {precision: {kernel: n}}}."""
+    sys.path.insert(0, str(Path(src_dir).resolve()))
+    import dataclasses
+
+    import tpu_icp_slam_torch
+    from tpu_icp_slam_torch.dist import ShardedAligner, make_mesh
+    from tpu_icp_slam_torch.kernels import _build
+
+    assert Path(tpu_icp_slam_torch.__file__).resolve().is_relative_to(
+        Path(src_dir).resolve()), tpu_icp_slam_torch.__file__
+    _build.build()
+    pts, msk, gt = chip_smoke._scans(
+        chip_smoke.FRAMES, 48, 1024, chip_smoke.FRAMES / 110.0, 0.15,
+        chip_smoke.SCAN_POINTS)
+    icp, arrays = chip_smoke._sharded_problems(pts, msk, gt)
+    mesh = make_mesh(1, axes=("dp", "sp"), device="cuda")
+    out = {"src": str(src_dir), "trips": {}, "trip_ms": {},
+           "launches_per_trip": {}}
+    for prec in ("highest", "bf16", "rescore"):
+        aligner = ShardedAligner(mesh, dataclasses.replace(
+            icp, nn_precision=prec))
+        trips = int(aligner(*arrays).iters.max())  # warm-up
+        chip_smoke._zero_counts()
+        times = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aligner(*arrays).T.cpu()
+            times.append((time.perf_counter() - t0) * 1e3 / trips)
+        out["trips"][prec] = trips
+        out["trip_ms"][prec] = times
+        out["launches_per_trip"][prec] = {
+            k: n / (rounds * trips) for k, n in chip_smoke._counts().items()}
+    print(json.dumps(out))
+
+
+def trip_ab(old_root, rounds):
+    """--trip-ab: old, new, new, old, each in a process of its own."""
+    trees = [Path(old_root) / "src", Path(chip_smoke.ROOT) / "src"]
+    results = []
+    for tree in (trees[0], trees[1], trees[1], trees[0]):
+        proc = subprocess.run(
+            [sys.executable, __file__, "--trip-worker", str(tree),
+             "--rounds", str(rounds)], capture_output=True, text=True,
+            cwd=chip_smoke.ROOT, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"trip worker on {tree} failed:\n"
+                               f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        label = "old" if tree == trees[0] else "new"
+        for prec, ms in res["trip_ms"].items():
+            print(f"[trip {label}] {prec}: {res['trips'][prec]} trips, ms a "
+                  f"trip {', '.join(f'{t:.4f}' for t in ms)} (median "
+                  f"{statistics.median(ms):.4f}) | launches a trip "
+                  f"{res['launches_per_trip'][prec]}")
+        results.append({"tree": label, **res})
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
@@ -567,8 +641,19 @@ def main() -> int:
                     help="frames/s before and after one profiler run")
     ap.add_argument("--sass", action="store_true",
                     help="ptxas report and the hot loops' SASS instructions")
+    ap.add_argument("--trip-ab", default=None, metavar="OLD_ROOT",
+                    help="the sharded align's ms a trip, OLD_ROOT's package "
+                         "against this tree's")
+    ap.add_argument("--trip-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.trip_worker:
+        trip_worker(args.trip_worker, args.rounds)
+        return 0
     chip_smoke.phase_device()
+    if args.trip_ab:
+        print(json.dumps({"trip_ab": trip_ab(args.trip_ab, args.rounds)}))
+        print(json.dumps({"done": True}))
+        return 0
     if args.sass:
         print(json.dumps({"sass": sass_report()}))
         print(json.dumps({"done": True}))

@@ -29,6 +29,14 @@
 //    pipeline runs must agree exactly).
 //  - Rows with w = 0 (gated or padded correspondences) add nothing; M = 0
 //    gives H = 0 and g = 0 from a single block.
+//
+// Batched form (the reference's vmap of gn_accum_pallas in the sharded
+// align, one pallas_call with grid (B, M/TM)): p, q, n (B, M, 3) and w
+// (B, M) give H (B, 6, 6) and g (B, 6) in one launch with the batch on the
+// grid's y axis. Row b has its own partial slab and its own ticket, and its
+// last block resets only that ticket; its blocks keep the unbatched
+// kernel's row partition, shuffle tree and block order, so row b is bit for
+// bit the unbatched call on (p[b], q[b], n[b], w[b]).
 
 #include <cuda_runtime.h>
 
@@ -44,6 +52,17 @@ gn_accum_kernel(const float* __restrict__ p, const float* __restrict__ q,
                 int m, float* __restrict__ partial,
                 unsigned* __restrict__ ticket, float* __restrict__ H,
                 float* __restrict__ g) {
+  {  // this batch row's inputs, partial slab, ticket and outputs
+    const size_t b = blockIdx.y;
+    p += 3 * m * b;
+    q += 3 * m * b;
+    nrm += 3 * m * b;
+    w += m * b;
+    partial += (size_t)gridDim.x * kSums * b;
+    ticket += b;
+    H += 36 * b;
+    g += 6 * b;
+  }
   float acc[kSums];
 #pragma unroll
   for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
@@ -123,16 +142,19 @@ gn_accum_kernel(const float* __restrict__ p, const float* __restrict__ q,
 
 }  // namespace
 
-// p, q, n (m, 3) and w (m,) float32 contiguous; scratch partial
-// (n_blocks, 27) and ticket (one unsigned, 0 before the first call and left
-// at 0 by every call); outputs H (6, 6) and g (6,) float32.
-extern "C" cudaError_t gn_accum_f32(const float* p, const float* q,
-                                    const float* n, const float* w, int m,
-                                    int n_blocks, float* partial,
-                                    unsigned* ticket, float* H, float* g,
-                                    cudaStream_t stream) {
-  if (m < 0 || n_blocks <= 0) return cudaErrorInvalidValue;
-  gn_accum_kernel<<<n_blocks, kThreads, 0, stream>>>(p, q, n, w, m, partial,
-                                                     ticket, H, g);
+// p, q, n (batch, m, 3) and w (batch, m) float32 contiguous; scratch
+// partial (batch, n_blocks, 27) and ticket (batch unsigned, 0 before the
+// first call and left at 0 by every call); outputs H (batch, 6, 6) and g
+// (batch, 6) float32. The unbatched call is batch = 1.
+extern "C" cudaError_t gn_accum_batched_f32(const float* p, const float* q,
+                                            const float* n, const float* w,
+                                            int m, int batch, int n_blocks,
+                                            float* partial, unsigned* ticket,
+                                            float* H, float* g,
+                                            cudaStream_t stream) {
+  if (m < 0 || n_blocks <= 0 || batch <= 0 || batch > 65535)
+    return cudaErrorInvalidValue;
+  gn_accum_kernel<<<dim3(n_blocks, batch), kThreads, 0, stream>>>(
+      p, q, n, w, m, partial, ticket, H, g);
   return cudaGetLastError();
 }

@@ -53,8 +53,11 @@
 //    blocks reach bit-identical T and convergence flags, so they leave the
 //    loop together and no second grid sync is needed. No float atomics: an
 //    align is bit-reproducible for a given grid.
-//  - The gather is a plain indexed load of float32 q and n (the reference's
-//    one-hot matmul gather and transposed layouts are TPU workarounds).
+//  - The gather is an indexed load of q and n (the reference's one-hot
+//    matmul gather and transposed layouts are TPU workarounds). At "bf16"
+//    each coordinate and normal component is rebuilt from its bf16 hi/lo
+//    halves (packed::hi_lo), as the reference's bf16 gather operand holds
+//    them; at "highest" they are the float32 values.
 //  - The scalar step (solve, prior, trust region) runs on one thread per
 //    block, __noinline__ so that it does not raise the register count of the
 //    NN loop. arccos is the reference's Abramowitz-Stegun polynomial
@@ -560,8 +563,14 @@ icp_fused_kernel(const float4* __restrict__ src,   // (m) [x-c, y, z, mask]
         }
         const float4 pt = s_p[row];
         const float px = pt.x, py = pt.y, pz = pt.z, pm = pt.w;
-        const float4 q = model[best_idx];
-        const float4 nv = nrm[best_idx];
+        float4 q = model[best_idx];
+        float4 nv = nrm[best_idx];
+        if constexpr (kBf16) {
+          q = make_float4(packed::hi_lo(q.x), packed::hi_lo(q.y),
+                          packed::hi_lo(q.z), 0.f);
+          nv = make_float4(packed::hi_lo(nv.x), packed::hi_lo(nv.y),
+                           packed::hi_lo(nv.z), 0.f);
+        }
         const float dx = px - q.x, dy = py - q.y, dz = pz - q.z;
         const float d2 = dx * dx + dy * dy + dz * dz;
         float w = (d2 <= p.max_d2 ? 1.f : 0.f) * pm;

@@ -32,6 +32,15 @@
 // score within tau * sum|a_k b_k| (kernels/packed_mma.py); its picks equal
 // the plain version's but for near-ties. Sentinel targets (1e6) score ~1e12
 // and never win. Times in PERF.md §6.
+//
+// Batched form (nn_bf16_batched_f32; the reference's vmap of
+// nn_bruteforce_pallas(precision="bf16") in the sharded align, one
+// pallas_call with the batch as a leading grid axis): src (B, m, 3)
+// against dst (B/G, n, 3), row b against target b / G with that target's
+// own centre. The same four launches whatever B is: one centre block a
+// target, the pack and the fold with the batch on grid y, the scan's
+// persistent grid over every row's items. Row b is bit-equal to the
+// unbatched call on (src[b], dst[b / G]).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,22 +53,26 @@ namespace {
 
 // The scan over contiguous splits and the fold. e_min (the raw minimum) and
 // d2 (clamped at 0) are written where they are not null.
+// Batched: a_aug (batch, m, 16) against b_aug (batch / group, n, 16),
+// partials (batch, n_split, m), outputs (batch, m).
 cudaError_t scan_and_fold(const void* a_aug, const void* b_aug, int m, int n,
-                          int n_split, int split_len, int grid, float* part_e,
-                          int* part_idx, float* e_min, int* idx, float* d2,
+                          int batch, int group, int n_split, int split_len,
+                          int grid, float* part_e, int* part_idx,
+                          float* e_min, int* idx, float* d2,
                           cudaStream_t stream) {
   if (m <= 0 || n <= 0 || n_split <= 0 || split_len <= 0 || grid <= 0 ||
+      batch <= 0 || group <= 0 || batch % group || batch > 65535 ||
       (long long)n_split * split_len < n ||
       (long long)(n_split - 1) * split_len >= n)
     return cudaErrorInvalidValue;
   packed_scan_kernel<<<grid, kScanThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(a_aug),
-      static_cast<const __nv_bfloat16*>(b_aug), m, n, n_split, split_len, 1,
-      split_len, part_idx, part_e);
+      static_cast<const __nv_bfloat16*>(b_aug), m, n, batch, group, n_split,
+      split_len, 1, split_len, part_idx, part_e);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nn_fold_kernel<<<(m + 255) / 256, 256, 0, stream>>>(part_e, part_idx, m,
-                                                      n_split, e_min, idx, d2);
+  nn_fold_kernel<<<dim3((m + 255) / 256, batch), 256, 0, stream>>>(
+      part_e, part_idx, m, n_split, e_min, idx, d2);
   return cudaGetLastError();
 }
 
@@ -72,36 +85,38 @@ extern "C" cudaError_t packed_scan_blocks_per_sm(int* out) {
                                                        kScanThreads, 0);
 }
 
-// The whole bf16 NN. src (m, 3), dst (n, 3) float32. Scratch: centre (3,)
-// float32, a_aug (m, 16) and b_aug (n, 16) bf16, part_e (n_split, m)
-// float32, part_idx (n_split, m) int32. Outputs idx (m,) int32 and d2 (m,)
-// float32; e_min (m,) float32, the raw packed minimum, or null.
-extern "C" cudaError_t nn_bf16_f32(const float* src, const float* dst, int m,
-                                   int n, int n_split, int split_len, int grid,
-                                   float* centre, void* a_aug, void* b_aug,
-                                   float* part_e, int* part_idx, float* e_min,
-                                   int* idx, float* d2, cudaStream_t stream) {
+// The whole bf16 NN. src (batch, m, 3), dst (batch / group, n, 3) float32.
+// Scratch: centre (batch / group, 3) float32, a_aug (batch, m, 16) and
+// b_aug (batch / group, n, 16) bf16, part_e (batch, n_split, m) float32,
+// part_idx (batch, n_split, m) int32. Outputs idx (batch, m) int32 and d2
+// (batch, m) float32; e_min (batch, m) float32, the raw packed minimum, or
+// null. The unbatched call is batch = group = 1.
+extern "C" cudaError_t nn_bf16_batched_f32(
+    const float* src, const float* dst, int m, int n, int batch, int group,
+    int n_split, int split_len, int grid, float* centre, void* a_aug,
+    void* b_aug, float* part_e, int* part_idx, float* e_min, int* idx,
+    float* d2, cudaStream_t stream) {
   if (m <= 0 || n <= 0) return cudaErrorInvalidValue;
   const cudaError_t err = prepare_packed(
-      src, dst, m, n, n, centre, nullptr, nullptr,
+      src, dst, m, n, n, batch, group, centre, nullptr, nullptr,
       static_cast<__nv_bfloat16*>(a_aug), static_cast<__nv_bfloat16*>(b_aug),
       stream);
   if (err != cudaSuccess) return err;
-  return scan_and_fold(a_aug, b_aug, m, n, n_split, split_len, grid, part_e,
-                       part_idx, e_min, idx, d2, stream);
+  return scan_and_fold(a_aug, b_aug, m, n, batch, group, n_split, split_len,
+                       grid, part_e, part_idx, e_min, idx, d2, stream);
 }
 
 // K3's scan and fold on given packed operands, a_aug (m, 16) and b_aug
 // (n, 16) bf16: for each source row the first minimum e_min (m,) float32 of
 // the packed score over the whole target and its index idx (m,) int32.
-// Scratch part_e, part_idx as for nn_bf16_f32. For tests and chip_smoke.py
-// phase 11.
+// Scratch part_e, part_idx as for nn_bf16_batched_f32 at batch 1. For tests
+// and chip_smoke.py phase 11.
 extern "C" cudaError_t packed_mma_argmin(const void* a_aug, const void* b_aug,
                                          int m, int n, int n_split,
                                          int split_len, int grid,
                                          float* part_e, int* part_idx,
                                          float* e_min, int* idx,
                                          cudaStream_t stream) {
-  return scan_and_fold(a_aug, b_aug, m, n, n_split, split_len, grid, part_e,
-                       part_idx, e_min, idx, nullptr, stream);
+  return scan_and_fold(a_aug, b_aug, m, n, 1, 1, n_split, split_len, grid,
+                       part_e, part_idx, e_min, idx, nullptr, stream);
 }

@@ -1,7 +1,8 @@
 // The recentred, hi/lo-packed bf16 squared distance shared by the packed
-// searches: the lane layout, the split and K5's in-kernel source packing
-// (icp_fused.cu); the device packing of K3 and K4 (packed_prep.cuh) uses
-// the split. The tensor cores score the packed rows (packed_mma.cuh).
+// searches: the lane layout, the split, K5's in-kernel source packing and
+// its hi/lo gather (icp_fused.cu); the device packing of K3 and K4
+// (packed_prep.cuh) uses the split. The tensor cores score the packed rows
+// (packed_mma.cuh).
 //
 // Port of the "bf16" contraction of tpu_icp_slam/kernels/nn_pallas.py
 // (:232-245, :279-314), which icp_fused_pallas.py (:348-376) uses as well.
@@ -29,6 +30,15 @@ constexpr int kLanes = 16;  // stored per point; lanes 13..15 are zero
 __device__ __forceinline__ void split(float x, float& hi, float& lo) {
   hi = __bfloat162float(__float2bfloat16_rn(x));
   lo = __bfloat162float(__float2bfloat16_rn(x - hi));
+}
+
+// x rebuilt from its two bf16 halves, hi + lo in float32: what K5's bf16
+// gather returns for each model coordinate and normal component
+// (icp_fused_pallas.py:452-459, _split_hi_lo at :90-93).
+__device__ __forceinline__ float hi_lo(float x) {
+  float hi, lo;
+  split(x, hi, lo);
+  return __fadd_rn(hi, lo);
 }
 
 // Source-side packing of a (recentred) point, as a float lane vector.

@@ -3,16 +3,23 @@
 // of kernels/nn_bf16.py::recentre, pack_source and pack_target (and, for
 // K4, nn_rescore._prepare's padded target), bit for bit.
 //
-//  - nn_centre_kernel (one block): the valid targets' (|coordinates| < 1e5)
-//    bounding box and its midpoint c, as nn_bf16.valid_centre computes it
-//    (min/max are exact, c = 0.5 * (lo + hi); 0 when no target is valid).
-//  - nn_pack_kernel (one thread a row): rows [0, m) are sources, rows
-//    [m, m + np) the target, padded with the 1e6 sentinel past its n real
-//    rows (K4; K3 passes np = n). Each row is recentred and packed into 16
-//    bf16 lanes (packed_d2.cuh) with the plain version's roundings in its
-//    order: RNE casts, |x|² summed as (x·x + y·y) + z·z without
-//    contraction. The recentred float32 points go to sc and dp when those
-//    are not null (K4's rescore reads them; K3 does not).
+//  - nn_centre_kernel (one block a target): the valid targets'
+//    (|coordinates| < 1e5) bounding box and its midpoint c, as
+//    nn_bf16.valid_centre computes it (min/max are exact, c = 0.5 * (lo +
+//    hi); 0 when no target is valid).
+//  - nn_pack_kernel (one thread a row, blockIdx.y the batch row): rows
+//    [0, m) are sources, rows [m, m + np) the target, padded with the 1e6
+//    sentinel past its n real rows (K4; K3 passes np = n). Each row is
+//    recentred and packed into 16 bf16 lanes (packed_d2.cuh) with the plain
+//    version's roundings in its order: RNE casts, |x|² summed as (x·x +
+//    y·y) + z·z without contraction. The recentred float32 points go to sc
+//    and dp when those are not null (K4's rescore reads them; K3 does not).
+//
+// Batched (the reference's vmap of its whole wrapper): src (B, m, 3) and
+// dst (B/G, n, 3). Target t has its own centre, from its own rows; batch
+// row b packs its sources against target b / G's centre, and the rows b
+// with b % G == 0 pack target b / G. Every row and target is what the
+// unbatched launch (B = G = 1) computes on it, bit for bit.
 
 #pragma once
 
@@ -31,6 +38,8 @@ constexpr int kPackThreads = 256;
 
 __global__ void __launch_bounds__(kCentreThreads)
 nn_centre_kernel(const float* __restrict__ dst, int n, float* __restrict__ c) {
+  dst += 3 * (size_t)n * blockIdx.x;
+  c += 3 * blockIdx.x;
   __shared__ float s_lo[3][kCentreThreads / 32], s_hi[3][kCentreThreads / 32];
   __shared__ int s_any[kCentreThreads / 32];
   float lo[3] = {3.0e38f, 3.0e38f, 3.0e38f};
@@ -95,14 +104,22 @@ __device__ __forceinline__ void store_lanes(__nv_bfloat16* row,
 
 __global__ void __launch_bounds__(kPackThreads)
 nn_pack_kernel(const float* __restrict__ src, const float* __restrict__ dst,
-               int m, int n, int np, const float* __restrict__ c,
+               int m, int n, int np, int group, const float* __restrict__ c,
                float* __restrict__ sc, float* __restrict__ dp,
                __nv_bfloat16* __restrict__ a_aug,
                __nv_bfloat16* __restrict__ b_aug) {
   const int r = blockIdx.x * kPackThreads + threadIdx.x;
-  if (r >= m + np) return;
+  const size_t b = blockIdx.y, t = b / group;
+  if (r >= m + (b % group == 0 ? np : 0)) return;
   const bool source = r < m;
   const int j = source ? r : r - m;
+  src += 3 * m * b;
+  dst += 3 * n * t;
+  c += 3 * t;
+  if (sc) sc += 3 * m * b;
+  if (dp) dp += 3 * np * t;
+  a_aug += 16 * m * b;
+  b_aug += 16 * np * t;
   float x, y, z;
   if (source || j < n) {
     const float* p = source ? src + 3 * (size_t)j : dst + 3 * (size_t)j;
@@ -147,18 +164,23 @@ nn_pack_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   }
 }
 
-// Recentre on the valid targets' midpoint (into centre) and pack: the two
-// launches above, on `stream`.
+// Recentre on each target's valid midpoint (into centre, (B/G, 3)) and
+// pack: the two launches above, on `stream`, for `batch` source rows of
+// which each `group` consecutive ones share a target.
 inline cudaError_t prepare_packed(const float* src, const float* dst, int m,
-                                  int n, int np, float* centre, float* sc,
-                                  float* dp, __nv_bfloat16* a_aug,
-                                  __nv_bfloat16* b_aug, cudaStream_t stream) {
-  nn_centre_kernel<<<1, kCentreThreads, 0, stream>>>(dst, n, centre);
+                                  int n, int np, int batch, int group,
+                                  float* centre, float* sc, float* dp,
+                                  __nv_bfloat16* a_aug, __nv_bfloat16* b_aug,
+                                  cudaStream_t stream) {
+  if (batch <= 0 || group <= 0 || batch % group || batch > 65535)
+    return cudaErrorInvalidValue;
+  nn_centre_kernel<<<batch / group, kCentreThreads, 0, stream>>>(dst, n,
+                                                                 centre);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nn_pack_kernel<<<(m + np + kPackThreads - 1) / kPackThreads, kPackThreads,
-                   0, stream>>>(src, dst, m, n, np, centre, sc, dp, a_aug,
-                                b_aug);
+  const dim3 grid((m + np + kPackThreads - 1) / kPackThreads, batch);
+  nn_pack_kernel<<<grid, kPackThreads, 0, stream>>>(
+      src, dst, m, n, np, group, centre, sc, dp, a_aug, b_aug);
   return cudaGetLastError();
 }
 

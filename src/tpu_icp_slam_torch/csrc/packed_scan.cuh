@@ -11,6 +11,12 @@
 // out_idx (n_parts, m) as the target's index first + w * stride, and its
 // score to out_score (n_parts, m) when that pointer is not null.
 //
+// Batched (the reference's vmap): a_aug (B, m, 16) against b_aug (B/G, n,
+// 16), row b against target b / G, outputs (B, n_parts, m). A work item
+// is one row's (source tile, part), and it computes what the unbatched
+// launch computes for that item, so every row is bit-equal to its own
+// call whatever the grid.
+//
 // What bounds it on an H100: the 16-lane bf16 contraction on the tensor
 // cores, 2.7e8 pairs x 32 flops at 16,384² = 0.0087 ms at 989 TFLOP/s; in
 // practice the argmin bookkeeping on the CUDA cores (a compare and two
@@ -18,8 +24,8 @@
 //
 // Design. A work item is 128 source rows (4 warps x 2 m-tiles of 16)
 // against one part; a persistent grid (the wrapper sizes it to the blocks
-// that fit on the card at once) walks the (row tiles x parts) items, row
-// tiles fastest. A part's rows are staged as bf16 rows (two 16-byte
+// that fit on the card at once) walks the (batch x parts x row tiles)
+// items, row tiles fastest. A part's rows are staged as bf16 rows (two 16-byte
 // cp.async a row, no widening) 256 at a time, double-buffered, a ragged
 // last tile padded with packed_mma::pad_row; the A fragments stay in
 // registers for the whole part. Each thread keeps its rows' running (min,
@@ -61,20 +67,26 @@ __device__ __forceinline__ void stage_part_tile(
 }
 
 __global__ void __launch_bounds__(kScanThreads, kScanMinBlocks)
-packed_scan_kernel(const __nv_bfloat16* __restrict__ a_aug,
-                   const __nv_bfloat16* __restrict__ b_aug, int m, int n,
-                   int n_parts, int part_step, int stride, int part_len,
-                   int* __restrict__ out_idx, float* __restrict__ out_score) {
+packed_scan_kernel(const __nv_bfloat16* __restrict__ a_all,
+                   const __nv_bfloat16* __restrict__ b_all, int m, int n,
+                   int batch, int group, int n_parts, int part_step,
+                   int stride, int part_len, int* __restrict__ out_idx,
+                   float* __restrict__ out_score) {
   __shared__ __align__(128) unsigned char s_b[2][kScanTileBytes];
   __shared__ __align__(128)
       unsigned char s_a[kScanRows * packed_mma::kRowBytes];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row_tiles = (m + kScanRows - 1) / kScanRows;
+  const int row_items = row_tiles * n_parts;  // items of one batch row
   const unsigned a_base = cp_async::smem_addr(s_a);
 
-  for (int item = blockIdx.x; item < row_tiles * n_parts; item += gridDim.x) {
-    const int part = item / row_tiles;
-    const int row0 = (item - part * row_tiles) * kScanRows;
+  for (int item = blockIdx.x; item < batch * row_items; item += gridDim.x) {
+    const int b = item / row_items;
+    const int part = (item - b * row_items) / row_tiles;
+    const int row0 = (item - b * row_items - part * row_tiles) * kScanRows;
+    const __nv_bfloat16* a_aug = a_all + 16 * (size_t)m * b;
+    const __nv_bfloat16* b_aug = b_all + 16 * (size_t)n * (b / group);
+    const size_t out0 = (size_t)n_parts * m * b;
     const int first = part * part_step;
     const int len = min(part_len, (n - first + stride - 1) / stride);
     const int n_tiles = (len + kScanTile - 1) / kScanTile;
@@ -128,8 +140,10 @@ packed_scan_kernel(const __nv_bfloat16* __restrict__ a_aug,
         const int row =
             row0 + (warp * kScanMt + mt) * 16 + (lane >> 2) + 8 * h;
         if ((lane & 3) == 0 && row < m) {
-          out_idx[(size_t)part * m + row] = first + idx[mt][h] * stride;
-          if (out_score) out_score[(size_t)part * m + row] = best[mt][h];
+          out_idx[out0 + (size_t)part * m + row] =
+              first + idx[mt][h] * stride;
+          if (out_score)
+            out_score[out0 + (size_t)part * m + row] = best[mt][h];
         }
       }
   }

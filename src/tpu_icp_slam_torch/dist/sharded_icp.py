@@ -15,8 +15,10 @@ rows step together in one host loop (one host read an iteration: "any row
 still running"), and a stopped row is frozen with `torch.where`. Every rank
 of an "sp" group tests the same reduced numbers, so the group stops
 together; a rank whose shard is all padding still takes part in every
-collective. The NN runs once an iteration for the local rows (K1's batched
-form on the card; K3/K4 once a row at "bf16"/"rescore"), K2 once a row.
+collective. An iteration runs each kernel once for all the local rows, as
+the reference's vmap makes one pallas_call of each: the NN in its batched
+form (K1 at "highest", K3 at "bf16", K4 at "rescore"), then batched K2 for
+the normal equations, then one batched 6×6 solve and one batched exp.
 """
 
 from __future__ import annotations
@@ -93,16 +95,12 @@ def _align_shard(
                              torch.sum(w > 0, -1).to(dtype)], -1)
         if cfg.method == "point_to_plane":
             n = torch.gather(dst_nrm, 1, idx)
-            parts = []
-            for b in range(bl):
-                H, g = (gn_accum if kernel else build_normal_equations)(
-                    cur[b], q[b], n[b], w[b])
-                parts.append(torch.cat([H.reshape(-1), g]))
-            tot = reduce(torch.cat([torch.stack(parts), stats], -1))
-            dT = torch.stack([lie.exp(solve_increment(
-                tot[b, :k * k].reshape(k, k), tot[b, k * k:k * k + k],
+            H, g = (gn_accum if kernel else build_normal_equations)(
+                cur, q, n, w)
+            tot = reduce(torch.cat([H.reshape(bl, k * k), g, stats], -1))
+            dT = lie.exp(solve_increment(
+                tot[:, :k * k].reshape(bl, k, k), tot[:, k * k:k * k + k],
                 cfg.damping, cfg.max_step_trans, cfg.max_step_rot))
-                for b in range(bl)])
         else:
             wsum, s_src, s_dst, s_ds = moments(cur, q, w)
             tot = reduce(torch.cat([wsum[:, None], s_src, s_dst,

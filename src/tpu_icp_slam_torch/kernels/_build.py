@@ -122,18 +122,22 @@ def load() -> ctypes.CDLL:
                 ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
                 ptr, ptr, ptr, ptr, ptr]
             lib.nn_rescore_f32.restype = i32
+            lib.nn_rescore_batched_f32.argtypes = [
+                ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.nn_rescore_batched_f32.restype = i32
             lib.packed_scan_blocks_per_sm.argtypes = [ptr]
             lib.packed_scan_blocks_per_sm.restype = i32
             lib.packed_mma_argmin.argtypes = [
                 ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
             lib.packed_mma_argmin.restype = i32
-            lib.gn_accum_f32.argtypes = [
-                ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr]
-            lib.gn_accum_f32.restype = i32
-            lib.nn_bf16_f32.argtypes = [
-                ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
-                ptr, ptr, ptr, ptr]
-            lib.nn_bf16_f32.restype = i32
+            lib.gn_accum_batched_f32.argtypes = [
+                ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr]
+            lib.gn_accum_batched_f32.restype = i32
+            lib.nn_bf16_batched_f32.argtypes = [
+                ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.nn_bf16_batched_f32.restype = i32
             lib.icp_fused_max_blocks.argtypes = [i32, ptr]
             lib.icp_fused_max_blocks.restype = i32
             lib.icp_fused_f32.argtypes = [
@@ -167,6 +171,14 @@ def workspace(spec: dict, dims: dict[str, int], device: torch.device):
         layout[name] = (total, dtype, shape)
         total += -(-math.prod(shape) * dtype.itemsize // _ALIGN) * _ALIGN
     return torch.empty(total, dtype=torch.uint8, device=device), layout
+
+
+def batched(spec: dict, per_target: tuple[str, ...]) -> dict:
+    """`spec` with a leading axis on every array: "t" (the targets, B/G)
+    for the arrays named in per_target, "b" (the batch rows) for the
+    rest."""
+    return {name: (dtype, ("t" if name in per_target else "b", *shape))
+            for name, (dtype, shape) in spec.items()}
 
 
 def views(ws: torch.Tensor, layout: dict) -> dict[str, torch.Tensor]:

@@ -12,9 +12,10 @@ the same thing (one host sync per iteration).
 
 Both versions use the reference's polynomial arccos (|err| <= 5e-5 rad) in
 the SE(3) log of the motion prior and the trust region: it defines this
-path's numbers. In bf16 mode the reference reconstructs the gathered q and n
-from bf16 hi/lo halves (~2⁻¹⁶ relative); the port gathers them exactly in
-float32. At "highest" the NN scores the exact difference form, as K1 does
+path's numbers. In bf16 mode both versions rebuild the gathered q and n from
+their bf16 hi/lo halves in float32 (`nn_bf16.hi_lo`), as the reference's
+gather operand holds them; at "highest" they are gathered exactly. At
+"highest" the NN scores the exact difference form, as K1 does
 (bit for bit); at "bf16" the kernel scores the packed operands on the tensor
 cores (csrc/packed_mma.cuh), the plain version with a float32 product, so
 the two may pick differently on near-ties (packed_mma.near_ties).
@@ -33,6 +34,7 @@ from tpu_icp_slam_torch.kernels import _build
 from tpu_icp_slam_torch.kernels.gn_cuda import gn_accum_ref
 from tpu_icp_slam_torch.kernels.nn_bf16 import (
     VALID_ABS,
+    hi_lo,
     pack_source,
     pack_target,
     packed_argmin_ref,
@@ -172,6 +174,8 @@ def _loop_ref(srcc, smask, dstc, nrmc, T0c, gate, p, bf16):
         else:
             idx, _ = nn_bruteforce_ref(cur, dstc)
         q, n = dstc[idx.long()], nrmc[idx.long()]
+        if bf16:
+            q, n = hi_lo(q), hi_lo(n)
         diff = cur - q
         d2 = torch.sum(diff * diff, dim=-1)
         w = (d2 <= p["max_d2"]).to(f32) * smask

@@ -21,10 +21,12 @@ tile_m changes nothing in any mode, and K1/K3 take neither: their results do
 not depend on tiles. Points are 3-D or 2-D. K1 searches 2-D points as they
 are; K3 and K4 take 3-D operands, so a 2-D search at "bf16" or "rescore"
 gets a zero z column, as the reference's kernel pads its lanes with zeros.
-Batched clouds, src (B, M, D) and dst (B/G, N, D), run K1's batched form at
-"highest" (any backend); at "bf16" and "rescore" K3/K4 run unbatched once a
-row (the sharded align's local rows), which is what the reference's vmap of
-the same kernel computes.
+Batched clouds, src (B, M, D) and dst (B/G, N, D), row b against target
+b // G, run each kernel's batched form: K1's at "highest" (any backend), and
+at "bf16" and "rescore" (the sharded align's local rows) K3's and K4's, one
+call for the whole batch with each target recentred on its own rows, as the
+reference's vmap of the same kernel computes (one pallas_call with the
+batch as a leading grid axis). CPU tensors take the batched plain versions.
 """
 
 from __future__ import annotations
@@ -55,15 +57,6 @@ def nearest_neighbor(src: torch.Tensor, dst: torch.Tensor,
     on_cuda = src.device.type == "cuda"
     if backend == "auto":
         backend = "pallas" if on_cuda else "xla"
-    if src.dim() == 3 and precision != "highest" and backend == "pallas":
-        # the reference vmaps the same pallas_call over the rows: one
-        # unbatched K3/K4 call a row, row b against target b // G
-        group = src.shape[0] // dst.shape[0]
-        rows = [nearest_neighbor(s, dst[b // group], backend, chunk,
-                                 tile_n=tile_n, precision=precision)
-                for b, s in enumerate(src)]
-        return (torch.stack([r[0] for r in rows]),
-                torch.stack([r[1] for r in rows]))
     if backend == "pallas":
         if precision != "highest" and src.shape[-1] == 2:
             src, dst = (torch.nn.functional.pad(x, (0, 1)) for x in (src, dst))

@@ -17,6 +17,13 @@ near-tie (packed_mma.near_ties). CPU tensors run `nn_bf16_ref`, which casts
 the same packed operands to float32 and takes a chunked float32 product
 (TF32 is off package-wide). The packing helpers also serve K4
 (kernels/nn_rescore.py) and K5 (kernels/icp_fused.py).
+
+Batched form, the reference's vmap of the same kernel in the sharded align
+(one pallas_call with the batch as a leading grid axis): src (B, M, 3) and
+dst (B/G, N, 3), row b against target b // G, each target recentred on its
+own valid rows. On CUDA tensors it is the same four launches whatever B is,
+and row b is bit-equal to the unbatched call on (src[b], dst[b // G]); the
+plain version computes each row as its unbatched call does.
 """
 
 from __future__ import annotations
@@ -38,24 +45,32 @@ def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
 
 
+def hi_lo(x: torch.Tensor) -> torch.Tensor:
+    """x rebuilt in float32 from its bf16 halves, hi + lo: what K5's bf16
+    gather returns (icp_fused_pallas.py:452-459, _split_hi_lo at :90-93)."""
+    hi, lo = _split(x)
+    return hi.to(torch.float32) + lo.to(torch.float32)
+
+
 def _lanes(cols: list[torch.Tensor]) -> torch.Tensor:
-    n = cols[0].shape[0]
-    pad = torch.zeros((n, LANES - sum(c.shape[1] for c in cols)),
+    lead = cols[0].shape[:-1]
+    pad = torch.zeros((*lead, LANES - sum(c.shape[-1] for c in cols)),
                       dtype=torch.bfloat16, device=cols[0].device)
-    return torch.cat([*cols, pad], dim=1)
+    return torch.cat([*cols, pad], dim=-1)
 
 
 def _sq(x: torch.Tensor) -> torch.Tensor:
-    """|x|² (N, 1) as (x·x + y·y) + z·z, each product and sum rounded to
-    float32 on its own: the order the device packing (csrc/packed_prep.cuh)
-    writes out, so that both give the same bits."""
-    sq = (x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1]) + x[:, 2] * x[:, 2]
-    return sq[:, None]
+    """|x|² (..., N, 1) as (x·x + y·y) + z·z, each product and sum rounded
+    to float32 on its own: the order the device packing
+    (csrc/packed_prep.cuh) writes out, so that both give the same bits."""
+    sq = (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) \
+        + x[..., 2] * x[..., 2]
+    return sq[..., None]
 
 
 def pack_source(a: torch.Tensor) -> torch.Tensor:
-    """(M, 3) f32 -> (M, 16) bf16 [-2a_hi, -2a_lo, -2a_hi, |a|²_hi,
-    |a|²_lo, 1, 1, 0...]."""
+    """(..., M, 3) f32 -> (..., M, 16) bf16 [-2a_hi, -2a_lo, -2a_hi,
+    |a|²_hi, |a|²_lo, 1, 1, 0...]."""
     hi, lo = _split(a)
     sq_hi, sq_lo = _split(_sq(a))
     one = torch.ones_like(sq_hi)
@@ -63,8 +78,8 @@ def pack_source(a: torch.Tensor) -> torch.Tensor:
 
 
 def pack_target(b: torch.Tensor) -> torch.Tensor:
-    """(N, 3) f32 -> (N, 16) bf16 [b_hi, b_hi, b_lo, 1, 1, |b|²_hi,
-    |b|²_lo, 0...]."""
+    """(..., N, 3) f32 -> (..., N, 16) bf16 [b_hi, b_hi, b_lo, 1, 1,
+    |b|²_hi, |b|²_lo, 0...]."""
     hi, lo = _split(b)
     sq_hi, sq_lo = _split(_sq(b))
     one = torch.ones_like(sq_hi)
@@ -72,20 +87,26 @@ def pack_target(b: torch.Tensor) -> torch.Tensor:
 
 
 def valid_centre(dst: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Bounding-box midpoint (3,) of the rows of dst where valid (N, 1) is
-    set; zero if none is."""
-    lo = torch.amin(torch.where(valid, dst, 3.0e38), dim=0)
-    hi = torch.amax(torch.where(valid, dst, -3.0e38), dim=0)
-    return torch.where(torch.any(valid), 0.5 * (lo + hi), 0.0)
+    """Bounding-box midpoint (..., 3) of the rows of dst (..., N, 3) where
+    valid (..., N, 1) is set, each target on its own; zero for a target
+    with no valid row."""
+    lo = torch.amin(torch.where(valid, dst, 3.0e38), dim=-2)
+    hi = torch.amax(torch.where(valid, dst, -3.0e38), dim=-2)
+    return torch.where(torch.any(valid, dim=-2), 0.5 * (lo + hi), 0.0)
 
 
 def recentre(src: torch.Tensor, dst: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Shift both clouds by the bounding-box midpoint of the valid targets
-    (all |coordinates| < 1e5)."""
-    c = valid_centre(dst, torch.all(torch.abs(dst) < VALID_ABS, dim=1,
+    (all |coordinates| < 1e5). Batched, src (B, M, 3) and dst (B/G, N, 3):
+    each target has its own centre, and source row b takes target b // G's,
+    as the reference's vmap of its whole wrapper computes."""
+    c = valid_centre(dst, torch.all(torch.abs(dst) < VALID_ABS, dim=-1,
                                     keepdim=True))
-    return src - c, dst - c
+    if dst.dim() == 2:
+        return src - c, dst - c
+    cs = c.repeat_interleave(src.shape[0] // dst.shape[0], dim=0)
+    return src - cs[:, None], dst - c[:, None]
 
 
 def packed_argmin_ref(a_aug: torch.Tensor, b_aug: torch.Tensor,
@@ -101,11 +122,26 @@ def packed_argmin_ref(a_aug: torch.Tensor, b_aug: torch.Tensor,
     return torch.cat(idx_out), torch.cat(e_out)
 
 
+def packed_argmin_batched_ref(a_aug: torch.Tensor, b_aug: torch.Tensor,
+                              chunk: int = 2048
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`packed_argmin_ref` of each row: (B, M, 16) against (B/G, N, 16)
+    bf16 -> (idx (B, M) int32, e_min (B, M) f32), row b against b // G."""
+    group = a_aug.shape[0] // b_aug.shape[0]
+    out = [packed_argmin_ref(a, b_aug[b // group], chunk)
+           for b, a in enumerate(a_aug)]
+    return (torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]))
+
+
 def nn_bf16_ref(src: torch.Tensor, dst: torch.Tensor, chunk: int = 2048
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch: (M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32)."""
+    """Plain torch: (M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32);
+    batched (B, M, 3), (B/G, N, 3) -> (B, M), row b against target b // G,
+    each row what the unbatched call gives on it."""
     s, d = recentre(src, dst)
-    idx, e = packed_argmin_ref(pack_source(s), pack_target(d), chunk=chunk)
+    argmin = packed_argmin_ref if src.dim() == 2 else packed_argmin_batched_ref
+    idx, e = argmin(pack_source(s), pack_target(d), chunk=chunk)
     return idx, torch.clamp(e, min=0.0)
 
 
@@ -123,17 +159,19 @@ _SCRATCH = {"centre": (torch.float32, (3,)),
             "b_aug": (torch.bfloat16, ("n", LANES)), **PARTIALS}
 
 
-def splits(m: int, n: int, sms: int, per_sm: int) -> tuple[int, int]:
+def splits(m: int, n: int, sms: int, per_sm: int, batch: int = 1
+           ) -> tuple[int, int]:
     """(k, length): the contiguous target splits of the scan for an (m, n)
-    search on a card of `sms` SMs that holds `per_sm` scan blocks an SM.
-    The work items, ceil(m / 128) source tiles x k splits, fill the
-    sms x per_sm resident blocks without starting a second, partial wave:
-    k = floor(sms x per_sm / source tiles), at least 1 and at most one split
-    per staged tile of 256 targets (a shorter split restages its 128 source
-    rows for fewer scores and lengthens the fold). Split s covers
-    [s x length, min(n, (s + 1) x length)): length is a multiple of 16, and
-    no split is empty."""
-    tiles = -(-m // SCAN_ROWS)
+    search of `batch` rows on a card of `sms` SMs that holds `per_sm` scan
+    blocks an SM. The work items, batch x ceil(m / 128) source tiles x k
+    splits, fill the sms x per_sm resident blocks without starting a
+    second, partial wave: k = floor(sms x per_sm / source tiles), at least
+    1 and at most one split per staged tile of 256 targets (a shorter split
+    restages its 128 source rows for fewer scores and lengthens the fold).
+    Split s covers [s x length, min(n, (s + 1) x length)): length is a
+    multiple of 16, and no split is empty. A pick does not depend on the
+    split (ties go to the lowest index over the same scores)."""
+    tiles = batch * -(-m // SCAN_ROWS)
     k = max(1, min(sms * per_sm // tiles, -(-n // SPLIT_MIN)))
     length = -(-(-(-n // k)) // SPLIT_ALIGN) * SPLIT_ALIGN
     return -(-n // length), length
@@ -150,39 +188,54 @@ def blocks_per_sm(index: int) -> int:
     return max(1, out.value)
 
 
-def scan_grid(m: int, parts: int, index: int) -> int:
-    """The scan's persistent grid over ceil(m / 128) x parts work items on
-    CUDA device `index`: one block per item, at most as many as it holds at
-    once."""
-    return min(-(-m // SCAN_ROWS) * parts,
+def scan_grid(m: int, parts: int, index: int, batch: int = 1) -> int:
+    """The scan's persistent grid over batch x ceil(m / 128) x parts work
+    items on CUDA device `index`: one block per item, at most as many as it
+    holds at once."""
+    return min(batch * -(-m // SCAN_ROWS) * parts,
                _build.sm_count(index) * blocks_per_sm(index))
 
 
-def _workspace(m: int, n: int, k: int, device: torch.device):
+def _workspace(m: int, n: int, k: int, device: torch.device,
+               batch: tuple[int, int] | None = None):
     """K3's scratch buffer and its layout, name -> (byte offset, dtype,
-    shape), each array 256-byte aligned."""
-    return _build.workspace(_SCRATCH, {"m": m, "n": n, "k": k}, device)
+    shape), each array 256-byte aligned. batch = (B, B/G) gives every array
+    a leading axis: B/G for the centre and b_aug, B for the rest."""
+    if batch is None:
+        return _build.workspace(_SCRATCH, {"m": m, "n": n, "k": k}, device)
+    spec = _build.batched(_SCRATCH, ("centre", "b_aug"))
+    return _build.workspace(spec, {"m": m, "n": n, "k": k, "b": batch[0],
+                                   "t": batch[1]}, device)
 
 
 def _launch(src, dst, keep):
-    _build.require_points("nn_bf16", src=src, dst=dst)
-    m, n = src.shape[0], dst.shape[0]
+    if src.dim() == 3:
+        _build.require_batched_points("nn_bf16", src, dst)
+        batch, targets = src.shape[0], dst.shape[0]
+    else:
+        _build.require_points("nn_bf16", src=src, dst=dst)
+        batch, targets = 1, 1
+    lead = tuple(src.shape[:-2])
+    m, n = src.shape[-2], dst.shape[-2]
     index = src.device.index
-    k, length = splits(m, n, _build.sm_count(index), blocks_per_sm(index))
-    ws, layout = _workspace(m, n, k, src.device)
+    k, length = splits(m, n, _build.sm_count(index), blocks_per_sm(index),
+                       batch)
+    ws, layout = _workspace(m, n, k, src.device,
+                            (batch, targets) if lead else None)
     ptr = _build.pointers(ws, layout)
-    idx = torch.empty(m, dtype=torch.int32, device=src.device)
-    d2 = torch.empty(m, dtype=torch.float32, device=src.device)
-    e_min = (torch.empty(m, dtype=torch.float32, device=src.device)
+    idx = torch.empty((*lead, m), dtype=torch.int32, device=src.device)
+    d2 = torch.empty((*lead, m), dtype=torch.float32, device=src.device)
+    e_min = (torch.empty((*lead, m), dtype=torch.float32, device=src.device)
              if keep else None)
-    err = _build.load().nn_bf16_f32(
-        src.data_ptr(), dst.data_ptr(), m, n, k, length,
-        scan_grid(m, k, index), ptr["centre"], ptr["a_aug"], ptr["b_aug"],
-        ptr["part_e"], ptr["part_idx"],
+    err = _build.load().nn_bf16_batched_f32(
+        src.data_ptr(), dst.data_ptr(), m, n, batch, batch // targets, k,
+        length, scan_grid(m, k, index, batch), ptr["centre"], ptr["a_aug"],
+        ptr["b_aug"], ptr["part_e"], ptr["part_idx"],
         None if e_min is None else e_min.data_ptr(), idx.data_ptr(),
         d2.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
-    _build.check(err, "nn_bf16_f32")
+    _build.check(err, "nn_bf16_batched_f32")
     nn_bf16.launches += 1
+    nn_bf16.batched_launches += bool(lead)
     if not keep:
         return idx, d2
     return {"idx": idx, "d2": d2, "e_min": e_min,
@@ -192,8 +245,9 @@ def _launch(src, dst, keep):
 def nn_bf16(src: torch.Tensor, dst: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(M, 3), (N, 3) f32 -> (idx (M,) int32, d2 (M,) f32): the nearest dst
-    point of every src point under bf16 packed scoring. CPU tensors take the
-    plain version."""
+    point of every src point under bf16 packed scoring; batched (B, M, 3),
+    (B/G, N, 3) -> (B, M), row b against target b // G, one call of four
+    launches whatever B is. CPU tensors take the plain version."""
     if src.device.type == "cpu" and dst.device.type == "cpu":
         return nn_bf16_ref(src, dst)
     return _launch(src, dst, keep=False)
@@ -204,8 +258,11 @@ def nn_bf16_detail(src: torch.Tensor, dst: torch.Tensor
     """CUDA only: one call of K3 that also keeps what it computed on the
     way: idx, d2, the raw packed minimum e_min (d2 = max(e_min, 0)), the
     centre, the packed operands a_aug and b_aug (as pack_source and
-    pack_target name them) and the split partials part_e, part_idx."""
+    pack_target name them) and the split partials part_e, part_idx; each
+    with a leading batch axis (the targets' for centre and b_aug) when the
+    call is batched."""
     return _launch(src, dst, keep=True)
 
 
-nn_bf16.launches = 0
+nn_bf16.launches = 0  # every call (four kernels)
+nn_bf16.batched_launches = 0  # calls of the batched form

@@ -267,7 +267,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
         nn_bf16.nn_bf16(a, a.cpu())
     with pytest.raises(ValueError):
         nn_bf16.nn_bf16(a.t().contiguous().t(), a)
-    # batched K4: one unbatched launch a row, as the reference's vmap
+    # batched K4 at B = 1: one call of the batched form, row 0 equal to the
+    # unbatched call
     before = nn_rescore.nn_rescore.launches
     idx, d2 = nearest_neighbor(a[None], a[None], backend="pallas",
                                precision="rescore")
@@ -530,14 +531,15 @@ def test_batched_wrappers_raise_and_count(cuda_device):
         nn_cuda.nn_bruteforce(a, a[:2].cpu())
     with pytest.raises(ValueError):
         nn_cuda.nn_bruteforce(a.transpose(0, 1), a[:1])
-    # batched K3: one unbatched launch a row against target b // G, each
-    # equal to its own call
+    # batched K3: one call of the batched form for the whole batch, row b
+    # against target b // G equal to its own call
     rng = torch.Generator(device="cpu").manual_seed(0)
     s = torch.rand(4, 64, 3, generator=rng).to(cuda_device)
     t = torch.rand(2, 80, 3, generator=rng).to(cuda_device)
-    n0 = nn_bf16.nn_bf16.launches
+    n0 = (nn_bf16.nn_bf16.launches, nn_bf16.nn_bf16.batched_launches)
     idx, d2 = nearest_neighbor(s, t, backend="pallas", precision="bf16")
-    assert nn_bf16.nn_bf16.launches == n0 + 4
+    assert (nn_bf16.nn_bf16.launches,
+            nn_bf16.nn_bf16.batched_launches) == (n0[0] + 1, n0[1] + 1)
     for b in range(4):
         one = nn_bf16.nn_bf16(s[b], t[b // 2])
         assert torch.equal(idx[b], one[0]) and torch.equal(d2[b], one[1])
@@ -1443,8 +1445,8 @@ def _cpu_align(cfg, arrays):
 ])
 def test_sharded_align_on_card_matches_cpu(cuda_device, tmp_path, world,
                                            shape, backend):
-    """The sharded align on the card (K1 batched, K2 once a row) against
-    the port on the CPU (the plain versions), rtol 1e-4 / atol 1e-5."""
+    """The sharded align on the card (batched K1 and K2) against the port
+    on the CPU (the plain versions), rtol 1e-4 / atol 1e-5."""
     import _torch_dist_workers as workers
     from tpu_icp_slam_torch.dist.spawn import spawn
 
@@ -1519,3 +1521,187 @@ def test_cli_bench_on_card(cuda_device, capsys):
     assert rep["platform"] == "cuda" and rep["devices"] == 1
     assert rep["device_name"] == torch.cuda.get_device_name(0)
     assert rep["value"] > 0 and rep["impl"] == "torch"
+
+
+# ---- batched K2, K3 and K4 (the sharded align's local rows) -----------------
+
+
+def _batched_nn_case(b, groups, cuda_device, m=3000, n=2500, seed=0):
+    """src (b, m, 3) over b / groups targets (n, 3) on the card; the last
+    target all at the 1e6 sentinel (no valid row), the first partly
+    padded."""
+    rng = np.random.default_rng(seed + b)
+    src = rng.uniform(-30, 30, (b, m, 3)).astype(np.float32)
+    dst = rng.uniform(-30, 30, (b // groups, n, 3)).astype(np.float32)
+    dst[0, -n // 8:] = 1.0e6
+    if b // groups > 1:
+        dst[-1] = 1.0e6
+    return (torch.from_numpy(src).to(cuda_device),
+            torch.from_numpy(dst).to(cuda_device))
+
+
+BATCHES = [(1, 1), (3, 1), (4, 2)]  # (B, G)
+
+
+@pytest.mark.parametrize("b,groups", BATCHES)
+def test_batched_gn_kernel_rows_bit_equal_per_row_calls(cuda_device, b,
+                                                        groups):
+    """Batched K2: one launch, each row bit for bit the unbatched call on
+    it (its own ticket and partial slab; the tickets left at 0 for the
+    next call), and within the plain version's bound."""
+    del groups
+    rows = [_gn_case(16385, seed=10 * b + i) for i in range(b)]
+    p, q, n, w = (torch.from_numpy(np.stack(x)).to(cuda_device)
+                  for x in zip(*rows))
+    before = (gn_cuda.gn_accum.launches, gn_cuda.gn_accum.batched_launches)
+    H, g = gn_cuda.gn_accum(p, q, n, w)
+    assert (gn_cuda.gn_accum.launches, gn_cuda.gn_accum.batched_launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert H.shape == (b, 6, 6) and g.shape == (b, 6)
+    for _ in range(2):  # again, after the tickets went round
+        H2, g2 = gn_cuda.gn_accum(p, q, n, w)
+        assert torch.equal(_bits(H2), _bits(H))
+        assert torch.equal(_bits(g2), _bits(g))
+    H_ref, g_ref = gn_cuda.gn_accum_ref(p, q, n, w)
+    for i in range(b):
+        H1, g1 = gn_cuda.gn_accum(p[i], q[i], n[i], w[i])
+        assert torch.equal(_bits(H[i]), _bits(H1)), i
+        assert torch.equal(_bits(g[i]), _bits(g1)), i
+        torch.testing.assert_close(H[i], H_ref[i], rtol=1e-4,
+                                   atol=1e-4 * float(H_ref[i].abs().max()))
+        torch.testing.assert_close(g[i], g_ref[i], rtol=1e-4,
+                                   atol=1e-4 * float(g_ref[i].abs().max()))
+
+
+def _launches_per_call(fn, calls=3):
+    """(kernel launches one call of fn makes, the names of the kernels the
+    tracer saw on the card) over `calls` traced calls. The launches are
+    the host's runtime launch calls, which the tracer records every time;
+    on the card it can miss kernels of a window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    launches = sum(a.count for a in prof.key_averages()
+                   if a.key.startswith(("cudaLaunch", "cuLaunch")))
+    names = {e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA}
+    return launches / calls, names
+
+
+@pytest.mark.parametrize("b,groups", BATCHES)
+def test_batched_nn_bf16_rows_bit_equal_per_row_calls(cuda_device, b,
+                                                      groups):
+    """Batched K3: each row's idx and d2 bit for bit the unbatched call on
+    (src[b], dst[b // G]); the device packing bit-equal to the batched plain
+    packing (each target's own centre, 0 for the all-sentinel one); the
+    picks under the tensor-core contract."""
+    s, d = _batched_nn_case(b, groups, cuda_device)
+    idx, d2 = nn_bf16.nn_bf16(s, d)
+    det = nn_bf16.nn_bf16_detail(s, d)
+    assert idx.shape == d2.shape == (b, s.shape[1])
+    assert torch.equal(det["idx"], idx) and torch.equal(_bits(det["d2"]),
+                                                        _bits(d2))
+    sc, dc = nn_bf16.recentre(s, d)
+    assert torch.equal(_bits(det["a_aug"]), _bits(nn_bf16.pack_source(sc)))
+    assert torch.equal(_bits(det["b_aug"]), _bits(nn_bf16.pack_target(dc)))
+    for i in range(b):
+        one_i, one_d = nn_bf16.nn_bf16(s[i].contiguous(),
+                                       d[i // groups].contiguous())
+        assert torch.equal(idx[i], one_i), i
+        assert torch.equal(_bits(d2[i]), _bits(one_d)), i
+        if i // groups < d.shape[0] - 1 or d.shape[0] == 1:
+            _k3_contract(s[i], d[i // groups], idx[i], d2[i],
+                         det["e_min"][i])
+
+
+@pytest.mark.parametrize("b,groups", BATCHES)
+def test_batched_nn_rescore_rows_bit_equal_per_row_calls(cuda_device, b,
+                                                         groups):
+    """Batched K4: each row's idx and d2 bit for bit the unbatched call;
+    the device packing (recentred points, padded target, packed rows) and
+    the plain candidates as the batched plain version's but for near-ties;
+    the picks' d2 equal to the plain version's where the picks agree."""
+    s, d = _batched_nn_case(b, groups, cuda_device, seed=5)
+    idx, d2 = nn_rescore.nn_rescore(s, d)
+    det = nn_rescore.nn_rescore_detail(s, d)
+    plain = nn_rescore.shortlist_ref(s, d)
+    for k in ("sc", "dp", "a_aug", "b_aug"):
+        assert torch.equal(_bits(det[k]), _bits(plain[k])), k
+    assert det["cand"].shape == plain["cand"].shape
+    ridx, rd2 = nn_rescore.nn_rescore_ref(s, d)
+    for i in range(b):
+        one_i, one_d = nn_rescore.nn_rescore(s[i].contiguous(),
+                                             d[i // groups].contiguous())
+        assert torch.equal(idx[i], one_i), i
+        assert torch.equal(_bits(d2[i]), _bits(one_d)), i
+        assert bool(packed_mma.near_ties(
+            det["a_aug"][i], det["b_aug"][i // groups], det["cand"][i],
+            plain["cand"][i]).all()), i
+        same = idx[i] == ridx[i]
+        assert float(same.float().mean()) >= 0.999
+        assert torch.equal(d2[i][same], rd2[i][same])
+
+
+@pytest.mark.parametrize("kernel", ["gn_accum", "nn_bf16", "nn_rescore"])
+def test_batched_kernels_launch_count_independent_of_batch(cuda_device,
+                                                           kernel):
+    """One call makes the same launches at B = 1, 3 and 4, and the card
+    runs only the kernels of the design: one K2 launch; K3's centre, pack,
+    scan and fold; K4's centre, pack, scan and rescore."""
+    seen = {}
+    for b, groups in BATCHES:
+        if kernel == "gn_accum":
+            rows = [_gn_case(4096, seed=i) for i in range(b)]
+            args = [torch.from_numpy(np.stack(x)).to(cuda_device)
+                    for x in zip(*rows)]
+            fn = gn_cuda.gn_accum
+        else:
+            args = _batched_nn_case(b, groups, cuda_device, m=1000, n=900)
+            fn = getattr({"nn_bf16": nn_bf16, "nn_rescore": nn_rescore}[
+                kernel], kernel)
+        seen[b] = _launches_per_call(lambda: fn(*args))
+    want = {"gn_accum": ["gn_accum_kernel"],
+            "nn_bf16": ["nn_centre_kernel", "nn_fold_kernel",
+                        "nn_pack_kernel", "packed_scan_kernel"],
+            "nn_rescore": ["nn_centre_kernel", "nn_pack_kernel",
+                           "nn_rescore_kernel", "packed_scan_kernel"]}[kernel]
+    for b, (launches, names) in seen.items():
+        assert launches == len(want), (b, launches, names)
+        assert all(any(w in n for w in want) for n in names), (b, names)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "rescore"])
+def test_sharded_align_batched_nn_on_card_matches_cpu(cuda_device,
+                                                      precision):
+    """The sharded align without a world at "bf16" and "rescore" on the
+    card: K3/K4 and K2 once a trip each in their batched forms, against the
+    port on the CPU, rtol 1e-4 / atol 1e-5. The tensor cores' picks are the
+    plain version's but for near-ties, so a row may meet the rmse tolerance
+    one iteration apart (seen at "bf16" on an H100: 5 against 6)."""
+    from tpu_icp_slam_torch.dist import ShardedAligner, make_mesh
+
+    cfg, arrays = _plane_cases(b=3)
+    cfg = dataclasses.replace(cfg, nn_precision=precision,
+                              nn_backend="pallas")
+    counter = {"bf16": nn_bf16.nn_bf16,
+               "rescore": nn_rescore.nn_rescore}[precision]
+    aligner = ShardedAligner(make_mesh(1, device=cuda_device), cfg)
+    before = (counter.launches, counter.batched_launches,
+              gn_cuda.gn_accum.launches, gn_cuda.gn_accum.batched_launches)
+    res = aligner(*arrays)
+    trips = int(res.iters.max())
+    assert (counter.launches, counter.batched_launches,
+            gn_cuda.gn_accum.launches,
+            gn_cuda.gn_accum.batched_launches) == tuple(
+        x + trips for x in before)
+    T_cpu, it_cpu = _cpu_align(cfg, arrays)
+    np.testing.assert_allclose(res.T.cpu().numpy(), T_cpu, rtol=1e-4,
+                               atol=1e-5)
+    assert np.abs(res.iters.cpu().numpy() - it_cpu).max() <= 1, it_cpu

@@ -27,14 +27,15 @@ from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
 
 from test_scan_to_map import _s2m_cfg
 
-# Bounds at about 10x the largest gap observed over the cases below (CPU,
-# port's plain version vs interpret mode), as (metres, radians, rmse in m).
-# One align: at "highest" both pick the same neighbours and differ by
-# float32 summation order (observed 4.2e-7 m, 2.2e-8 rad, rmse 6.0e-8); at
-# "bf16" the reference also rebuilds q and n from bf16 hi/lo halves
-# (~2^-16 relative) where the port gathers them exactly (observed 2.1e-5 m,
-# 1.7e-7 rad, rmse 7.0e-6). Iteration and inlier counts agree exactly.
-ALIGN_GAP = {"highest": (5e-6, 3e-7, 1e-6), "bf16": (2e-4, 2e-6, 1e-4)}
+# Bounds on the largest gap over the cases below (CPU, port's plain version
+# vs interpret mode; `python tests/test_torch_fused.py` prints them), as
+# (metres, radians, rmse in m). One align: at "highest" both pick the same
+# neighbours and differ by float32 summation order (observed 4.2e-7 m,
+# 2.2e-8 rad, rmse 6.0e-8; bounds at about 10x). At "bf16" both rebuild q
+# and n from their bf16 hi/lo halves and differ by summation order too
+# (observed 3.6e-7 m, 4.9e-8 rad, rmse 6.0e-8 over 1 and 3 torch threads;
+# bounds at 2x). Iteration and inlier counts agree exactly.
+ALIGN_GAP = {"highest": (5e-6, 3e-7, 1e-6), "bf16": (7.2e-7, 9.7e-8, 1.19e-7)}
 # Per-frame poses of the fused slice: at "highest" observed 4.0e-5 m and
 # 1.1e-5 rad (iteration counts +-1 at the tol threshold). At "bf16" the
 # float32 sum order of the packed scores flips near-tie selections and the
@@ -230,3 +231,31 @@ def test_fused_state_carried_from_reference_continues():
         assert gap.max() <= SLICE_GAP["highest"][0], gap.max()
         assert bool(tinfo["map_inserted"]) == bool(jinfo["map_inserted"])
         assert int(tinfo["map_points"]) == int(jinfo["map_points"])
+
+
+def align_gaps(precision, names):
+    """(metres, radians, rmse) gap of the port's plain version from the
+    reference's interpret mode on each named case."""
+    out = {}
+    for name in names:
+        (Tr, rr, *_), (Tp, rp, *_) = _both(*_case(name), precision)
+        out[name] = (float(np.linalg.norm(Tr[:3, 3] - Tp[:3, 3])),
+                     float(_rot_gap(Tr[None], Tp[None])[0]),
+                     abs(float(rr) - float(rp)))
+    return out
+
+
+if __name__ == "__main__":
+    # The measurement behind ALIGN_GAP: python tests/test_torch_fused.py
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    for prec, names in (("highest", [*CASES, "motion_prior_plane_only"]),
+                        ("bf16", ["highest", "non_tile_multiple",
+                                  "trust_region_binding"])):
+        gaps = align_gaps(prec, names)
+        for name, g in gaps.items():
+            print(f"{prec} {name}: {g[0]:.3e} m, {g[1]:.3e} rad, rmse "
+                  f"{g[2]:.3e}")
+        print(f"{prec} largest: " + ", ".join(
+            f"{max(g[i] for g in gaps.values()):.3e}" for i in range(3)))
