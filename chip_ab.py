@@ -7,6 +7,8 @@ builds of the kernels K1, K3, K4 and K5.
     python3 chip_ab.py --profiler-effect
     python3 chip_ab.py --sass
     python3 chip_ab.py --trip-ab OLD_ROOT
+    python3 chip_ab.py --loop-profile ROOT
+    python3 chip_ab.py --loop-ab OLD_ROOT [--rounds 2]
 
 With --sass, the kernels are built anew with ptxas's register, shared-memory
 and spill report, the library is disassembled with cuobjdump, and for the
@@ -82,6 +84,24 @@ host) over --rounds runs after a warm-up, and the kernel launches a trip
 from the package's counters. OLD_ROOT is a checkout of an earlier commit,
 e.g. `git archive <commit> | tar -x -C build/old_tree`.
 
+With --loop-profile ROOT, ROOT's package (ROOT/src) runs two point-to-point
+paths, each in a process of its own: chip_smoke's phase 15(2) Slam2D.run
+(sim2d_loop, 60 frames, configs/lidar2d_scan_to_map.json) and one backend
+verify_batch at phase 13's shape (the full-SLAM preset's detector, a
+16,384-point query against two candidates, eight yaws each: B = 16). Each
+runs once as a warm-up, then under torch's sync debug mode (every host sync
+counted by the two innermost frames of the port that made it), then once
+under torch.profiler: the profiled wall, the device's own time and its busy
+and idle shares, launches, and the ops with the most host and device time.
+
+With --loop-ab OLD_ROOT, phase 15(2)'s Slam2D.run (frames/s), the
+verify_batch above (ms a batched iteration, host clock) and phase 13's
+Slam3D.run on its 180-frame loop (backend seconds, frames/s, verification
+iterations, closures, ATE) run --rounds times each after a warm-up, in four
+processes: OLD_ROOT's package, this tree's, this tree's again, OLD_ROOT's
+again; then the medians of each tree. The loop log is made once and kept
+in build/chip_ab_loop_scans.npz.
+
 Prints one line per measurement and, last, {"done": true}. Exits nonzero
 without CUDA.
 """
@@ -98,6 +118,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke
@@ -631,6 +652,277 @@ def trip_ab(old_root, rounds):
     return results
 
 
+def _sync_sites(fn):
+    """Synchronizing CUDA calls made by fn(), as torch's sync debug mode
+    reports them, counted by where the port made each: the innermost two
+    frames of the stack inside tpu_icp_slam_torch ("file:line <- caller")."""
+    import collections
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        own = [f for f in traceback.extract_stack()[:-1]
+               if "tpu_icp_slam_torch" in f.filename]
+        where = [f"{Path(f.filename).name}:{f.lineno}"
+                 for f in reversed(own[-2:])]
+        sites[" <- ".join(where) or f"{Path(filename).name}:{lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(sites.most_common())
+
+
+def _profile_summary(fn, top=10):
+    """One torch.profiler run of fn(): profiled wall, the device's own time
+    (kernels, copies and fills) and busy share (a lower bound: the profiler
+    slows the host), runtime launch calls, and the ops with the most host
+    time and the most device time of their own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA),
+                 key=lambda a: -a.self_device_time_total)
+    host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
+                  key=lambda a: -a.self_cpu_time_total)
+    device_ms = sum(a.self_device_time_total for a in dev) / 1e3
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "busy": device_ms / wall_ms, "idle": 1.0 - device_ms / wall_ms,
+        "launches": sum(a.count for a in avgs if a.key.startswith(
+            ("cudaLaunch", "cuLaunch", "cudaGraphLaunch"))),
+        "top_host": [(a.key[:70], a.count, a.self_cpu_time_total / 1e3)
+                     for a in host[:top]],
+        "top_device": [(a.key[:70], a.count, a.self_device_time_total / 1e3)
+                       for a in dev[:top]]}
+
+
+def _loop_scans():
+    """Phase 13's 180-frame loop log, made once and kept under build/ for
+    the other worker processes."""
+    path = Path(chip_smoke.ROOT) / "build" / "chip_ab_loop_scans.npz"
+    if path.exists():
+        with np.load(path) as z:
+            return z["pts"], z["msk"], z["gt"]
+    cfg = chip_smoke.full_slam_config()
+    pts, msk, gt = chip_smoke._scans(
+        chip_smoke.LOOP_FRAMES, 48, 1024, 1.0, cfg.pipeline.downsample_voxel,
+        cfg.pipeline.scan_capacity, chip_smoke.LOOP_WAYPOINTS)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, pts=pts, msk=msk, gt=gt)
+    return pts, msk, gt
+
+
+def _slam2d_cell():
+    """Phase 15(2)'s Slam2D.run: sim2d_loop, 60 frames, configs/
+    lidar2d_scan_to_map.json; returns run() -> (slam, report, seconds)."""
+    from tpu_icp_slam_torch import from_json
+    from tpu_icp_slam_torch.slam import runner, slam2d
+
+    with open(chip_smoke.CONFIG2) as f:
+        cfg = from_json(f.read())
+    pts, msk = runner.pad_scans(runner.load_dataset(
+        "sim2d_loop", chip_smoke.SIM2D_FRAMES).scans,
+        cfg.pipeline.scan_capacity)
+
+    def run():
+        slam = slam2d.Slam2D(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rep = slam.run(pts, msk)
+        torch.cuda.synchronize()
+        return slam, rep, time.perf_counter() - t0
+
+    return run
+
+
+def _verify_cell():
+    """One backend verify_batch at phase 13's shape: the full-SLAM preset's
+    detector, a 16,384-point query (frame 6 of phase 4's log) against two
+    candidates (frames 0 and 3), eight yaws each: B = 16. Returns run() ->
+    (batched iterations, seconds); the call ends in host copies."""
+    from tpu_icp_slam_torch.backend.loop_closure import (
+        LoopCandidate, LoopDetector,
+    )
+
+    cfg = chip_smoke.full_slam_config()
+    pts, msk, gt = chip_smoke._scans(
+        chip_smoke.FRAMES, 48, 1024, chip_smoke.FRAMES / 110.0, 0.15,
+        chip_smoke.SCAN_POINTS)
+    det = LoopDetector(cfg.backend, device="cuda")
+    for i in (0, 3, 6):
+        det.add_keyframe(pts[i], msk[i], position=gt[i][:3, 3])
+    cands = [LoopCandidate(query_idx=2, match_idx=k, score=1.0, yaw=0.0)
+             for k in (0, 1)]
+    match = [0, 3]
+
+    def run():
+        n0 = det.verify_iters
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.verify_batch(cands, pts[6], msk[6], pts[match], msk[match])
+        return det.verify_iters - n0, time.perf_counter() - t0
+
+    return run
+
+
+def _slam3d_run(pts, msk, gt):
+    """Phase 13's Slam3D.run once: end-to-end frames/s, backend seconds,
+    verification iterations, closures, ATE."""
+    from tpu_icp_slam_torch.slam.slam3d import Slam3D
+
+    slam = Slam3D(chip_smoke.full_slam_config(), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses, rep = slam.run(pts, msk, mode="fused")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"fps": (len(pts) - 1) / dt, "backend_s": slam.backend_s,
+            "verify_iters": slam.detector.verify_iters,
+            "closures": rep.n_loop_closures,
+            "ate": float(chip_smoke._ate(poses, gt))}
+
+
+LOOP_MODES = ("profile-slam2d", "profile-verify", "ab")
+
+
+def loop_worker(src_dir, mode, rounds):
+    """One process of --loop-profile or --loop-ab: the package from
+    src_dir; prints one JSON line."""
+    sys.path.insert(0, str(Path(src_dir).resolve()))
+    import tpu_icp_slam_torch
+    from tpu_icp_slam_torch.kernels import _build
+
+    assert Path(tpu_icp_slam_torch.__file__).resolve().is_relative_to(
+        Path(src_dir).resolve()), tpu_icp_slam_torch.__file__
+    _build.build()
+    out = {"src": str(src_dir), "mode": mode, "card": chip_smoke.card()}
+    if mode == "profile-slam2d":
+        run = _slam2d_cell()
+        run()  # warm-up
+        slam, rep, dt = run()
+        out["fps"] = (chip_smoke.SIM2D_FRAMES - 1) / dt
+        holder = {}
+        out["syncs"] = _sync_sites(lambda: holder.update(s=run()[0]))
+        slam = holder["s"]
+        out["frontend_iters"] = int(slam.frontend_iters.sum())
+        out["verify_iters"] = slam.detector.verify_iters
+        out["keyframes"] = rep.n_keyframes
+        out["profile"] = _profile_summary(run)
+    elif mode == "profile-verify":
+        run = _verify_cell()
+        run()  # warm-up
+        trips, times = 0, []
+        for _ in range(max(rounds, 1)):
+            n, dt = run()
+            trips = n
+            times.append(dt * 1e3 / n)
+        out["trips"] = trips
+        out["trip_ms"] = times
+        out["syncs"] = _sync_sites(run)
+        out["profile"] = _profile_summary(run)
+    else:
+        s2 = _slam2d_cell()
+        s2()  # warm-up
+        out["slam2d_fps"] = [(chip_smoke.SIM2D_FRAMES - 1) / s2()[2]
+                             for _ in range(rounds)]
+        ver = _verify_cell()
+        ver()
+        out["verify_trip_ms"] = []
+        for _ in range(rounds):
+            n, dt = ver()
+            out["verify_trip_ms"].append(dt * 1e3 / n)
+        pts, msk, gt = _loop_scans()
+        out["slam3d"] = [_slam3d_run(pts, msk, gt) for _ in range(rounds)]
+    print(json.dumps(out))
+
+
+def _loop_process(tree, mode, rounds):
+    proc = subprocess.run(
+        [sys.executable, __file__, "--loop-worker", str(tree), "--loop-mode",
+         mode, "--rounds", str(rounds)], capture_output=True, text=True,
+        cwd=chip_smoke.ROOT, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"loop worker {mode} on {tree} failed:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def loop_profile(root, rounds):
+    """--loop-profile: the Slam2D run and one verify_batch, each profiled in
+    a process of its own (sync sites, then one torch.profiler run)."""
+    out = []
+    for mode in ("profile-slam2d", "profile-verify"):
+        res = _loop_process(Path(root) / "src", mode, rounds)
+        print(f"[loop profile] {mode} {res['card']}: "
+              f"{json.dumps({k: v for k, v in res.items() if k != 'profile'})}")
+        prof = res["profile"]
+        print(f"    profiled wall {prof['wall_ms']:.3f} ms, device "
+              f"{prof['device_ms']:.3f} ms, busy {prof['busy']:.4f}, idle "
+              f"{prof['idle']:.4f}, launches {prof['launches']}")
+        for kind in ("top_host", "top_device"):
+            for key, count, ms in prof[kind]:
+                print(f"    {kind} {key:<70} {count:7d} {ms:10.3f} ms")
+        out.append(res)
+    return out
+
+
+def _join(vals, digits):
+    return ", ".join(f"{v:.{digits}f}" for v in vals)
+
+
+def loop_ab(old_root, rounds):
+    """--loop-ab: phase 15(2)'s Slam2D.run, phase 13's Slam3D.run and one
+    verify_batch at phase 13's shape, old, new, new, old, each in a process
+    of its own."""
+    trees = [Path(old_root) / "src", Path(chip_smoke.ROOT) / "src"]
+    results = []
+    for tree in (trees[0], trees[1], trees[1], trees[0]):
+        res = _loop_process(tree, "ab", rounds)
+        label = "old" if tree == trees[0] else "new"
+        s3 = res["slam3d"]
+        print(f"[loop {label}] {res['card']} | Slam2D.run frames/s "
+              f"{_join(res['slam2d_fps'], 3)} | verify ms a trip "
+              f"{_join(res['verify_trip_ms'], 4)} | Slam3D backend s "
+              f"{_join([r['backend_s'] for r in s3], 3)}, frames/s "
+              f"{_join([r['fps'] for r in s3], 3)}, verify iters "
+              f"{[r['verify_iters'] for r in s3]}, closures "
+              f"{[r['closures'] for r in s3]}, ATE "
+              f"{_join([r['ate'] for r in s3], 5)}")
+        results.append({"tree": label, **res})
+    for label in ("old", "new"):
+        runs = [r for r in results if r["tree"] == label]
+        med = {
+            "slam2d_fps": statistics.median(
+                v for r in runs for v in r["slam2d_fps"]),
+            "verify_trip_ms": statistics.median(
+                v for r in runs for v in r["verify_trip_ms"]),
+            "backend_s": statistics.median(
+                s["backend_s"] for r in runs for s in r["slam3d"]),
+            "slam3d_fps": statistics.median(
+                s["fps"] for r in runs for s in r["slam3d"])}
+        print(f"[loop median] {label}: {json.dumps(med)}")
+    return results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
@@ -645,11 +937,33 @@ def main() -> int:
                     help="the sharded align's ms a trip, OLD_ROOT's package "
                          "against this tree's")
     ap.add_argument("--trip-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--loop-profile", default=None, metavar="ROOT",
+                    help="sync sites and a profile of the Slam2D run and "
+                         "of one verify_batch, ROOT's package")
+    ap.add_argument("--loop-ab", default=None, metavar="OLD_ROOT",
+                    help="Slam2D.run, Slam3D's backend and the "
+                         "verification trip, OLD_ROOT's package against "
+                         "this tree's")
+    ap.add_argument("--loop-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--loop-mode", choices=LOOP_MODES,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.trip_worker:
         trip_worker(args.trip_worker, args.rounds)
         return 0
+    if args.loop_worker:
+        loop_worker(args.loop_worker, args.loop_mode, args.rounds)
+        return 0
     chip_smoke.phase_device()
+    if args.loop_profile or args.loop_ab:
+        if args.loop_profile:
+            print(json.dumps({"loop_profile": loop_profile(
+                args.loop_profile, args.rounds)}))
+        if args.loop_ab:
+            print(json.dumps({"loop_ab": loop_ab(args.loop_ab,
+                                                 args.rounds)}))
+        print(json.dumps({"done": True}))
+        return 0
     if args.trip_ab:
         print(json.dumps({"trip_ab": trip_ab(args.trip_ab, args.rounds)}))
         print(json.dumps({"done": True}))

@@ -58,7 +58,8 @@ nonzero and the final line is not printed:
      poses, >= 1 accepted closure, ATE < 0.5 m, K4 launches = the front
      end's ICP iterations, K3 = K5 = 0, and every K1 launch a batched
      verification launch, as many as the batched iterations verification
-     ran.
+     ran, as many RF launches; then one verification of a kept closure
+     under sync debug mode: host syncs a batched iteration.
  14. cli and state: the port's command line in this process with the
      default device, everything under build/chip_cli/. (1) Phase 4's log
      written as a KITTI sequence (datasets/kitti.write_sequence) and `cli
@@ -84,9 +85,12 @@ nonzero and the final line is not printed:
      configs/lidar2d_scan_to_map.json`: rc 0, finite poses, tpu_ate <
      0.25 m, >= 1 accepted closure, K1 launches at D = 3 equal to the front
      end's ICP iterations, batched K1 launches at D = 2 equal to the
-     verification iterations, K2 = K3 = K4 = K5 = 0; Slam2D.run's frames/s.
-     (3) `cli run --dataset sim2d --frames 30` with SlamConfig(): rc 0,
-     map.png a PNG, one K1 launch at D = 2 per ICP iteration; frames/s. (4)
+     verification iterations, K2 = K3 = K4 = K5 = 0, RF launches = front-
+     end plus verification iterations; Slam2D.run's frames/s; host syncs
+     an ICP iteration of one front-end align (at most one) and a batched
+     iteration of one verification. (3) `cli run --dataset sim2d --frames
+     30` with SlamConfig(): rc 0, map.png a PNG, one K1 launch at D = 2 per
+     ICP iteration; frames/s. (4)
      the same log written as a CARMEN .clf file (carmen.write_clf) and read
      back within the writer's precision, through `cli run`. (5) a
      Slam2D streaming run checkpointing every 20 frames, resumed, held to
@@ -146,6 +150,22 @@ nonzero and the final line is not printed:
      the tensor-core contract of phases 7 and 11 on the rows with a real
      target (the device packing bit-equal to the batched plain packing),
      the all-sentinel row's picks the plain version's.
+ 20. RF (the rigid fit of every point-to-point iteration, in place of
+     torch.linalg.svd) and the graphed verification, run before the
+     profile: RF against a float64 numpy Umeyama (within 1e-5 where the
+     rotation is unique) and its plain version (within 1e-5 beyond the plain
+     version's own gap to float64; at rank D-1 the rotation within 1e-5) at
+     B = 1, 16 and 32, D = 2 and 3, on well-conditioned, reflecting, rank
+     D-1, near-equal, zero and (D = 3) collinear covariances, a proper
+     rotation on every case, non-finite in non-finite out; umeyama_masked
+     at B = 16 x 16,384 with no sync under sync debug mode "error"; then
+     align_batched at phase 13's shape (frame 6 against frames 0 and 3,
+     eight yaws each: B = 16, 16,384 points, the backend's coarse
+     settings): every trip's carried state bit-equal to the trip function
+     driven eagerly on the card, one host sync a trip (the condition read;
+     none after a trip that reaches max_iters), batched K1
+     and RF one launch a trip with the graph's replays counted, the memory
+     one graph holds, and ms a trip eager and graphed.
  19. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4, batched or not, must make their four
@@ -167,9 +187,12 @@ alone (device time plus the wrapper's host work); plain_ms, the plain
 version's time; bound_ms and bound_by, the least time the card could take
 (FP32 or bf16 operations over the published H100 peak, or bytes over 3.35
 TB/s, whichever is larger), from this run's shapes and iteration counts;
-library_ms, null: no single PyTorch call computes any of these functions;
-share, bound_ms / ms. The batched rows (phase 18) count their launches on
-phase 17's sharded align and give launches_per_trip.
+library_ms, null but for RF's row: no single PyTorch call computes these
+functions, and RF's is torch.linalg.svd alone on the same (B, 3, 3), which
+the port never calls on the card; share, bound_ms / ms. RF's bound counts
+its float64 operations over the H100's FP64 peak. The batched rows (phase
+18) count their launches on phase 17's sharded align and give
+launches_per_trip.
 """
 
 from __future__ import annotations
@@ -327,7 +350,8 @@ def _device_ms(fn, n=50, reps=5, strict=True):
 # The port's own CUDA kernels (csrc/*.cu), as the profiler names them.
 OWN_KERNELS = ("nn_split_kernel", "nn_fold_kernel", "gn_accum_kernel",
                "nn_centre_kernel", "nn_pack_kernel", "packed_scan_kernel",
-               "nn_rescore_kernel", "icp_fused_kernel", "coop_probe_kernel")
+               "nn_rescore_kernel", "icp_fused_kernel", "coop_probe_kernel",
+               "rigid_fit_kernel")
 
 
 def _kernel_ms(fn, n=20, names=OWN_KERNELS, tries=3, label=""):
@@ -683,8 +707,15 @@ def _counters():
             "K5": icp_fused.icp_fused}
 
 
+def _rf():
+    """RF's wrapper, whose `launches` counts its launches."""
+    from tpu_icp_slam_torch.icp.point_to_point import rigid_from_stats
+
+    return rigid_from_stats
+
+
 def _zero_counts():
-    for fn in _counters().values():
+    for fn in (*_counters().values(), _rf()):
         fn.launches = 0
     for k in ("K1", "K2", "K3", "K4"):
         _counters()[k].batched_launches = 0
@@ -1123,6 +1154,7 @@ def phase_full_slam():
     dt = time.perf_counter() - t0
     c = _counts()
     batched = nn_cuda.nn_bruteforce.batched_launches
+    rf = _rf().launches
     iters = int(slam.frontend_iters.sum())
     n_frames = len(pts) - 1
     fe_s = sum(x[2] for x in slam.chunk_stats)
@@ -1142,16 +1174,44 @@ def phase_full_slam():
           f"| kept closures' translation error vs ground truth median "
           f"{np.median(lc_err):.4f} m, max {np.max(lc_err):.4f} m | ATE "
           f"{ate:.5f} m (front end only {ate_fe:.5f} m) | launches "
-          f"{c}, K1 batched {batched}, verify iterations "
+          f"{c}, K1 batched {batched}, RF {rf}, verify iterations "
           f"{slam.detector.verify_iters}")
     assert np.isfinite(poses).all(), "non-finite pose"
     assert rep.n_loop_closures >= 1, "no accepted closure"
     assert ate < 0.5, f"ATE {ate} m"
     assert c["K4"] == c["K2"] == iters > 0, (c, iters)
     assert c["K3"] == c["K5"] == 0, c
-    assert c["K1"] == batched == slam.detector.verify_iters > 0, \
-        (c["K1"], batched, slam.detector.verify_iters)
-    return c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam)
+    assert c["K1"] == batched == rf == slam.detector.verify_iters > 0, \
+        (c["K1"], batched, rf, slam.detector.verify_iters)
+    _verify_syncs(slam.detector, pts, msk, slam.kf_frames,
+                  (slam.closures_kept or slam.closures)[0], "full slam")
+    return c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam), rf
+
+
+def _verify_syncs(det, pts, msk, kf_frames, closure, label):
+    """Host syncs of one verification of a kept closure (its two keyframes'
+    scans, the detector's yaw hypotheses) a batched iteration: one a trip
+    (the loop's condition; chip_smoke phase 20 holds align_batched to it)
+    plus the verify call's own reads (its inputs, descriptors and
+    results)."""
+    from tpu_icp_slam_torch.backend.loop_closure import LoopCandidate
+
+    cand = LoopCandidate(query_idx=closure.j, match_idx=closure.i,
+                         score=1.0, yaw=0.0)
+    q, mt = kf_frames[closure.j], kf_frames[closure.i]
+
+    def run():
+        det.verify_batch([cand], pts[q], msk[q], pts[mt][None],
+                         msk[mt][None])
+
+    run()  # the trip graphs of this batch exist from here on
+    n0 = det.verify_iters
+    syncs = _host_syncs(run)
+    trips = det.verify_iters - n0
+    print(f"[{label}] one verification (closure {closure.i}-{closure.j}, "
+          f"B = {det.cfg.verify_yaws}): {trips} batched iterations, {syncs} "
+          f"host syncs, {syncs / trips:.3f} a trip ({syncs - trips} of them "
+          f"the verify call's own reads)")
 
 
 CLI_DIR = os.path.join(ROOT, "build", "chip_cli")
@@ -1385,6 +1445,29 @@ def phase_k1_2d():
              "max_abs_err": 0.0, **tb})
 
 
+def _frontend_syncs(cfg, pts, msk):
+    """Host syncs a point-to-point ICP iteration of config 2's front end:
+    one align of frame 1 onto frame 0, both lifted to z = 0 as Slam2D
+    lifts them, at the preset's ICP settings. One a trip: the loop's
+    condition read."""
+    from tpu_icp_slam_torch.core.pointcloud import PointCloud
+    from tpu_icp_slam_torch.icp import loop
+
+    dev = torch.device("cuda")
+    lifted = [PointCloud(points=torch.as_tensor(np.pad(
+        pts[f], ((0, 0), (0, 1))), device=dev), mask=torch.as_tensor(
+        msk[f], device=dev)) for f in (1, 0)]
+    loop.align(*lifted, cfg=cfg.icp)  # warm-up
+    out = {}
+    syncs = _host_syncs(lambda: out.update(r=loop.align(*lifted,
+                                                        cfg=cfg.icp)))
+    iters = out["r"].iters
+    print(f"[config 2 front end] one point-to-point align (frame 1 on 0, "
+          f"z = 0 lift): {iters} ICP iterations, {syncs} host syncs, "
+          f"{syncs / iters:.3f} an iteration")
+    assert syncs <= iters, (syncs, iters)
+
+
 def phase_config2():
     """Config 2 through the command line with the default device, then a
     Slam2D resume; everything under build/chip_cli2d/. Returns the K1
@@ -1417,6 +1500,7 @@ def phase_config2():
         rc, ev, dt = _cli(["eval", "--dataset", "sim2d_loop", "--frames",
                            str(SIM2D_FRAMES), "--config", CONFIG2])
         c, batched, k1_2d = _counts(), k1.batched_launches, k1.launches_2d
+        rf = _rf().launches
     finally:
         runner.Slam2D = slam2d.Slam2D
     slam, (poses, rep), run_s = runs[-1]
@@ -1431,8 +1515,8 @@ def phase_config2():
           f"{rep.n_loop_closures} (rejected {rep.n_loops_rejected}) | front "
           f"end ICP iterations {fe_iters}, verification iterations "
           f"{slam.detector.verify_iters} | launches {c}, K1 batched "
-          f"{batched}, K1 on 2-D points {k1_2d} | {dt:.3f} s with the "
-          f"golden oracle")
+          f"{batched}, K1 on 2-D points {k1_2d}, RF {rf} | {dt:.3f} s with "
+          f"the golden oracle")
     assert rc == 0 and np.isfinite(poses).all(), "config 2 eval failed"
     assert all(np.isfinite(ev[k]) for k in
                ("tpu_ate", "golden_ate", "tpu_vs_golden_ate")), ev
@@ -1442,6 +1526,13 @@ def phase_config2():
     assert k1_2d == batched == slam.detector.verify_iters > 0, \
         (k1_2d, batched, slam.detector.verify_iters)
     assert c["K2"] == c["K3"] == c["K4"] == c["K5"] == 0, c
+    assert rf == fe_iters + batched, (rf, fe_iters, batched)
+    cfg = from_json(open(CONFIG2).read())
+    pts, msk = runner.pad_scans(runner.load_dataset(
+        "sim2d_loop", SIM2D_FRAMES).scans, cfg.pipeline.scan_capacity)
+    _frontend_syncs(cfg, pts, msk)
+    _verify_syncs(slam.detector, pts, msk, slam.kf_frames,
+                  (slam.closures_kept or slam.closures)[0], "config 2 eval")
 
     # (2) SlamConfig()'s 2D scan-to-scan run with its occupancy grid
     out = os.path.join(CLI2D_DIR, "sim2d")
@@ -1491,9 +1582,6 @@ def phase_config2():
 
     # (4) Slam2D streaming with a checkpoint every 20 frames, cut at frame
     # 49, resumed from frame 41: held to the eval's uninterrupted run
-    cfg = from_json(open(CONFIG2).read())
-    pts, msk = runner.pad_scans(runner.load_dataset(
-        "sim2d_loop", SIM2D_FRAMES).scans, cfg.pipeline.scan_capacity)
     ck = os.path.join(CLI2D_DIR, "slam2d_ck.npz")
     t0 = time.perf_counter()
     slam2d.Slam2D(cfg).run(pts[:50], msk[:50], checkpoint_path=ck,
@@ -2293,6 +2381,232 @@ def phase_batched(pts, msk):
             phase_batched_k4(src, dst, real, valid1)]
 
 
+# ---- phase 20: RF and the graphed verification ------------------------------
+
+# FP64 peak of one H100 SXM outside the tensor cores (NVIDIA's data sheet)
+H100_FP64_FLOPS = 34e12
+
+
+def rf_bound(batch, d):
+    """RF's least time: its bytes (cov, mu_s, mu_d in; T out) against its
+    float64 operations, ~1,300 an element at D = 3 (A = covᵀ cov, eight
+    Jacobi sweeps of three rotations, the vectors and R) and ~40 at D = 2
+    (atan2, sincos, t)."""
+    flops = 1300.0 if d == 3 else 40.0
+    return _bound(flops * batch,
+                  4.0 * batch * (d * d + 2 * d + (d + 1) ** 2),
+                  H100_FP64_FLOPS)
+
+
+def _rf_cases(d, batch, rng):
+    """name -> ((cov (B, d, d), mu_s, mu_d (B, d)) float32 numpy, whether
+    Umeyama's rotation is unique): well-conditioned, reflecting (det(U Vᵀ)
+    = -1), rank D-1 (at D = 3 the z = 0 lift of config 2), near-equal
+    singular values, cov = 0, and at D = 3 collinear inliers (rank 1)."""
+    q, r = np.linalg.qr(rng.normal(size=(batch, d, d)))
+    R0 = q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[:, None, :]
+    R0[:, :, 0] *= np.sign(np.linalg.det(R0))[:, None]
+    a, b = rng.normal(size=(2, batch, d))
+    rank = a[:, :, None] * b[:, None, :]
+    if d == 3:
+        rank = np.zeros((batch, 3, 3))
+        rank[:, :2, :2] = rng.normal(size=(batch, 2, 2))
+    cases = {"random": (rng.normal(size=(batch, d, d)), True),
+             "reflecting": (R0 * np.asarray([3.0, 2.0, -1.0][3 - d:]), True),
+             "rank_d_minus_1": (rank, True),
+             "near_equal": (R0 * np.asarray([1.0, 1 + 1e-6, 1 - 1e-6][:d]),
+                            True),
+             "zero": (np.zeros((batch, d, d)), True)}
+    if d == 3:
+        cases["collinear"] = (a[:, :, None] * b[:, None, :], False)
+    mu = rng.normal(size=(2, batch, d)) * 5.0
+    return {k: ((c.astype(np.float32), mu[0].astype(np.float32),
+                 mu[1].astype(np.float32)), unique)
+            for k, (c, unique) in cases.items()}
+
+
+def _umeyama64(cov, mu_s, mu_d):
+    """Float64 numpy Umeyama: (R, t)."""
+    U, _, Vt = np.linalg.svd(cov.astype(np.float64))
+    corr = np.ones(cov.shape[:-1])
+    corr[..., -1] = np.sign(np.linalg.det(U @ Vt))
+    R = (U * corr[..., None, :]) @ Vt
+    return R, mu_d - np.einsum("...ij,...j->...i", R,
+                               mu_s.astype(np.float64))
+
+
+def phase_rf():
+    """RF against its plain version (torch's SVD form on the card) and a
+    float64 numpy Umeyama at B = 1, 16 and 32, D = 2 and 3; a non-finite
+    input; no sync in umeyama_masked; RF's row, timed at phase 13's
+    verification shape (B = 16, D = 3)."""
+    from tpu_icp_slam_torch.icp import point_to_point as p2p
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20)
+    err_plain = gap64 = 0.0
+    n_cases = 0
+    for d in (2, 3):
+        for batch in (1, 16, 32):
+            for name, ((cov, mu_s, mu_d), unique) in _rf_cases(
+                    d, batch, rng).items():
+                args = [torch.as_tensor(a, device=dev)
+                        for a in (cov, mu_s, mu_d)]
+                n0 = p2p.rigid_from_stats.launches
+                T = p2p.rigid_from_stats(*args)
+                assert p2p.rigid_from_stats.launches == n0 + 1
+                plain = p2p.rigid_from_stats_ref(*args)
+                T, plain = (x.cpu().numpy().astype(np.float64)
+                            for x in (T, plain))
+                R = T[:, :d, :d]
+                tag = f"RF D={d} B={batch} {name}"
+                assert np.isfinite(T).all(), tag
+                assert np.abs(np.linalg.det(R) - 1.0).max() < 1e-5, tag
+                assert np.abs(R @ R.transpose(0, 2, 1) - np.eye(d)).max() \
+                    < 1e-5, tag
+                n_cases += 1
+                if not unique:
+                    continue
+                R64, t64 = _umeyama64(cov, mu_s, mu_d)
+
+                def gap(x):
+                    return max(np.abs(x[:, :d, :d] - R64).max(),
+                               np.abs(x[:, :d, d] - t64).max())
+
+                # the plain version (torch's float32 SVD on the card) is
+                # itself up to ~5e-5 off on ill-conditioned random cases
+                g, e = gap(T), np.abs(T - plain).max()
+                assert g < 1e-5 and e <= 1e-5 + gap(plain), (tag, g, e)
+                if name == "rank_d_minus_1":
+                    assert np.abs(R - plain[:, :d, :d]).max() < 1e-5, tag
+                if name == "zero":
+                    assert (R == np.eye(d)).all(), tag
+                gap64, err_plain = max(gap64, g), max(err_plain, e)
+    bad = torch.ones(4, 3, 3, device=dev)
+    bad[1, 2, 0] = math.nan
+    bad[2, 0, 1] = math.inf
+    T = p2p.rigid_from_stats(bad, torch.zeros(4, 3, device=dev),
+                             torch.zeros(4, 3, device=dev)).cpu()
+    assert not torch.isfinite(T[1:3, :3]).any() and \
+        torch.isfinite(T[[0, 3]]).all(), T
+
+    rng = np.random.default_rng(21)
+    src = torch.as_tensor(rng.uniform(-20, 20, (16, SCAN_POINTS, 3)),
+                          dtype=torch.float32, device=dev)
+    w = torch.rand(16, SCAN_POINTS, device=dev)
+    p2p.umeyama_masked(src, src + 0.5, w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Tm = p2p.umeyama_masked(src, src + 0.5, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.allclose(Tm[:, :3, 3], torch.full_like(Tm[:, :3, 3], 0.5),
+                          atol=1e-4), Tm[:, :3, 3]
+
+    cov, mu_s, mu_d = (torch.as_tensor(a, device=dev) for a in _rf_cases(
+        3, 16, np.random.default_rng(22))["random"][0])
+    t = _timings(lambda: p2p.rigid_from_stats(cov, mu_s, mu_d),
+                 lambda: p2p.rigid_from_stats_ref(cov, mu_s, mu_d),
+                 bound=rf_bound(16, 3))
+    t["library_ms"] = _device_ms(lambda: torch.linalg.svd(cov), reps=3,
+                                 strict=False)
+    print(f"[RF] {n_cases} cases (D = 2, 3; B = 1, 16, 32): proper "
+          f"rotations on every case, max |RF - plain| {err_plain:.3e} (the "
+          f"plain version's own gap to float64 included), max gap to "
+          f"float64 Umeyama {gap64:.3e} where the rotation is unique, "
+          f"non-finite in -> non-finite out, umeyama_masked at B = 16 x "
+          f"{SCAN_POINTS} without a sync | B = 16, D = 3: {_fmt(t)}, "
+          f"torch.linalg.svd alone {t['library_ms']:.4f} ms")
+    return {"name": "rigid_fit", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/rigid_fit.cu",
+            "replaces": "src/tpu_icp_slam/icp/point_to_point.py:33",
+            "max_abs_err": err_plain, "gap_float64": gap64, **t}
+
+
+def _verification_inputs(pts, msk):
+    """Phase 13's verification shape on phase 4's log: frame 6's 16,384
+    points against frames 0 and 3, eight yaws each (B = 16), the backend
+    preset's coarse ICP settings."""
+    from tpu_icp_slam_torch.backend.loop_closure import LoopDetector
+    from tpu_icp_slam_torch.core.pointcloud import PointCloud
+
+    dev = torch.device("cuda")
+    icp = LoopDetector(full_slam_config().backend, device=dev).icp_coarse
+    src = PointCloud(points=torch.as_tensor(pts[6], device=dev),
+                     mask=torch.as_tensor(msk[6], device=dev))
+    dst = torch.as_tensor(pts[[0, 3]], device=dev)
+    yaws = np.tile(np.linspace(-np.pi, np.pi, 8, endpoint=False), 2)
+    inits = np.tile(np.eye(4, dtype=np.float32), (16, 1, 1))
+    inits[:, 0, 0] = inits[:, 1, 1] = np.cos(yaws)
+    inits[:, 0, 1], inits[:, 1, 0] = -np.sin(yaws), np.sin(yaws)
+    return (icp, src, dst, torch.as_tensor(msk[[0, 3]], device=dev),
+            torch.as_tensor(inits, device=dev))
+
+
+def phase_graphed_verification(pts, msk):
+    """align_batched's trip as a CUDA graph at phase 13's shape: every
+    trip's state bit-equal to the trip function driven eagerly on the
+    card; one host sync a trip; batched K1 and RF one launch a trip,
+    replays included; the memory one graph holds; ms a trip eager and
+    graphed (host clock, fenced)."""
+    from tpu_icp_slam_torch.icp import loop
+
+    icp, src, dst, dmask, inits = _verification_inputs(pts, msk)
+    trip = loop._batched_trip(loop._batched_body(icp, src, dst, dmask,
+                                                 inits, None))
+    eager = trip(loop._init_state(inits), 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_reserved()
+    graph = loop._TripGraph(icp, 16, 8, SCAN_POINTS, SCAN_POINTS, 3,
+                            torch.float32, inits.device)
+    graph.start(src, dst, inits, None)
+    trips = 1
+    while True:
+        for a, b in zip(graph.state, eager):
+            assert bits_equal(a, b), f"trip {trips}: graph differs"
+        if trips >= icp.max_iters or bool(eager[3].all()):
+            break
+        eager = trip(eager, 1)
+        graph.step()
+        trips += 1
+    torch.cuda.synchronize()
+    held_mib = (torch.cuda.memory_reserved() - held0) / 2**20
+    assert graph.graph is not None and trips == int(eager[6].max()) > 2
+
+    def graphed():
+        return loop.align_batched(src, dst, dmask, inits, icp)
+
+    def eager_run():
+        return loop._run_trips(icp, trip, loop._init_state(inits))
+
+    graphed()  # the cached graph of this key
+    _zero_counts()
+    syncs = _host_syncs(graphed)
+    k1, rf = _counters()["K1"].batched_launches, _rf().launches
+    # the condition is read before every trip after the first and once
+    # more to stop, unless max_iters stopped the loop
+    assert syncs == trips - (trips == icp.max_iters) and \
+        k1 == rf == trips, (syncs, k1, rf, trips)
+    times = {}
+    for name, fn in (("eager", eager_run), ("graphed", graphed),
+                     ("graphed", graphed), ("eager", eager_run)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(
+            (time.perf_counter() - t0) * 1e3 / trips)
+    print(f"[graphed verification] B = 16, {SCAN_POINTS}² points, "
+          f"{trips} trips: every trip's state bit-equal to the eager trip "
+          f"function's; {syncs} host syncs ({syncs / trips:.3f} a trip); "
+          f"K1 batched {k1}, RF {rf} launches, replays included; one graph "
+          f"holds {held_mib:.1f} MiB | ms a trip, eager "
+          f"{', '.join(f'{v:.4f}' for v in times['eager'])}, graphed "
+          f"{', '.join(f'{v:.4f}' for v in times['graphed'])}")
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -2347,7 +2661,7 @@ def main() -> int:
     _count(k3_row, *phase_steps_bf16(pts, msk, gt))
     k4_row = phase_k4(pts, msk)
     k1b_row = phase_k1_batched(pts, src, dst)
-    k4, k1b, n_frames, full = phase_full_slam()
+    k4, k1b, n_frames, full, rf_launches = phase_full_slam()
     _count(k4_row, k4, n_frames)
     _count(k1b_row, k1b, n_frames)
     t0 = time.perf_counter()
@@ -2368,6 +2682,11 @@ def main() -> int:
     sharded = phase_config5(pts, msk, gt, full)
     print(f"[config 5] phase 17 in {time.perf_counter() - t0:.2f} s")
     batched_rows = phase_batched(pts, msk)
+    t0 = time.perf_counter()
+    rf_row = phase_rf()
+    _count(rf_row, rf_launches, n_frames)
+    phase_graphed_verification(pts, msk)
+    print(f"[RF and graphs] phase 20 in {time.perf_counter() - t0:.2f} s")
     # launches a sharded trip, from phase 17's run at each row's precision
     for row, prec, kernel in zip(batched_rows,
                                  ("highest", "bf16", "rescore"),
@@ -2378,7 +2697,7 @@ def main() -> int:
         row["launches_per_trip"] = run["launches"][kernel] / run["trips"]
         row["trip_ms"] = run["s"] / run["trips"] * 1e3
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
-            k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows]
+            k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows, rf_row]
     phase_profile(rows)
     for row in rows:
         row["share"] = row["bound_ms"] / row["ms"]

@@ -13,12 +13,16 @@ tensor (the form a CUDA graph could capture).
 `align_batched` is the reference's `vmap` of `align` over many initial
 poses and targets (loop-closure verification): one loop over the batch,
 every element stepping until all have stopped, each stopped element frozen,
-so that each element's result is its own `align`'s. Both drivers share one
-body; `icp.anderson` (AA(1) on twists) runs in either.
+so that each element's result is its own `align`'s. Its trip reads nothing
+back; on CUDA every trip after the first is one replay of a CUDA graph
+(`_TripGraph`), and the condition read is the trip's one host sync. Both
+drivers share one body; `icp.anderson` (AA(1) on twists) runs in either.
+The point-to-point step's rigid fit is RF on CUDA (no host read either).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import logging
@@ -30,9 +34,14 @@ from tpu_icp_slam_torch.config import ICPConfig
 from tpu_icp_slam_torch.core import se2, se3
 from tpu_icp_slam_torch.core.pointcloud import PointCloud
 from tpu_icp_slam_torch.icp.point_to_plane import gauss_newton_step
-from tpu_icp_slam_torch.icp.point_to_point import umeyama_masked
+from tpu_icp_slam_torch.icp.point_to_point import (
+    rigid_from_stats, umeyama_masked,
+)
 from tpu_icp_slam_torch.kernels import voxel_nn
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
+from tpu_icp_slam_torch.kernels.nn_bf16 import nn_bf16
+from tpu_icp_slam_torch.kernels.nn_cuda import nn_bruteforce
+from tpu_icp_slam_torch.kernels.nn_rescore import nn_rescore
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,56 +234,90 @@ def _body(cfg: ICPConfig, src: PointCloud, corr_fn: Callable, T0, T0_inv,
     return body
 
 
+def _init_state(T0: torch.Tensor) -> tuple:
+    """The carried state before the first iteration: (T, prev_rmse,
+    n_inliers, converged, f_prev, g_prev, iters), batched over T0's leading
+    dims; the 1e6 f_prev sentinel is Anderson's mark of the first
+    iteration."""
+    dev, dtype = T0.device, T0.dtype
+    bs = T0.shape[:-2]
+    k = 6 if T0.shape[-1] == 4 else 3
+    return (T0, torch.full(bs, float("inf"), dtype=dtype, device=dev),
+            torch.zeros(bs, dtype=torch.int32, device=dev),
+            torch.zeros(bs, dtype=torch.bool, device=dev),
+            torch.full((*bs, k), 1e6, dtype=dtype, device=dev),
+            torch.zeros((*bs, k), dtype=dtype, device=dev),
+            torch.zeros(bs, dtype=torch.int32, device=dev))
+
+
+def _freeze(stop: torch.Tensor, new: tuple, old: tuple) -> tuple:
+    """new, but old where `stop` holds (stop batched over the leading
+    dims)."""
+    out = []
+    for n, o in zip(new, old):
+        s = stop.reshape(stop.shape + (1,) * (o.dim() - stop.dim()))
+        out.append(torch.where(s, o, n))
+    return tuple(out)
+
+
+def _batched_trip(body: Callable) -> Callable:
+    """One iteration of a batch as trip(state, it) -> state over
+    _init_state's tuple: the elements that have converged keep their state,
+    the others step and count the iteration. `it` only arms Anderson's
+    first-iteration safeguard: 0 on the first trip, a positive int after.
+    The trip reads nothing back to the host: on CUDA it is what
+    align_batched captures as a graph."""
+    def trip(state: tuple, it: int) -> tuple:
+        T, prev_rmse, _, converged, f_prev, g_prev, iters = state
+        new = body(T, prev_rmse, it, f_prev, g_prev)
+        return (*_freeze(converged, new, state[:6]),
+                iters + (~converged).to(torch.int32))
+
+    return trip
+
+
+def _run_trips(cfg: ICPConfig, trip: Callable, state: tuple) -> tuple:
+    """trip from state under the reference's while_loop condition, read
+    on the host before every trip after the first: go on while it <
+    max_iters and some element has not converged."""
+    it = 0
+    while it < cfg.max_iters and not (it > 0 and bool(state[3].all())):
+        state = trip(state, it)
+        it += 1
+    return state
+
+
 def _drive(cfg: ICPConfig, body: Callable, T0: torch.Tensor,
            batched: bool) -> ICPResult:
     """Run `body` from T0 under the reference's stopping rule: the host
     loop (condition read back before each body) or, with unroll_iters > 0,
     the fixed-trip frozen form. A batched loop runs until every element has
     stopped and freezes each stopped element."""
-    dev, dtype = T0.device, T0.dtype
-    bs = T0.shape[:-2]
-    k = 6 if T0.shape[-1] == 4 else 3
-    T = T0
-    prev_rmse = torch.full(bs, float("inf"), dtype=dtype, device=dev)
-    n_inl = torch.zeros(bs, dtype=torch.int32, device=dev)
-    converged = torch.zeros(bs, dtype=torch.bool, device=dev)
-    # Anderson's memory: the 1e6 f_prev sentinel marks the first iteration
-    f_prev = torch.full((*bs, k), 1e6, dtype=dtype, device=dev)
-    g_prev = torch.zeros((*bs, k), dtype=dtype, device=dev)
-    iters = torch.zeros(bs, dtype=torch.int32, device=dev)
-
-    def freeze(stop, new):
-        """new, but the carried state where `stop` holds."""
-        old = (T, prev_rmse, n_inl, converged, f_prev, g_prev)
-        out = []
-        for n, o in zip(new, old):
-            s = stop.reshape(stop.shape + (1,) * (o.dim() - stop.dim()))
-            out.append(torch.where(s, o, n))
-        return tuple(out)
-
+    state = _init_state(T0)
     if cfg.unroll_iters > 0:
+        T, prev_rmse, n_inl, converged, f_prev, g_prev, iters = state
         for _ in range(cfg.unroll_iters):
             stop = converged | (iters >= cfg.max_iters)
-            T, prev_rmse, n_inl, converged, f_prev, g_prev = freeze(
-                stop, body(T, prev_rmse, iters, f_prev, g_prev))
+            T, prev_rmse, n_inl, converged, f_prev, g_prev = _freeze(
+                stop, body(T, prev_rmse, iters, f_prev, g_prev),
+                (T, prev_rmse, n_inl, converged, f_prev, g_prev))
             iters = iters + (~stop).to(torch.int32)
         return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
                          converged=converged)
+    if batched:
+        T, prev_rmse, n_inl, converged, _, _, iters = _run_trips(
+            cfg, _batched_trip(body), state)
+        return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
+                         converged=converged)
+    T, prev_rmse, n_inl, converged, f_prev, g_prev, _ = state
     it = 0
     # cond before body, as lax.while_loop: `converged` is read on the host
-    # (a batch stops when every element has)
-    while it < cfg.max_iters and not (
-            it > 0 and bool(converged.all() if batched else converged)):
-        new = body(T, prev_rmse, it, f_prev, g_prev)
-        if batched:  # stopped elements keep their state
-            stop = converged
-            T, prev_rmse, n_inl, converged, f_prev, g_prev = freeze(stop, new)
-            iters = iters + (~stop).to(torch.int32)
-        else:
-            T, prev_rmse, n_inl, converged, f_prev, g_prev = new
+    while it < cfg.max_iters and not (it > 0 and bool(converged)):
+        T, prev_rmse, n_inl, converged, f_prev, g_prev = body(
+            T, prev_rmse, it, f_prev, g_prev)
         it += 1
-    return ICPResult(T=T, rmse=prev_rmse, iters=iters if batched else it,
-                     n_inliers=n_inl, converged=converged)
+    return ICPResult(T=T, rmse=prev_rmse, iters=it, n_inliers=n_inl,
+                     converged=converged)
 
 
 def _anchor(cfg: ICPConfig, T0: torch.Tensor, prior: bool):
@@ -320,30 +363,16 @@ def align_with_correspondence(src: PointCloud, corr_fn: Callable,
     return _drive(cfg, body, T0, batched=False)
 
 
-def align_batched(src: PointCloud, dst_points: torch.Tensor,
-                  dst_mask: torch.Tensor, init_T: torch.Tensor,
-                  cfg: ICPConfig) -> ICPResult:
-    """Point-to-point ICP of one source against many (target, initial pose)
-    pairs: dst_points (B/G, N, D), dst_mask (B/G, N), init_T (B, D+1, D+1);
-    element b aligns src onto target b // G from init_T[b].
-
-    The reference's vmap over `align` (backend/loop_closure.py::
-    _batched_verify): all elements step until every one has stopped
-    (converged or max_iters), and a stopped element is frozen with
-    `torch.where`, so each element's result equals its own unbatched
-    `align`. The NN runs once per iteration for the whole batch (K1's
-    batched form on CUDA, at D = 2 or 3); "any still running" is read back
-    once per iteration. Returns an ICPResult with a leading (B,) on every
-    field; the loop ran max(iters) batched iterations.
-    """
-    if cfg.method != "point_to_point":
-        raise NotImplementedError(
-            "align_batched runs point_to_point (loop-closure verification)")
+def _batched_body(cfg: ICPConfig, src: PointCloud, dst_points: torch.Tensor,
+                  dst_mask: torch.Tensor, T0: torch.Tensor,
+                  T0_inv: Optional[torch.Tensor]) -> Callable:
+    """align_batched's body over these tensors: element b of T0 (B, D+1,
+    D+1) aligns src onto target b // G of dst_points (B/G, N, D). The NN
+    runs once a trip for the whole batch (K1's batched form on CUDA, at
+    D = 2 or 3)."""
     d = src.dim
-    batch, n = init_T.shape[0], dst_points.shape[1]
+    batch, n = T0.shape[0], dst_points.shape[1]
     group = batch // dst_points.shape[0]
-    T0 = init_T.to(src.points.dtype)
-    T0_inv, _ = _anchor(cfg, T0, prior=False)
     flat_dst = dst_points.reshape(-1, d)
     # row of element b's target in flat_dst, clamped like the reference's
     # gather (rescore's padded-target case; see _nn_correspondence)
@@ -368,5 +397,136 @@ def align_batched(src: PointCloud, dst_points: torch.Tensor,
         d2 = torch.sum(diff * diff, dim=-1)
         return q, None, _gate(cfg, cur, d2), d2
 
-    body = _body(cfg, src, corr, T0, T0_inv, None)
-    return _drive(cfg, body, T0, batched=True)
+    return _body(cfg, src, corr, T0, T0_inv, None)
+
+
+def _launch_counters() -> list:
+    """(wrapper, attribute) of every launch counter of the kernels a
+    batched trip can launch."""
+    return [(f, a) for f in (nn_bruteforce, nn_bf16, nn_rescore,
+                             rigid_from_stats)
+            for a in vars(f) if "launches" in a]
+
+
+class _TripGraph:
+    """align_batched's trip on CUDA, captured once as a CUDA graph over
+    static buffers: the source cloud, the targets, T0 and T0⁻¹ (read by the
+    trust region) and the carried state. `start` copies a call's inputs in
+    and runs trip 0 eagerly (it = 0, Anderson's first-iteration arm). The
+    first `step` runs trip 1 eagerly on a side stream, the warm-up torch
+    asks for before a capture and a real trip, then captures the same trip
+    (it > 0) without running it; every later step replays it. Capturing
+    counts no launch: each replay adds the trip's captured launches to the
+    kernels' counters."""
+
+    def __init__(self, cfg, batch, group, m, n, d, dtype, device):
+        def buf(*shape, dtype=dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        # the mask as float weights: _body casts src.mask once, when it is
+        # built, and a float mask is its own cast, so the trip reads this
+        # buffer and not a copy of its first contents
+        self.src = PointCloud(points=buf(m, d), mask=buf(m))
+        self.dst = buf(batch // group, n, d)
+        self.T0 = buf(batch, d + 1, d + 1)
+        trust = cfg.max_total_trans > 0.0 or cfg.max_total_rot > 0.0
+        self.T0_inv = buf(batch, d + 1, d + 1) if trust else None
+        self.state = tuple(t.clone() for t in _init_state(self.T0))
+        self.trip = _batched_trip(_batched_body(
+            cfg, self.src, self.dst, None, self.T0, self.T0_inv))
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: dict = {}
+
+    def _commit(self, new: tuple) -> None:
+        for s, v in zip(self.state, new):
+            s.copy_(v)
+
+    def start(self, src: PointCloud, dst_points: torch.Tensor,
+              T0: torch.Tensor, T0_inv: Optional[torch.Tensor]) -> None:
+        self.src.points.copy_(src.points)
+        self.src.mask.copy_(src.mask)
+        self.dst.copy_(dst_points)
+        self.T0.copy_(T0)
+        if self.T0_inv is not None:
+            self.T0_inv.copy_(T0_inv)
+        self._commit(_init_state(self.T0))
+        self._commit(self.trip(self.state, 0))
+
+    def step(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            for (f, a), k in self.launches.items():
+                setattr(f, a, getattr(f, a) + k)
+            return
+        stream = torch.cuda.current_stream(self.T0.device)
+        side = torch.cuda.Stream(self.T0.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._commit(self.trip(self.state, 1))
+        stream.wait_stream(side)
+        before = {c: getattr(*c) for c in _launch_counters()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._commit(self.trip(self.state, 1))
+        for (f, a), v in before.items():
+            self.launches[(f, a)] = getattr(f, a) - v
+            setattr(f, a, v)
+        self.graph = graph
+
+
+GRAPH_CACHE = 8  # trip graphs kept, least recently used dropped first
+_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+def _trip_graph(*key) -> _TripGraph:
+    """The trip graph of key = (cfg, B, G, M, N, D, dtype, device), made
+    on first use and kept in a bounded cache (verification's B is
+    candidates x yaws and varies)."""
+    graph = _graphs.pop(key, None) or _TripGraph(*key)
+    _graphs[key] = graph
+    while len(_graphs) > GRAPH_CACHE:
+        _graphs.popitem(last=False)
+    return graph
+
+
+def align_batched(src: PointCloud, dst_points: torch.Tensor,
+                  dst_mask: torch.Tensor, init_T: torch.Tensor,
+                  cfg: ICPConfig) -> ICPResult:
+    """Point-to-point ICP of one source against many (target, initial pose)
+    pairs: dst_points (B/G, N, D), dst_mask (B/G, N), init_T (B, D+1, D+1);
+    element b aligns src onto target b // G from init_T[b].
+
+    The reference's vmap over `align` (backend/loop_closure.py::
+    _batched_verify): all elements step until every one has stopped
+    (converged or max_iters), and a stopped element is frozen with
+    `torch.where`, so each element's result equals its own unbatched
+    `align`. The NN runs once per iteration for the whole batch (K1's
+    batched form on CUDA, at D = 2 or 3) and the rigid fit is one RF launch;
+    "any still running" is read back once per iteration, the reference's
+    while_loop condition. On CUDA every trip after the first is one replay
+    of a CUDA graph (`_TripGraph`), so that read is the trip's only host
+    sync; nn_backend="voxel" (one hash-grid query per row) and
+    unroll_iters > 0 keep the eager loop, as the CPU does. Returns an
+    ICPResult with a leading (B,) on every field; the loop ran max(iters)
+    batched iterations.
+    """
+    if cfg.method != "point_to_point":
+        raise NotImplementedError(
+            "align_batched runs point_to_point (loop-closure verification)")
+    T0 = init_T.to(src.points.dtype)
+    T0_inv, _ = _anchor(cfg, T0, prior=False)
+    if (T0.device.type != "cuda" or cfg.nn_backend == "voxel"
+            or cfg.unroll_iters > 0 or cfg.max_iters < 1):
+        body = _batched_body(cfg, src, dst_points, dst_mask, T0, T0_inv)
+        return _drive(cfg, body, T0, batched=True)
+    batch, (targets, n, d) = T0.shape[0], dst_points.shape
+    graph = _trip_graph(cfg, batch, batch // targets, src.capacity, n, d,
+                        T0.dtype, T0.device)
+    graph.start(src, dst_points, T0, T0_inv)
+    it = 1
+    while it < cfg.max_iters and not bool(graph.state[3].all()):
+        graph.step()
+        it += 1
+    T, rmse, n_inl, converged, _, _, iters = (t.clone() for t in graph.state)
+    return ICPResult(T=T, rmse=rmse, iters=iters, n_inliers=n_inl,
+                     converged=converged)

@@ -1,23 +1,30 @@
-"""Point-to-point rigid solve: masked/weighted Umeyama via SVD (port of
+"""Point-to-point rigid solve: masked/weighted Umeyama (port of
 tpu_icp_slam/icp/point_to_point.py).
 
-Centroids and the 3×3 cross-covariance are masked reductions; the SVD is
-`torch.linalg.svd`, batched over leading dims (loop-closure verification
-solves candidates × yaw hypotheses at once). Two entry forms, as in the
-reference: `umeyama_masked` (centred accumulation) and `moments` +
-`umeyama_from_moments` (raw sums, reducible across devices).
+Centroids and the D×D cross-covariance are masked reductions; the rigid fit
+from them, `rigid_from_stats`, is batched over leading dims (loop-closure
+verification solves candidates × yaw hypotheses at once). On CUDA tensors
+it is RF (kernels/rigid_cuda.py, csrc/rigid_fit.cu): one launch and no host
+read, where `torch.linalg.svd` checks its info on the host every call. On
+CPU tensors it is the plain version, `rigid_from_stats_ref`, the
+reference's SVD form. Two entry forms, as in the reference:
+`umeyama_masked` (centred accumulation) and `moments` +
+`umeyama_from_moments` (raw sums, reducible across devices); both end in
+`rigid_from_stats`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_icp_slam_torch.kernels import rigid_cuda
 
-def rigid_from_stats(cov: torch.Tensor, mu_s: torch.Tensor,
-                     mu_d: torch.Tensor) -> torch.Tensor:
-    """(..., D, D) cross-covariance E_w[(dst - mu_d)(src - mu_s)ᵀ] +
-    centroids -> (..., D+1, D+1) transform; SVD with reflection correction
-    (the last left-singular column scaled by sign det(U Vᵀ))."""
+
+def rigid_from_stats_ref(cov: torch.Tensor, mu_s: torch.Tensor,
+                         mu_d: torch.Tensor) -> torch.Tensor:
+    """Plain torch: (..., D, D) cross-covariance E_w[(dst - mu_d)(src -
+    mu_s)ᵀ] + centroids -> (..., D+1, D+1) transform; SVD with reflection
+    correction (the last left-singular column scaled by sign det(U Vᵀ))."""
     d = cov.shape[-1]
     U, _, Vt = torch.linalg.svd(cov)
     sign = torch.sign(torch.linalg.det(U @ Vt))
@@ -31,6 +38,25 @@ def rigid_from_stats(cov: torch.Tensor, mu_s: torch.Tensor,
     T[..., :d, d] = t
     T[..., d, d] = 1.0
     return T
+
+
+def rigid_from_stats(cov: torch.Tensor, mu_s: torch.Tensor,
+                     mu_d: torch.Tensor) -> torch.Tensor:
+    """rigid_from_stats_ref's function: the plain version on CPU tensors,
+    one RF launch on CUDA tensors (float32, D = 2 or 3); anything else
+    raises."""
+    devices = {t.device.type for t in (cov, mu_s, mu_d)}
+    if devices == {"cpu"}:
+        return rigid_from_stats_ref(cov, mu_s, mu_d)
+    if devices != {"cuda"}:
+        raise ValueError(f"rigid_from_stats: inputs on {sorted(devices)}, "
+                         "not all on the CPU or all on CUDA")
+    T = rigid_cuda.rigid_fit(cov, mu_s, mu_d)
+    rigid_from_stats.launches += 1
+    return T
+
+
+rigid_from_stats.launches = 0  # RF launches
 
 
 def umeyama_masked(src: torch.Tensor, dst: torch.Tensor,

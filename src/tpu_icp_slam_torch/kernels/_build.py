@@ -147,6 +147,8 @@ def load() -> ctypes.CDLL:
             lib.coop_probe_f32.argtypes = [ptr, ptr, ptr, ptr, i32, ptr, ptr,
                                            ptr]
             lib.coop_probe_f32.restype = i32
+            lib.rigid_fit_f32.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
+            lib.rigid_fit_f32.restype = i32
             _lib = lib
         return _lib
 

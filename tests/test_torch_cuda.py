@@ -1705,3 +1705,208 @@ def test_sharded_align_batched_nn_on_card_matches_cpu(cuda_device,
     np.testing.assert_allclose(res.T.cpu().numpy(), T_cpu, rtol=1e-4,
                                atol=1e-5)
     assert np.abs(res.iters.cpu().numpy() - it_cpu).max() <= 1, it_cpu
+
+
+# ---- RF and the graphed verification trip ----------------------------------
+
+
+def _rigid_cases(d, rng):
+    """name -> (cov (16, d, d), mu_s, mu_d (16, d)) float32, and whether
+    Umeyama's rotation is unique there: well-conditioned, reflecting
+    (det(U Vᵀ) = -1), rank D-1 (at D = 3 the z = 0 lift), near-equal
+    singular values, cov = 0, collinear (D = 3, rank 1) and non-finite."""
+    q, r = np.linalg.qr(rng.normal(size=(16, d, d)))
+    R0 = q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[:, None, :]
+    R0[:, :, 0] *= np.sign(np.linalg.det(R0))[:, None]
+    a, b = rng.normal(size=(2, 16, d))
+    rank = a[:, :, None] * b[:, None, :]
+    if d == 3:
+        rank = np.zeros((16, 3, 3))
+        rank[:, :2, :2] = rng.normal(size=(16, 2, 2))
+    cases = {
+        "random": (rng.normal(size=(16, d, d)), True),
+        "reflecting": (R0 * np.asarray([3.0, 2.0, -1.0][3 - d:]), True),
+        "rank_d_minus_1": (rank, True),
+        "near_equal": (R0 * np.asarray([1.0, 1 + 1e-6, 1 - 1e-6][:d]), True),
+        "zero": (np.zeros((16, d, d)), True),
+    }
+    if d == 3:
+        cases["collinear"] = (a[:, :, None] * b[:, None, :], False)
+    bad = rng.normal(size=(16, d, d))
+    bad[3, 0, 0], bad[7, 1, 0] = np.nan, np.inf
+    cases["non_finite"] = (bad, False)
+    mu = rng.normal(size=(2, 16, d)) * 5.0
+    return {k: ((c.astype(np.float32), mu[0].astype(np.float32),
+                 mu[1].astype(np.float32)), unique)
+            for k, (c, unique) in cases.items()}
+
+
+def _umeyama64(cov, mu_s, mu_d):
+    d = cov.shape[-1]
+    U, _, Vt = np.linalg.svd(cov.astype(np.float64))
+    corr = np.ones(cov.shape[:-1])
+    corr[..., -1] = np.sign(np.linalg.det(U @ Vt))
+    R = (U * corr[..., None, :]) @ Vt
+    return R, mu_d - np.einsum("...ij,...j->...i", R, mu_s.astype(np.float64))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_rigid_fit_kernel_matches_plain_and_float64(cuda_device, d):
+    """RF against a float64 numpy Umeyama and its plain version (torch's
+    float32 SVD form on the card): where the rotation is unique, R and t
+    within 1e-5 of float64 (|t| ~ 20: float32 rounds t to ~2e-6), and within
+    1e-5 of the plain version beyond the plain version's own gap to float64
+    (up to ~5e-5 on ill-conditioned random cases on an H100); at rank D-1
+    the rotation within 1e-5 of the plain version's; a proper rotation on
+    every finite case; cov = 0 gives the identity exactly; a non-finite
+    element gives a non-finite T. One launch a call, batched over (16,)
+    and (4, 4)."""
+    from tpu_icp_slam_torch.icp import point_to_point as p2p
+
+    for name, ((cov, mu_s, mu_d), unique) in _rigid_cases(
+            d, np.random.default_rng(d)).items():
+        args = [torch.from_numpy(a).to(cuda_device) for a in (cov, mu_s, mu_d)]
+        before = p2p.rigid_from_stats.launches
+        T = p2p.rigid_from_stats(*args)
+        assert p2p.rigid_from_stats.launches == before + 1
+        flat = p2p.rigid_from_stats(args[0].view(4, 4, d, d),
+                                    args[1].view(4, 4, d),
+                                    args[2].view(4, 4, d))
+        torch.testing.assert_close(flat.view(16, d + 1, d + 1), T, rtol=0,
+                                   atol=0, equal_nan=True)
+        T = T.cpu().numpy().astype(np.float64)
+        finite = np.isfinite(cov).all((1, 2))
+        assert not np.isfinite(T[~finite]).all((1, 2)).any(), name
+        T, cov, mu_s, mu_d = T[finite], cov[finite], mu_s[finite], \
+            mu_d[finite]
+        R = T[:, :d, :d]
+        np.testing.assert_allclose(np.linalg.det(R), 1.0, atol=1e-5)
+        np.testing.assert_allclose(R @ R.transpose(0, 2, 1),
+                                   np.broadcast_to(np.eye(d), R.shape),
+                                   atol=1e-5)
+        assert (T[:, d, :d] == 0).all() and (T[:, d, d] == 1).all()
+        if not unique:
+            continue
+        R64, t64 = _umeyama64(cov, mu_s, mu_d)
+        np.testing.assert_allclose(R, R64, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(T[:, :d, d], t64, atol=1e-5, err_msg=name)
+        plain = p2p.rigid_from_stats_ref(*(torch.from_numpy(a).to(
+            cuda_device) for a in (cov, mu_s, mu_d))).cpu().numpy()
+        own = max(np.abs(plain[:, :d, :d] - R64).max(),
+                  np.abs(plain[:, :d, d] - t64).max())
+        assert np.abs(T[:, :d] - plain[:, :d]).max() <= 1e-5 + own, name
+        if name == "rank_d_minus_1":
+            np.testing.assert_allclose(R, plain[:, :d, :d], atol=1e-5)
+        if name == "zero":
+            assert (R == np.eye(d)).all()
+
+
+def test_umeyama_masked_on_cuda_makes_no_sync(cuda_device):
+    from tpu_icp_slam_torch.icp.point_to_point import umeyama_masked
+
+    rng = np.random.default_rng(3)
+    src = torch.tensor(rng.uniform(-5, 5, (16, 2048, 3)), dtype=torch.float32,
+                       device=cuda_device)
+    dst = src + 0.1
+    w = torch.rand(16, 2048, device=cuda_device)
+    umeyama_masked(src, dst, w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T = umeyama_masked(src, dst, w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(T[:, :3, 3], torch.full_like(T[:, :3, 3], 0.1),
+                               rtol=0, atol=1e-5)
+
+
+def _verify_problem(device, d, batch, groups, m):
+    """Verification's batch: one source of m points against `groups`
+    moved, noisy copies, batch // groups initial yaws each."""
+    from tpu_icp_slam_torch.core import pointcloud as tpc
+
+    rng = np.random.default_rng(batch + d)
+    src = rng.uniform(-20, 20, (m, d)).astype(np.float32)
+    targets = []
+    for g in range(groups):
+        yaw = rng.uniform(-0.3, 0.3)
+        R = np.eye(d)
+        R[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        moved = src @ R.T + rng.uniform(-1, 1, d) + rng.normal(
+            size=src.shape) * 0.05
+        targets.append(moved[: m - 37 * g])  # padded rows differ a target
+    dst = torch.full((groups, m, d), 1.0e6, device=device)
+    for g, t in enumerate(targets):
+        dst[g, : len(t)] = torch.from_numpy(t.astype(np.float32))
+    yaws = np.linspace(-np.pi, np.pi, batch // groups, endpoint=False)
+    yaws = np.tile(yaws * 0.1, groups)
+    inits = np.tile(np.eye(d + 1, dtype=np.float32), (batch, 1, 1))
+    inits[:, 0, 0] = inits[:, 1, 1] = np.cos(yaws)
+    inits[:, 0, 1], inits[:, 1, 0] = -np.sin(yaws), np.sin(yaws)
+    return (tpc.make(src, device=device), dst,
+            torch.ones(dst.shape[:2], dtype=torch.bool, device=device),
+            torch.from_numpy(inits).to(device))
+
+
+VERIFY_CFG = ICPConfig(method="point_to_point", max_iters=50,
+                       max_corr_dist=6.0, huber_delta=1.5,
+                       max_step_trans=3.0, max_step_rot=0.5, min_inliers=30,
+                       tol=1e-5)
+
+
+@pytest.mark.parametrize("d,batch,groups,m", [(3, 16, 2, 4096),
+                                             (2, 32, 4, 512)])
+def test_graphed_align_batched_equals_eager_trips(cuda_device, d, batch,
+                                                  groups, m):
+    """The verification trip as a CUDA graph: every trip's carried state
+    bit-equal to the trip function driven eagerly on the card (batched K1
+    folds in index order, RF is one thread an element: deterministic);
+    align_batched's result that state; one host sync a trip once its
+    graph exists (the condition read; none after a trip that reaches
+    max_iters); K1's batched and RF's launches one a trip, replays
+    included."""
+    import warnings
+
+    from tpu_icp_slam_torch.icp import loop
+    from tpu_icp_slam_torch.icp import point_to_point as p2p
+
+    src, dst, msk, inits = _verify_problem(cuda_device, d, batch, groups, m)
+    trip = loop._batched_trip(loop._batched_body(VERIFY_CFG, src, dst, msk,
+                                                 inits, None))
+    eager = trip(loop._init_state(inits), 0)
+    graph = loop._TripGraph(VERIFY_CFG, batch, batch // groups, m, m, d,
+                            torch.float32, inits.device)
+    graph.start(src, dst, inits, None)
+    trips = 1
+    while True:
+        for a, b in zip(graph.state, eager):
+            assert torch.equal(a, b), trips
+        if trips >= VERIFY_CFG.max_iters or bool(eager[3].all()):
+            break
+        eager = trip(eager, 1)
+        graph.step()
+        trips += 1
+    assert graph.graph is not None and trips > 2, trips
+    assert trips == int(eager[6].max())
+
+    k1 = nn_cuda.nn_bruteforce
+    loop.align_batched(src, dst, msk, inits, VERIFY_CFG)  # makes its graph
+    before = (k1.batched_launches, p2p.rigid_from_stats.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = loop.align_batched(src, dst, msk, inits, VERIFY_CFG)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # the condition is read before every trip after the first and once
+    # more to stop, unless max_iters stopped the loop
+    assert syncs == trips - (trips == VERIFY_CFG.max_iters), (syncs, trips)
+    assert (k1.batched_launches - before[0],
+            p2p.rigid_from_stats.launches - before[1]) == (trips, trips)
+    for got, want in zip((res.T, res.rmse, res.n_inliers, res.converged,
+                          res.iters), (eager[0], eager[1], eager[2],
+                                       eager[3], eager[6])):
+        assert torch.equal(got, want)
