@@ -9,6 +9,8 @@ builds of the kernels K1, K3, K4 and K5.
     python3 chip_ab.py --trip-ab OLD_ROOT
     python3 chip_ab.py --loop-profile ROOT
     python3 chip_ab.py --loop-ab OLD_ROOT [--rounds 2]
+    python3 chip_ab.py --frame-profile ROOT
+    python3 chip_ab.py --frame-ab OLD_ROOT [--rounds 3]
 
 With --sass, the kernels are built anew with ptxas's register, shared-memory
 and spill report, the library is disassembled with cuobjdump, and for the
@@ -101,6 +103,24 @@ iterations, closures, ATE) run --rounds times each after a warm-up, in four
 processes: OLD_ROOT's package, this tree's, this tree's again, OLD_ROOT's
 again; then the medians of each tree. The loop log is made once and kept
 in build/chip_ab_loop_scans.npz.
+
+With --frame-profile ROOT, ROOT's package runs each cell of FRAME_CELLS
+in a process of its own: the four slice cells above (run_fused, 29
+frames), phase 15(2)'s Slam2D.run and phase 13's front end (run_fused of
+the full-SLAM preset over the 180-frame loop log). Each process reports
+call 1 (the warm-up, graph captures included where the tree makes them),
+one timed run, the host syncs by source line (as --loop-profile), the
+bytes torch's allocator reserves, then one torch.profiler run (the first
+SLAM3D_WINDOW frames of phase 13's log) with the frame split into its
+stages: pre (prediction, extract, the model moved into the sensor frame),
+icp, post (the gates) and insert, each stage's host ms, launch calls and
+device ms a frame. The stages are profiler ranges that this script wraps
+around the package's functions; the package is not edited.
+
+With --frame-ab OLD_ROOT, the same cells run --rounds times after call 1,
+OLD_ROOT's package, this tree's, this tree's again and OLD_ROOT's again,
+each turn in a process of its own (the cells one after another); then the
+medians of each tree.
 
 Prints one line per measurement and, last, {"done": true}. Exits nonzero
 without CUDA.
@@ -663,7 +683,7 @@ def _sync_sites(fn):
     sites = collections.Counter()
 
     def show(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
+        if chip_smoke.SYNC_WARNING not in str(message):
             return
         own = [f for f in traceback.extract_stack()[:-1]
                if "tpu_icp_slam_torch" in f.filename]
@@ -885,6 +905,277 @@ def loop_profile(root, rounds):
     return out
 
 
+FRAME_CELLS = ("steps-highest", "fused-highest", "fused-bf16", "steps-bf16",
+               "slam2d", "slam3d")
+SLAM3D_WINDOW = 60  # frames of phase 13's log that a profile of it traces
+
+
+def _frame_cell(name):
+    """(run(frames) -> None, frames): a cell of --frame-profile and
+    --frame-ab. The four slice cells run ScanToMapPipeline.run_fused over
+    chip_smoke's 30-frame log; "slam2d" is phase 15(2)'s Slam2D.run (its
+    front end the z = 0 lift onto the same pipeline); "slam3d" is phase 13's
+    front end, run_fused over the 180-frame loop log with the full-SLAM
+    preset. run(k) runs the first k frames after the seed frame."""
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    if name == "slam2d":
+        s2 = _slam2d_cell()
+        return (lambda k=None: s2()), chip_smoke.SIM2D_FRAMES - 1
+    if name == "slam3d":
+        cfg = chip_smoke.full_slam_config()
+        pts, msk, _ = _loop_scans()
+    else:
+        backend, prec = name.split("-")
+        cfg = chip_smoke.slice_config(loop_backend=backend, nn_precision=prec)
+        pts, msk, _ = chip_smoke._scans(
+            chip_smoke.FRAMES, 48, 1024, chip_smoke.FRAMES / 110.0, 0.15,
+            chip_smoke.SCAN_POINTS)
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    state0 = pipe.init_state(pts[0], msk[0])
+    n = len(pts) - 1
+
+    def run(k=None):
+        k = n if k is None else k
+        pipe.run_fused(state0, pts[1:k + 1], msk[1:k + 1])
+
+    return run, n
+
+
+def _stage_ranges():
+    """Wrap the stages of a frame in torch.profiler ranges: "frame" around
+    scan_to_map._step (the eager frame) or FrameGraphs.frame (the graphed
+    one, where this tree has it), "icp" around the ICP (the steps loop,
+    K5 or the trip replays), "insert" around the map update. Nothing of the
+    package is edited: the names are replaced in its modules."""
+    from torch.profiler import record_function
+
+    from tpu_icp_slam_torch.mapping import voxel_map
+    from tpu_icp_slam_torch.slam import scan_to_map as s2m
+
+    def ranged(label, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    targets = [(s2m, "_step", "frame"),
+               (s2m, "align_with_correspondence", "icp"),
+               (s2m, "icp_fused", "icp"), (s2m, "normals_knn", "insert"),
+               (voxel_map, "insert", "insert"),
+               (voxel_map, "insert_hash", "insert")]
+    graphs = getattr(s2m, "FrameGraphs", None)
+    if graphs is not None:
+        targets += [(graphs, "frame", "frame"), (graphs, "_icp", "icp"),
+                    (graphs, "_update_map", "insert")]
+    for owner, attr, label in targets:
+        if hasattr(owner, attr):
+            setattr(owner, attr, ranged(label, getattr(owner, attr)))
+
+
+_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")
+STAGE_RANGES = ("frame", "icp", "insert")
+
+
+def _stage_split(prof, n_frames):
+    """Per frame, each stage's host ms, launch calls and device ms from the
+    profiler's events: pre runs from a frame's start to its "icp" range,
+    post from the end of that range to the "insert" range or the frame's
+    end; a kernel counts to the stage whose host call launched it (the
+    runtime call's correlation id)."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    spans = {name: [] for name in STAGE_RANGES}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.name() in spans:
+            spans[e.name()].append((e.start_ns(), e.end_ns()))
+    cuts = []  # (start, end, stage)
+    for f0, f1 in sorted(spans["frame"]):
+        icp = [s for s in spans["icp"] if f0 <= s[0] and s[1] <= f1]
+        ins = [s for s in spans["insert"] if f0 <= s[0] and s[1] <= f1]
+        c = min(s[0] for s in ins) if ins else f1
+        # a frame with no "icp" range (K5 inside the graphed pre) has an
+        # empty icp and post stage
+        a = min(s[0] for s in icp) if icp else c
+        b = max(s[1] for s in icp) if icp else c
+        cuts += [(f0, a, "pre"), (a, b, "icp"), (b, c, "post"),
+                 (c, f1, "insert")]
+    cuts.sort()
+    starts = [c[0] for c in cuts]
+
+    def stage_of(t):
+        import bisect
+        i = bisect.bisect_right(starts, t) - 1
+        return cuts[i][2] if i >= 0 and t < cuts[i][1] else None
+
+    out = {s: {"host_ms": 0.0, "launches": 0, "device_ms": 0.0}
+           for s in ("pre", "icp", "post", "insert")}
+    for s0, s1, stage in cuts:
+        out[stage]["host_ms"] += (s1 - s0) / 1e6
+    launch_at = {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.name().startswith(
+                _LAUNCH_CALLS):
+            launch_at[e.correlation_id()] = e.start_ns()
+            stage = stage_of(e.start_ns())
+            if stage:
+                out[stage]["launches"] += 1
+    for e in events:
+        # the profiler mirrors each range on the device's timeline
+        if e.device_type() != DeviceType.CUDA or e.name() in spans:
+            continue
+        t = launch_at.get(e.linked_correlation_id()) or launch_at.get(
+            e.correlation_id())
+        stage = stage_of(t) if t is not None else None
+        if stage:
+            out[stage]["device_ms"] += e.duration_ns() / 1e6
+    return {s: {k: v / n_frames for k, v in d.items()}
+            for s, d in out.items()}
+
+
+def frame_worker(src_dir, cell, rounds):
+    """One process of --frame-profile (rounds 0, one cell) or --frame-ab
+    (cell "all": every cell in turn): the package from src_dir; prints one
+    JSON line."""
+    sys.path.insert(0, str(Path(src_dir).resolve()))
+    import tpu_icp_slam_torch
+    from tpu_icp_slam_torch.kernels import _build
+
+    assert Path(tpu_icp_slam_torch.__file__).resolve().is_relative_to(
+        Path(src_dir).resolve()), tpu_icp_slam_torch.__file__
+    _build.build()
+    if cell == "all":
+        print(json.dumps([_frame_cell_run(src_dir, c, rounds)
+                          for c in FRAME_CELLS]))
+    else:
+        print(json.dumps(_frame_cell_run(src_dir, cell, rounds)))
+
+
+def _frame_cell_run(src_dir, cell, rounds):
+    out = {"src": str(src_dir), "cell": cell, "card": chip_smoke.card()}
+    t0 = time.perf_counter()
+    run, n = _frame_cell(cell)
+    run()  # call 1: the warm-up (and, where the tree has them, captures)
+    torch.cuda.synchronize()
+    out["call1_s"] = time.perf_counter() - t0
+    out["frames"] = n
+    times = []
+    for _ in range(max(rounds, 1)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["fps"] = [n / t for t in times]
+    if rounds == 0:
+        sites = _sync_sites(run)
+        out["syncs"] = sites
+        out["syncs_per_frame"] = sum(sites.values()) / n
+        out["pool_mib"] = torch.cuda.memory_reserved() / 2**20
+        window = min(n, SLAM3D_WINDOW) if cell == "slam3d" else n
+        _stage_ranges()
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(window)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out["profile"] = _profile_of(prof, wall_ms)
+        out["profile"]["frames"] = window
+        out["stages"] = _stage_split(prof, window)
+    return out
+
+
+def _profile_of(prof, wall_ms, top=10):
+    """_profile_summary's numbers from a finished profiler run."""
+    from torch.autograd import DeviceType
+
+    avgs = prof.key_averages()
+    # the stage ranges appear on the device's timeline too: not its work
+    dev = sorted((a for a in avgs if a.device_type == DeviceType.CUDA
+                  and a.key not in STAGE_RANGES),
+                 key=lambda a: -a.self_device_time_total)
+    host = sorted((a for a in avgs if a.device_type == DeviceType.CPU),
+                  key=lambda a: -a.self_cpu_time_total)
+    device_ms = sum(a.self_device_time_total for a in dev) / 1e3
+    return {
+        "wall_ms": wall_ms, "device_ms": device_ms,
+        "busy": device_ms / wall_ms, "idle": 1.0 - device_ms / wall_ms,
+        "launches": sum(a.count for a in avgs
+                        if a.key.startswith(_LAUNCH_CALLS)),
+        "launch_calls": {a.key: a.count for a in avgs
+                         if a.key.startswith(_LAUNCH_CALLS)},
+        "top_host": [(a.key[:70], a.count, a.self_cpu_time_total / 1e3)
+                     for a in host[:top]],
+        "top_device": [(a.key[:70], a.count, a.self_device_time_total / 1e3)
+                       for a in dev[:top]]}
+
+
+def _frame_process(tree, cell, rounds):
+    proc = subprocess.run(
+        [sys.executable, __file__, "--frame-worker", str(tree),
+         "--frame-cell", cell, "--rounds", str(rounds)],
+        capture_output=True, text=True, cwd=chip_smoke.ROOT, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"frame worker {cell} on {tree} failed:\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def frame_profile(root):
+    """--frame-profile: each cell of FRAME_CELLS in a process of its own:
+    call 1, frames/s, host syncs by source line, then one profiler run
+    with the frame's stages apart."""
+    out = []
+    for cell in FRAME_CELLS:
+        res = _frame_process(Path(root) / "src", cell, 0)
+        n, prof = res["frames"], res["profile"]
+        w = prof["frames"]
+        print(f"[frame profile] {cell} {res['card']}: call 1 "
+              f"{res['call1_s']:.3f} s, {n} frames at "
+              f"{res['fps'][0]:.3f} frames/s | host syncs/frame "
+              f"{res['syncs_per_frame']:.3f} | profiled {w} frames: wall "
+              f"{prof['wall_ms'] / w:.3f} ms, device {prof['device_ms'] / w:.3f}"
+              f" ms, launch calls {prof['launches'] / w:.1f} a frame, busy "
+              f"{prof['busy']:.4f}, idle {prof['idle']:.4f} | torch "
+              f"reserved {res['pool_mib']:.1f} MiB")
+        print(f"    syncs by site over {n} frames: {res['syncs']}")
+        for stage, v in res["stages"].items():
+            print(f"    stage {stage:<6} host {v['host_ms']:.3f} ms, launch "
+                  f"calls {v['launches']:.1f}, device {v['device_ms']:.3f} "
+                  f"ms a frame")
+        for kind in ("top_host", "top_device"):
+            for key, count, ms in prof[kind]:
+                print(f"    {kind} {key:<70} {count:7d} {ms:10.3f} ms")
+        out.append(res)
+    return out
+
+
+def frame_ab(old_root, rounds):
+    """--frame-ab: each cell of FRAME_CELLS, OLD_ROOT's package against this
+    tree's, old, new, new, old, each in a process of its own; frames/s
+    over --rounds runs after call 1, and the medians."""
+    trees = [Path(old_root) / "src", Path(chip_smoke.ROOT) / "src"]
+    results = []
+    for tree in (trees[0], trees[1], trees[1], trees[0]):
+        label = "old" if tree == trees[0] else "new"
+        for res in _frame_process(tree, "all", rounds):
+            print(f"[frame {label}] {res['cell']} {res['card']}: call 1 "
+                  f"{res['call1_s']:.3f} s, frames/s {_join(res['fps'], 3)}")
+            results.append({"tree": label, **res})
+    for cell in FRAME_CELLS:
+        med = {label: statistics.median(
+            v for r in results if r["tree"] == label and r["cell"] == cell
+            for v in r["fps"]) for label in ("old", "new")}
+        print(f"[frame median] {cell}: old {med['old']:.3f}, new "
+              f"{med['new']:.3f} frames/s ({med['new'] / med['old']:.3f}x)")
+    return results
+
+
 def _join(vals, digits):
     return ", ".join(f"{v:.{digits}f}" for v in vals)
 
@@ -944,6 +1235,15 @@ def main() -> int:
                     help="Slam2D.run, Slam3D's backend and the "
                          "verification trip, OLD_ROOT's package against "
                          "this tree's")
+    ap.add_argument("--frame-profile", default=None, metavar="ROOT",
+                    help="sync sites, call 1 and a profile of the frame's "
+                         "stages in every cell, ROOT's package")
+    ap.add_argument("--frame-ab", default=None, metavar="OLD_ROOT",
+                    help="frames/s of every cell, OLD_ROOT's package "
+                         "against this tree's")
+    ap.add_argument("--frame-worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--frame-cell", choices=(*FRAME_CELLS, "all"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--loop-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--loop-mode", choices=LOOP_MODES,
                     help=argparse.SUPPRESS)
@@ -954,7 +1254,19 @@ def main() -> int:
     if args.loop_worker:
         loop_worker(args.loop_worker, args.loop_mode, args.rounds)
         return 0
+    if args.frame_worker:
+        frame_worker(args.frame_worker, args.frame_cell, args.rounds)
+        return 0
     chip_smoke.phase_device()
+    if args.frame_profile or args.frame_ab:
+        if args.frame_profile:
+            print(json.dumps({"frame_profile": frame_profile(
+                args.frame_profile)}))
+        if args.frame_ab:
+            print(json.dumps({"frame_ab": frame_ab(args.frame_ab,
+                                                   args.rounds)}))
+        print(json.dumps({"done": True}))
+        return 0
     if args.loop_profile or args.loop_ab:
         if args.loop_profile:
             print(json.dumps({"loop_profile": loop_profile(

@@ -166,11 +166,31 @@ nonzero and the final line is not printed:
      none after a trip that reaches max_iters), batched K1
      and RF one launch a trip with the graph's replays counted, the memory
      one graph holds, and ms a trip eager and graphed.
+ 21. The frame graphs (ScanToMapPipeline.run_fused on CUDA replays
+     slam/scan_to_map.FrameGraphs, a CUDA graph a stage of the frame)
+     against the eager _step loop on the same log: the four slice cells
+     (chip_ab.CELLS) on phase 4's log, full SLAM's front end at "rescore"
+     (configs/kitti_full_res.json) on phase 4's log, config 2's lifted
+     point-to-point front end on phase 15's log, and
+     configs/kitti_scan_to_map.json and sim3d_loop.json on 10 frames of
+     phase 4's route. Every info (iterations,
+     keyframes, inserts, map counts, poses) and every state field bit-equal
+     to the eager loop's, since the same kernels run in the same order; two
+     runs from one state equal; call 1's returned state unchanged after
+     two later runs; each kernel's launches equal with the replays counted;
+     host syncs the ICP trips' condition reads plus the insert read a frame
+     at "steps", the insert read at "fused". Frames/s eager, call 1 (the
+     captures included) and call 2, and the MiB the graphs hold. Phases 4,
+     9, 10, 13 and 15 print their front ends' host syncs a frame (frames
+     1-5, inputs on the card) beside the graphs' count, and hold them to
+     it.
  19. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4, batched or not, must make their four
-     launches and no more). Last, because a process that has run the
-     profiler keeps its tracing hooks and runs host-bound frames slower.
+     launches and no more); then the host launch calls a frame of the
+     front ends of phases 4, 9, 10, 13 and 15 (frames 1-5). Last, because
+     a process that has run the profiler keeps its tracing hooks and runs
+     host-bound frames slower.
 
 Every kernel's launch count is read from the path that runs it, with the
 counts set to 0 just before and read just after. The line before the last
@@ -655,10 +675,13 @@ def phase_slice(pts, msk, gt):
     iters = infos["iters"].cpu().numpy()
     n_frames = len(pts) - 1
     ate = _ate(poses, gt)
+    syncs, want = _frame_syncs(slice_config(), pts, msk)
     print(f"[slice] {n_frames} frames in {dt:.4f} s = "
-          f"{n_frames / dt:.3f} frames/s (warm-up incl. init {warm_s:.2f} s)"
-          f" | mean ICP iters {iters.mean():.3f} | host syncs/frame "
-          f"{(iters.sum() + n_frames) / n_frames:.3f} | keyframes "
+          f"{n_frames / dt:.3f} frames/s (warm-up incl. init and the graphs' "
+          f"captures {warm_s:.2f} s) | mean ICP iters {iters.mean():.3f} | "
+          f"host syncs/frame {syncs:.3f} (sync debug mode, frames 1-5; the "
+          f"frame graphs' count {want:.3f}; launch calls a frame in the "
+          f"profile phase) | keyframes "
           f"{int(infos['is_keyframe'].sum())} | map inserts "
           f"{int(infos['map_inserted'].sum())} | map points "
           f"{int(infos['map_points'][-1])} | ATE {ate:.5f} m")
@@ -667,6 +690,7 @@ def phase_slice(pts, msk, gt):
     assert np.isfinite(poses).all(), "non-finite pose"
     assert ate < 0.15, f"ATE {ate} m"
     assert k1 == k2 == int(iters.sum()) > 0, (k1, k2, int(iters.sum()))
+    assert syncs == want, (syncs, want)
     return k1, k2, n_frames, n_frames / dt
 
 
@@ -732,6 +756,9 @@ def _batched_counts():
             for k in ("K1", "K2", "K3", "K4")}
 
 
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def _host_syncs(fn):
     """Synchronizing CUDA calls made by fn(), as torch's sync debug mode
     reports them (one warning each)."""
@@ -745,7 +772,8 @@ def _host_syncs(fn):
             fn()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    # the mode's own "prototype feature" warning, once a process, is no sync
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
 
 
 def phase_probe():
@@ -953,20 +981,22 @@ def _run_slice(cfg, pts, msk, gt, label):
     dt = time.perf_counter() - t0
     counts = _counts()
     n_frames = len(pts) - 1
-    syncs = _host_syncs(lambda: pipe.run_fused(state0, pts[1:6], msk[1:6]))
+    syncs, want = _frame_syncs(cfg, pts, msk)
     poses = np.concatenate(
         [np.eye(4)[None], infos["pose"].cpu().numpy().astype(np.float64)])
     iters = infos["iters"].cpu().numpy()
     ate = _ate(poses, gt)
     print(f"[{label}] {n_frames} frames in {dt:.4f} s = "
           f"{n_frames / dt:.3f} frames/s | mean ICP iters "
-          f"{iters.mean():.3f} | host syncs/frame {syncs / 5:.3f} (sync "
-          f"debug mode, frames 1-5) | keyframes "
+          f"{iters.mean():.3f} | host syncs/frame {syncs:.3f} (sync "
+          f"debug mode, frames 1-5; the frame graphs' count {want:.3f}) | "
+          f"keyframes "
           f"{int(infos['is_keyframe'].sum())} | map inserts "
           f"{int(infos['map_inserted'].sum())} | ATE {ate:.5f} m | "
           f"launches {counts}")
     assert np.isfinite(poses).all(), f"{label}: non-finite pose"
     assert ate < 0.15, f"{label}: ATE {ate} m"
+    assert syncs == want, (label, syncs, want)
     return counts, int(iters.sum()), n_frames, ate
 
 
@@ -1185,6 +1215,11 @@ def phase_full_slam():
         (c["K1"], batched, rf, slam.detector.verify_iters)
     _verify_syncs(slam.detector, pts, msk, slam.kf_frames,
                   (slam.closures_kept or slam.closures)[0], "full slam")
+    syncs, want = _frame_syncs(cfg, pts, msk)
+    print(f"[full slam] front end: host syncs/frame {syncs:.3f} (sync debug "
+          f"mode, frames 1-5; the frame graphs' count {want:.3f}; launch "
+          f"calls a frame in the profile phase)")
+    assert syncs == want, (syncs, want)
     return c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam), rf
 
 
@@ -1531,6 +1566,12 @@ def phase_config2():
     pts, msk = runner.pad_scans(runner.load_dataset(
         "sim2d_loop", SIM2D_FRAMES).scans, cfg.pipeline.scan_capacity)
     _frontend_syncs(cfg, pts, msk)
+    syncs, want = _frame_syncs(*_lifted_config2())
+    print(f"[config 2 front end] Slam2D's lifted scan-to-map frames: host "
+          f"syncs/frame {syncs:.3f} (sync debug mode, frames 1-5; the frame "
+          f"graphs' count {want:.3f}; launch calls a frame in the profile "
+          f"phase)")
+    assert syncs == want, (syncs, want)
     _verify_syncs(slam.detector, pts, msk, slam.kf_frames,
                   (slam.closures_kept or slam.closures)[0], "config 2 eval")
 
@@ -2607,6 +2648,237 @@ def phase_graphed_verification(pts, msk):
           f"{', '.join(f'{v:.4f}' for v in times['graphed'])}")
 
 
+def _on_card(*arrays):
+    return tuple(torch.as_tensor(a, device="cuda") for a in arrays)
+
+
+def _expected_syncs(cfg, iters):
+    """Host syncs of the frame graphs over frames with these ICP
+    iterations: the insert read a frame (and the hysteresis read), and at
+    loop_backend "steps" the while condition, read before every trip after
+    the first and once more to stop unless max_iters stopped the loop. (The
+    ICP that icp.loop.eager_loop keeps out of the graphs makes its own.)"""
+    from tpu_icp_slam_torch.slam.scan_to_map import _fused
+
+    ic = cfg.icp
+    per_frame = 1 + (cfg.mapping.extract_hysteresis > 0.0)
+    if _fused(ic) or ic.unroll_iters > 0:
+        return len(iters) * per_frame
+    iters = np.asarray(iters)
+    return int((iters - (iters >= ic.max_iters)).sum()) + len(iters) * \
+        per_frame
+
+
+def _frame_syncs(cfg, pts, msk, n=5):
+    """(host syncs a frame, the frame graphs' expected count a frame) of
+    ScanToMapPipeline.run_fused over frames 1..n of this log, inputs on the
+    card, after a run that captures the graphs."""
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    P, M = _on_card(pts[:n + 1], msk[:n + 1])
+    state0 = pipe.init_state(P[0], M[0])
+    pipe.run_fused(state0, P[1:], M[1:])
+    out = {}
+    syncs = _host_syncs(lambda: out.update(
+        i=pipe.run_fused(state0, P[1:], M[1:])[1]))
+    return syncs / n, _expected_syncs(cfg, out["i"]["iters"].cpu()) / n
+
+
+def _launch_calls(cfg, pts, msk, n=5):
+    """Host launch calls a frame (runtime kernel and graph launches, from a
+    torch.profiler run) of ScanToMapPipeline.run_fused over frames 1..n,
+    inputs on the card, after a run that captures the graphs. It runs in
+    the profile phase: a process that ran the profiler runs slower."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    P, M = _on_card(pts[:n + 1], msk[:n + 1])
+    state0 = pipe.init_state(P[0], M[0])
+    pipe.run_fused(state0, P[1:], M[1:])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.run_fused(state0, P[1:], M[1:])
+        torch.cuda.synchronize()
+    calls = {}
+    for a in prof.key_averages():
+        if a.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                             "cuGraphLaunch")):
+            calls[a.key] = calls.get(a.key, 0) + a.count
+    return sum(calls.values()) / n, calls
+
+
+def _lifted_config2():
+    """Config 2's front end as Slam2D runs it: configs/lidar2d_scan_to_map
+    .json over phase 15's sim2d_loop log lifted to z = 0."""
+    from tpu_icp_slam_torch import from_json
+    from tpu_icp_slam_torch.slam import runner
+
+    cfg = from_json(open(CONFIG2).read())
+    pts, msk = runner.pad_scans(runner.load_dataset(
+        "sim2d_loop", SIM2D_FRAMES).scans, cfg.pipeline.scan_capacity)
+    pts3 = np.concatenate([pts, np.zeros_like(pts[..., :1])], axis=-1)
+    return cfg, pts3.astype(np.float32), msk
+
+
+def _eager_frames(cfg, state0, P, M):
+    """scan_to_map._step frame after frame on the card: the pipeline as it
+    ran before its frames were graphed, and the graphs' reference."""
+    from tpu_icp_slam_torch.slam.scan_to_map import _step
+
+    st, infos = state0, []
+    for f in range(len(P)):
+        st, info = _step(st, P[f], M[f], cfg=cfg)
+        infos.append(info)
+    return st, {k: torch.stack([torch.as_tensor(i[k]).cpu() for i in infos])
+                for k in infos[0]}
+
+
+def _state_leaves(st):
+    out = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
+           if f.name != "vmap"}
+    out.update({f"vmap.{k}": getattr(st.vmap, k)
+                for k in ("points", "normals", "mask")})
+    return out
+
+
+def _states_equal(a, b):
+    la, lb = _state_leaves(a), _state_leaves(b)
+    return [k for k in la if not bits_equal(la[k], lb[k])]
+
+
+def _infos_equal(got, want):
+    """The keys whose values differ: every info bit for bit, iters (int32
+    from the graphs, a host count from the eager steps loop) by value."""
+    bad = []
+    for k, w in want.items():
+        g = got[k].cpu()
+        if k == "iters":
+            g, w = g.long(), w.long()
+        if not bits_equal(g, w.to(g.dtype)):
+            bad.append(k)
+    return bad
+
+
+def _graph_cell(label, cfg, pts, msk):
+    """Phase 21's check of one configuration on one log (see
+    phase_frame_graphs)."""
+    from tpu_icp_slam_torch.slam import scan_to_map as s2m
+
+    P, M = _on_card(pts, msk)
+    pipe = s2m.ScanToMapPipeline(cfg, device="cuda")
+    state0 = pipe.init_state(P[0], M[0])
+    n = len(P) - 1
+    s2m._frame_graphs.clear()  # call 1 captures this cell's graphs
+
+    def timed(fn):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {**_counts(),
+                                               "RF": _rf().launches}
+
+    (st_e, inf_e), eager_s, c_e = timed(
+        lambda: _eager_frames(cfg, state0, P[1:], M[1:]))
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_reserved()
+    (st_1, inf_1), call1_s, c_1 = timed(
+        lambda: pipe.run_fused(state0, P[1:], M[1:]))
+    held_mib = (torch.cuda.memory_reserved() - held0) / 2**20
+    kept = {k: v.clone() for k, v in _state_leaves(st_1).items()}
+    (st_2, inf_2), graph_s, c_2 = timed(
+        lambda: pipe.run_fused(state0, P[1:], M[1:]))
+    syncs = _host_syncs(lambda: pipe.run_fused(state0, P[1:], M[1:]))
+    # a returned state read after later frames: call 1's, after calls 2-3
+    changed = [k for k, v in _state_leaves(st_1).items()
+               if not bits_equal(v, kept[k])]
+    iters = inf_e["iters"].numpy()
+    want_syncs = _expected_syncs(cfg, iters)
+    bad = {"call 1 infos": _infos_equal(inf_1, inf_e),
+           "call 2 infos": _infos_equal(inf_2, inf_e),
+           "call 1 state": _states_equal(st_1, st_e),
+           "call 2 state": _states_equal(st_2, st_e),
+           "returned state after later frames": changed}
+    pos_gap = float((inf_2["pose"].cpu() - inf_e["pose"]).abs().max())
+    print(f"[frame graphs] {label}: {n} frames | eager _step "
+          f"{n / eager_s:.3f} frames/s, graphed call 1 {n / call1_s:.3f} "
+          f"frames/s ({call1_s:.3f} s with the captures), call 2 "
+          f"{n / graph_s:.3f} frames/s | ICP iterations {int(iters.sum())}, "
+          f"keyframes {int(inf_e['is_keyframe'].sum())}, inserts "
+          f"{int(inf_e['map_inserted'].sum())}, map points "
+          f"{int(inf_e['map_points'][-1])} | host syncs {syncs} "
+          f"({syncs / n:.3f} a frame; expected {want_syncs}) | launches "
+          f"eager {c_e}, graphed call 1 {c_1}, call 2 {c_2} | graphs hold "
+          f"{held_mib:.1f} MiB | largest pose gap to eager {pos_gap:.3e} | "
+          f"mismatches {bad}")
+    assert not any(bad.values()), (label, bad)
+    assert c_e == c_1 == c_2, (label, c_e, c_1, c_2)
+    assert syncs == want_syncs, (label, syncs, want_syncs)
+    return {"eager_fps": n / eager_s, "call1_s": call1_s,
+            "graph_fps": n / graph_s, "syncs_per_frame": syncs / n,
+            "held_mib": held_mib}
+
+
+def phase_frame_graphs(pts, msk):
+    """Phase 21: the graphed frame (ScanToMapPipeline.run_fused on CUDA,
+    slam/scan_to_map.FrameGraphs) against the eager _step loop on the
+    same log, for the four slice cells (chip_ab.CELLS), full SLAM's front
+    end at "rescore" (configs/kitti_full_res.json on phase 4's log),
+    config 2's lifted point-to-point front end (phase 15's log) and the
+    other two 3D presets (10 frames of phase 4's route at their own voxel
+    and capacity): every
+    info (iterations, keyframes, inserts, map counts, poses) and every
+    state field bit-equal, since the same kernels run in the same order;
+    two runs from one state equal, and call 1's returned state unchanged
+    after two later runs; every kernel's launches equal with the replays
+    counted; host syncs ICP trips + 1 a frame at "steps", 1 at "fused".
+    Frames/s eager, graphed call 1 (captures included) and call 2, and
+    the memory the graphs hold."""
+    cells = [(f"{b} {p}", slice_config(loop_backend=b, nn_precision=p), pts,
+              msk) for b, p in (("steps", "highest"), ("fused", "highest"),
+                                ("fused", "bf16"), ("steps", "bf16"))]
+    cells.append(("full-SLAM front end, rescore", full_slam_config(), pts,
+                  msk))
+    cells.append(("config 2 lifted point-to-point", *_lifted_config2()))
+    from tpu_icp_slam_torch import from_json
+
+    for name in ("kitti_scan_to_map.json", "sim3d_loop.json"):
+        # the other 3D presets, on the first 10 frames of phase 4's route
+        # at their own voxel and scan capacity
+        cfg = from_json(open(os.path.join(ROOT, "configs", name)).read())
+        p, m, _ = _scans(11, 48, 1024, 11 / 110.0,
+                         cfg.pipeline.downsample_voxel,
+                         cfg.pipeline.scan_capacity)
+        cells.append((f"configs/{name} front end", cfg, p, m))
+    return {label: _graph_cell(label, cfg, p, m) for label, cfg, p, m in cells}
+
+
+def phase_launch_calls(pts, msk, full):
+    """Host launch calls a frame of the frame graphs (runtime kernel and
+    graph launches, torch.profiler) on the front ends of phases 4, 9, 10,
+    13 and 15, frames 1-5 of each phase's log. Run in the profile phase."""
+    cfg13, pts13, msk13 = full[:3]
+    runs = [("phase 4 steps highest", slice_config(), pts, msk),
+            ("phase 9 fused highest", slice_config(loop_backend="fused"),
+             pts, msk),
+            ("phase 9 fused bf16", slice_config(loop_backend="fused",
+                                                nn_precision="bf16"),
+             pts, msk),
+            ("phase 10 steps bf16", slice_config(nn_precision="bf16"), pts,
+             msk),
+            ("phase 13 front end rescore", cfg13, pts13, msk13),
+            ("phase 15 config 2 lifted", *_lifted_config2())]
+    for label, cfg, p, m in runs:
+        per_frame, calls = _launch_calls(cfg, p, m)
+        print(f"[launch calls] {label}: {per_frame:.1f} host launch calls a "
+              f"frame (frames 1-5, profiled) {calls}")
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -2696,9 +2968,13 @@ def main() -> int:
         row["launches_per_frame"] = None
         row["launches_per_trip"] = run["launches"][kernel] / run["trips"]
         row["trip_ms"] = run["s"] / run["trips"] * 1e3
+    t0 = time.perf_counter()
+    phase_frame_graphs(pts, msk)
+    print(f"[frame graphs] phase 21 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
             k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows, rf_row]
     phase_profile(rows)
+    phase_launch_calls(pts, msk, full)
     for row in rows:
         row["share"] = row["bound_ms"] / row["ms"]
     print(json.dumps({"kernels": rows}))

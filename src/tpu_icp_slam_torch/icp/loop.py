@@ -15,8 +15,10 @@ poses and targets (loop-closure verification): one loop over the batch,
 every element stepping until all have stopped, each stopped element frozen,
 so that each element's result is its own `align`'s. Its trip reads nothing
 back; on CUDA every trip after the first is one replay of a CUDA graph
-(`_TripGraph`), and the condition read is the trip's one host sync. Both
-drivers share one body; `icp.anderson` (AA(1) on twists) runs in either.
+(`_TripGraph`), and the condition read is the trip's one host sync.
+`StaticAlign` gives the unbatched loop the same form over static buffers,
+for the scan-to-map frame's graphs (slam/scan_to_map.FrameGraphs). The
+drivers share one body; `icp.anderson` (AA(1) on twists) runs in each.
 The point-to-point step's rigid fit is RF on CUDA (no host read either).
 """
 
@@ -34,14 +36,9 @@ from tpu_icp_slam_torch.config import ICPConfig
 from tpu_icp_slam_torch.core import se2, se3
 from tpu_icp_slam_torch.core.pointcloud import PointCloud
 from tpu_icp_slam_torch.icp.point_to_plane import gauss_newton_step
-from tpu_icp_slam_torch.icp.point_to_point import (
-    rigid_from_stats, umeyama_masked,
-)
-from tpu_icp_slam_torch.kernels import voxel_nn
+from tpu_icp_slam_torch.icp.point_to_point import umeyama_masked
+from tpu_icp_slam_torch.kernels import graphs, voxel_nn
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
-from tpu_icp_slam_torch.kernels.nn_bf16 import nn_bf16
-from tpu_icp_slam_torch.kernels.nn_cuda import nn_bruteforce
-from tpu_icp_slam_torch.kernels.nn_rescore import nn_rescore
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +90,14 @@ def _voxel_grid(cfg: ICPConfig, points: torch.Tensor, mask: torch.Tensor):
                           bucket=cfg.voxel_bucket)
 
 
-def _nn_correspondence(cfg: ICPConfig, dst: PointCloud):
-    """Returns corr(points) -> (q, n, gate, d2): NN into dst + distance gate."""
-    grid = (_voxel_grid(cfg, dst.points, dst.mask)
-            if cfg.nn_backend == "voxel" else None)
+def _nn_correspondence(cfg: ICPConfig, dst: PointCloud,
+                       grid: Optional[voxel_nn.VoxelHashGrid] = None):
+    """Returns corr(points) -> (q, n, gate, d2): NN into dst + distance gate.
+    nn_backend="voxel" queries `grid`, or a grid built here from dst."""
+    if cfg.nn_backend == "voxel" and grid is None:
+        grid = _voxel_grid(cfg, dst.points, dst.mask)
+    elif cfg.nn_backend != "voxel":
+        grid = None
     last = dst.capacity - 1
 
     def corr(cur_pts: torch.Tensor):
@@ -363,6 +364,80 @@ def align_with_correspondence(src: PointCloud, corr_fn: Callable,
     return _drive(cfg, body, T0, batched=False)
 
 
+def eager_loop(cfg: ICPConfig) -> bool:
+    """The ICP configurations whose iteration reads the host, and so runs
+    `align_with_correspondence`'s eager loop, never a captured trip:
+    degen_eps > 0 (torch.linalg.eigh checks its result on the host; sync
+    debug mode "error" stops at point_to_plane.py's eigh). Every other
+    configuration, each preset's and nn_backend="voxel" included, has a
+    trip that reads nothing back."""
+    return cfg.degen_eps > 0.0
+
+
+class StaticAlign:
+    """align_with_correspondence from T0 = I as align_batched runs it, over
+    static buffers: the source `src` (points, and its mask as float
+    weights, which _body reads in place) and whatever `corr_fn` closes over
+    are the caller's tensors, T0, T0⁻¹ and the prior's scale are made here
+    once, and `state` is _init_state's tuple, carried in place. `first()`
+    resets the state and runs trip 0 (it = 0, Anderson's first-iteration
+    arm); `later()` runs one trip with it > 0. Neither reads the host:
+    they are what a CUDA graph captures. `go_on(trips)` is the reference's
+    while_loop condition, read once a trip, as align_batched reads it; a
+    trip of a B = 1 state that has not converged is _drive's body, so the
+    result equals the eager loop's bit for bit. `unroll_iters > 0` runs its
+    fixed trips inside `first()`. A caller that runs the ICP otherwise (K5,
+    or the eager loop for `eager_loop`'s configurations) passes corr_fn
+    None and keeps its result in `state` through `set_result`."""
+
+    def __init__(self, cfg: ICPConfig, src: PointCloud, corr_fn: Callable):
+        self.cfg = cfg
+        self.src = src
+        self.corr_fn = corr_fn
+        dev, dtype = src.points.device, src.points.dtype
+        self.T0 = torch.eye(src.dim + 1, dtype=dtype, device=dev)
+        use_prior = cfg.method == "point_to_plane" and (
+            cfg.prior_trans_weight > 0.0 or cfg.prior_rot_weight > 0.0)
+        self.T0_inv, self.prior_scale = _anchor(cfg, self.T0, use_prior)
+        self.body = _body(cfg, src, corr_fn, self.T0, self.T0_inv,
+                          self.prior_scale)
+        self.trip = _batched_trip(self.body)
+        self.state = tuple(t.clone() for t in _init_state(self.T0))
+
+    def commit(self, new: tuple) -> None:
+        for s, v in zip(self.state, new):
+            s.copy_(v)
+
+    def first(self) -> None:
+        if self.cfg.unroll_iters > 0:
+            res = _drive(self.cfg, self.body, self.T0, batched=False)
+            self.set_result(res)
+            return
+        self.commit(_init_state(self.T0))
+        if self.cfg.max_iters >= 1:
+            self.commit(self.trip(self.state, 0))
+
+    def later(self) -> None:
+        self.commit(self.trip(self.state, 1))
+
+    def go_on(self, trips: int) -> bool:
+        return trips < self.cfg.max_iters and not bool(self.state[3])
+
+    def set_result(self, res: ICPResult) -> None:
+        """An ICPResult into the state's T, rmse, n_inliers, converged and
+        iters."""
+        T, rmse, n_inl, conv, _, _, iters = self.state
+        for buf, v in ((T, res.T), (rmse, res.rmse), (n_inl, res.n_inliers),
+                       (conv, res.converged), (iters, res.iters)):
+            buf.copy_(v) if isinstance(v, torch.Tensor) else buf.fill_(v)
+
+    def result(self) -> ICPResult:
+        """The state as an ICPResult (views of the static buffers)."""
+        T, rmse, n_inl, conv, _, _, iters = self.state
+        return ICPResult(T=T, rmse=rmse, iters=iters, n_inliers=n_inl,
+                         converged=conv)
+
+
 def _batched_body(cfg: ICPConfig, src: PointCloud, dst_points: torch.Tensor,
                   dst_mask: torch.Tensor, T0: torch.Tensor,
                   T0_inv: Optional[torch.Tensor]) -> Callable:
@@ -400,24 +475,13 @@ def _batched_body(cfg: ICPConfig, src: PointCloud, dst_points: torch.Tensor,
     return _body(cfg, src, corr, T0, T0_inv, None)
 
 
-def _launch_counters() -> list:
-    """(wrapper, attribute) of every launch counter of the kernels a
-    batched trip can launch."""
-    return [(f, a) for f in (nn_bruteforce, nn_bf16, nn_rescore,
-                             rigid_from_stats)
-            for a in vars(f) if "launches" in a]
-
-
 class _TripGraph:
     """align_batched's trip on CUDA, captured once as a CUDA graph over
     static buffers: the source cloud, the targets, T0 and T0⁻¹ (read by the
     trust region) and the carried state. `start` copies a call's inputs in
-    and runs trip 0 eagerly (it = 0, Anderson's first-iteration arm). The
-    first `step` runs trip 1 eagerly on a side stream, the warm-up torch
-    asks for before a capture and a real trip, then captures the same trip
-    (it > 0) without running it; every later step replays it. Capturing
-    counts no launch: each replay adds the trip's captured launches to the
-    kernels' counters."""
+    and runs trip 0 eagerly (it = 0, Anderson's first-iteration arm). Each
+    `step` runs a trip with it > 0 through `graphs.Graphed`: the first
+    runs it eagerly and captures it, every later one replays it."""
 
     def __init__(self, cfg, batch, group, m, n, d, dtype, device):
         def buf(*shape, dtype=dtype):
@@ -434,8 +498,12 @@ class _TripGraph:
         self.state = tuple(t.clone() for t in _init_state(self.T0))
         self.trip = _batched_trip(_batched_body(
             cfg, self.src, self.dst, None, self.T0, self.T0_inv))
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launches: dict = {}
+        self._later = graphs.Graphed(
+            lambda: self._commit(self.trip(self.state, 1)), device)
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        return self._later.graph
 
     def _commit(self, new: tuple) -> None:
         for s, v in zip(self.state, new):
@@ -453,25 +521,7 @@ class _TripGraph:
         self._commit(self.trip(self.state, 0))
 
     def step(self) -> None:
-        if self.graph is not None:
-            self.graph.replay()
-            for (f, a), k in self.launches.items():
-                setattr(f, a, getattr(f, a) + k)
-            return
-        stream = torch.cuda.current_stream(self.T0.device)
-        side = torch.cuda.Stream(self.T0.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self._commit(self.trip(self.state, 1))
-        stream.wait_stream(side)
-        before = {c: getattr(*c) for c in _launch_counters()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._commit(self.trip(self.state, 1))
-        for (f, a), v in before.items():
-            self.launches[(f, a)] = getattr(f, a) - v
-            setattr(f, a, v)
-        self.graph = graph
+        self._later()
 
 
 GRAPH_CACHE = 8  # trip graphs kept, least recently used dropped first

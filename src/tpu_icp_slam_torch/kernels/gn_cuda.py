@@ -7,6 +7,9 @@ on CPU tensors: H = Σ w JᵀJ, g = Σ w r J with J = [n, p×n], r = n·(p−q).
 A call is one launch. Its scratch (one (27,) partial per block) and the
 ticket that elects the block summing them are allocated per device and
 reused: calls on one stream never overlap, and the port runs on one stream.
+A CUDA graph that captured a call keeps writing through that call's
+scratch pointers, so no scratch is ever freed: a larger batch gets new
+buffers and the old ones are kept for the life of the process.
 
 Batched form (the sharded align's local rows; the reference vmaps
 gn_accum_pallas over them, one pallas_call with the batch on its grid):
@@ -25,6 +28,7 @@ from tpu_icp_slam_torch.kernels import _build
 _SUMS = 27  # 21 upper-triangle entries of H + 6 of g
 
 _scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_outgrown: list = []  # scratch a captured graph may still use: never freed
 
 
 def _device_scratch(device: torch.device, batch: int = 1
@@ -35,6 +39,8 @@ def _device_scratch(device: torch.device, batch: int = 1
     tickets at 0)."""
     have = _scratch.get(device)
     if have is None or have[1].shape[0] < batch:
+        if have is not None:
+            _outgrown.append(have)
         have = (torch.empty((batch, 2 * _build.sm_count(device.index), _SUMS),
                             dtype=torch.float32, device=device),
                 torch.zeros(batch, dtype=torch.int32, device=device))

@@ -1,0 +1,77 @@
+"""CUDA graphs over the port's kernel wrappers (the port's counterpart of the
+reference's `jit`, where launch overhead dominates a loop of small
+kernels).
+
+`Graphed(fn, device, pool)` replays fn() as a CUDA graph. fn reads and
+writes static buffers only and reads nothing back to the host. Its first
+call runs fn eagerly on a side stream (a real run, and the warm-up torch
+asks for before a capture), then captures fn without running it; every
+later call replays the graph. Capturing counts no launch: each replay adds
+the launches the capture counted to the kernels' counters, so a count
+still equals the launches the card ran. On a CPU device fn runs every time.
+
+A graph keeps the device pointers it was captured with: nothing it reads
+or writes may be freed or moved while it lives. The callers own their
+static buffers; the kernels' own scratch is allocated per call, or (K2)
+kept for the life of the process.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+
+def launch_counters() -> list:
+    """(wrapper, attribute) of every launch counter of the port's kernels
+    that a captured trip or frame can launch."""
+    from tpu_icp_slam_torch.icp.point_to_point import rigid_from_stats
+    from tpu_icp_slam_torch.kernels.gn_cuda import gn_accum
+    from tpu_icp_slam_torch.kernels.icp_fused import icp_fused
+    from tpu_icp_slam_torch.kernels.nn_bf16 import nn_bf16
+    from tpu_icp_slam_torch.kernels.nn_cuda import nn_bruteforce
+    from tpu_icp_slam_torch.kernels.nn_rescore import nn_rescore
+
+    return [(f, a) for f in (nn_bruteforce, nn_bf16, nn_rescore, gn_accum,
+                             icp_fused, rigid_from_stats)
+            for a in vars(f) if "launches" in a]
+
+
+class Graphed:
+    """fn() as a CUDA graph on `device`, captured on the second call's
+    behalf by the first (see the module docstring); `pool` shares one
+    memory pool among the graphs of one owner, which replays them one at a
+    time on one stream."""
+
+    def __init__(self, fn: Callable[[], None], device: torch.device,
+                 pool=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.pool = pool
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: dict = {}
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda":
+            self.fn()
+            return
+        if self.graph is not None:
+            self.graph.replay()
+            for (f, a), k in self.launches.items():
+                setattr(f, a, getattr(f, a) + k)
+            return
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self.fn()
+        stream.wait_stream(side)
+        before = {c: getattr(*c) for c in launch_counters()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            self.fn()
+        for (f, a), v in before.items():
+            self.launches[(f, a)] = getattr(f, a) - v
+            setattr(f, a, v)
+        self.graph = graph

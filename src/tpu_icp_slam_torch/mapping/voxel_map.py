@@ -79,7 +79,9 @@ def insert(vm: VoxelMap, pts: torch.Tensor, msk: torch.Tensor,
     _, order = torch.sort(_voxel_key(q), stable=True)
     qs = q[order]
     same_as_prev = torch.all(qs == torch.roll(qs, 1, dims=0), dim=1)
-    same_as_prev[0] = False
+    # fill_ on the device: a Python scalar assigned into one element is
+    # copied from the host, a sync that no CUDA graph can capture
+    same_as_prev[0].fill_(False)
     keep = ~same_as_prev & all_msk[order]
 
     # keepers first, then by eviction priority (the reference's
@@ -167,7 +169,7 @@ def insert_hash(vm: VoxelMap, pts: torch.Tensor, msk: torch.Tensor,
     _, order = torch.sort(_voxel_key(q_new), stable=True)
     qs = q_new[order]
     dup = torch.all(qs == torch.roll(qs, 1, dims=0), dim=1)
-    dup[0] = False
+    dup[0].fill_(False)  # on the device, as in `insert`
     first_of_voxel = torch.zeros(n_new, dtype=torch.bool, device=dev)
     first_of_voxel[order] = ~dup
 

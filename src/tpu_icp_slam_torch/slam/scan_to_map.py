@@ -8,16 +8,27 @@ Per frame:
     → on map inserts only: k-NN normals + voxel-dedup insert of the scan
       (`insert`, or `insert_hash` with mapping.insert_backend="hash").
 
-The reference's two `lax.cond`s (re-extract with hysteresis, map insert)
-become host branches. Its ICP runs one of two ways, as in the reference:
-`icp.loop_backend="steps"` is a host loop (one host sync per ICP iteration);
-`"fused"` (for point-to-plane without degen_eps or corr_range_rate) is one
-launch of the whole-loop kernel K5 with no host sync. Either way one more
-host sync per frame decides the map insert (two with extract hysteresis).
+The frame is `_step`, the composition of pure stages: `_pre` (prediction,
+extract, the model moved into the predicted sensor frame, the coverage
+gate), `_icp`, `_post` (pose, T_rel, the keyframe and health gates) and, on
+map inserts only, `_insert`. The reference's two `lax.cond`s (re-extract
+with hysteresis, map insert) are host reads between the stages. Its ICP
+runs one of two ways, as in the reference: `icp.loop_backend="steps"`
+iterates with the while condition read once an iteration; `"fused"` (for
+point-to-plane without degen_eps or corr_range_rate) is one launch of the
+whole-loop kernel K5.
+
+The reference runs a frame as one jitted program. On CUDA the port runs it
+as `FrameGraphs`: each stage over static buffers, replayed as a CUDA graph,
+so a frame is a handful of graph launches, and its host syncs are the ICP
+trips' condition reads and the insert read: trips + 1 at "steps", 1 at
+"fused" (+1 each with extract hysteresis). On the CPU `step` and
+`run_fused` run `_step` eagerly.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -27,9 +38,14 @@ from tpu_icp_slam_torch.core import se3
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD, PointCloud
 from tpu_icp_slam_torch.icp.loop import (
     ICPResult,
+    StaticAlign,
     _nn_correspondence,
+    _voxel_grid,
     align_with_correspondence,
+    eager_loop,
 )
+from tpu_icp_slam_torch.kernels.graphs import Graphed
+from tpu_icp_slam_torch.kernels import voxel_nn
 from tpu_icp_slam_torch.kernels.icp_fused import fused_args, icp_fused
 from tpu_icp_slam_torch.mapping import voxel_map
 from tpu_icp_slam_torch.mapping.normals import normals_knn
@@ -68,12 +84,25 @@ class ScanToMapPipeline:
         return init_state(*self._as_tensors(first_points, first_mask),
                           self.cfg)
 
+    def _graphs(self, capacity: int) -> FrameGraphs | None:
+        """The frame graphs on CUDA, None on the CPU (eager `_step`)."""
+        if self.device.type != "cuda":
+            return None
+        return frame_graphs(self.cfg, capacity, self.device)
+
     def step(self, state: MapOdomState, points, mask):
-        return _step(state, *self._as_tensors(points, mask), cfg=self.cfg)
+        points, mask = self._as_tensors(points, mask)
+        graphs = self._graphs(points.shape[0])
+        if graphs is not None:
+            return graphs.step(state, points, mask)
+        return _step(state, points, mask, cfg=self.cfg)
 
     def run_fused(self, state: MapOdomState, all_points, all_masks):
         """Step over a whole (F, C, 3) log; infos are stacked per frame."""
         pts, msk = self._as_tensors(all_points, all_masks)
+        graphs = self._graphs(pts.shape[1])
+        if graphs is not None:
+            return graphs.run(state, pts, msk)
         infos = []
         for f in range(pts.shape[0]):
             state, info = _step(state, pts[f], msk[f], cfg=self.cfg)
@@ -124,30 +153,59 @@ def _predict(state: MapOdomState, cfg: SlamConfig) -> torch.Tensor:
     return state.pose @ se3.exp(torch.cat([alpha * xi[:3], alpha_r * xi[3:]]))
 
 
-def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
-          cfg: SlamConfig):
-    m, p, ic = cfg.mapping, cfg.pipeline, cfg.icp
-    init = _predict(state, cfg)
+@dataclasses.dataclass(frozen=True)
+class _Pre:
+    """What a frame knows before its ICP."""
+    init: torch.Tensor  # (4, 4) predicted pose
+    loc_pts: torch.Tensor  # (L, 3) local model, world frame
+    loc_nrm: torch.Tensor  # (L, 3)
+    loc_msk: torch.Tensor  # (L,) bool
+    r_cover: torch.Tensor  # () coverage radius of the model
+    ex_center: torch.Tensor  # (3,) where the model was extracted
+    loc_local: torch.Tensor  # (L, 3) the model in the predicted sensor frame
+    nrm_local: torch.Tensor  # (L, 3)
+    r_gate: torch.Tensor  # () coverage gate of the ICP and the health gate
+
+
+@dataclasses.dataclass(frozen=True)
+class _Post:
+    """The frame's pose and gates, after its ICP."""
+    pose: torch.Tensor  # (4, 4)
+    T_rel: torch.Tensor  # (4, 4)
+    clamped: torch.Tensor  # () bool
+    is_kf: torch.Tensor  # () bool
+    is_map_insert: torch.Tensor  # () bool
+
+
+def _extract_needed(state: MapOdomState, init: torch.Tensor,
+                    cfg: SlamConfig) -> torch.Tensor:
+    """Extract hysteresis: re-extract after a map insert or once the
+    prediction moved farther than mapping.extract_hysteresis from where the
+    carried model was extracted (the reference's lax.cond at :154)."""
+    moved = (torch.linalg.vector_norm(init[:3, 3] - state.extract_center)
+             > cfg.mapping.extract_hysteresis)
+    return state.need_extract | moved
+
+
+def _pre(state: MapOdomState, init: torch.Tensor, cfg: SlamConfig,
+         extract: bool) -> _Pre:
+    """The local model (extracted at the prediction, or the carried one
+    with extract False), moved into the predicted sensor frame, and the
+    coverage gate."""
+    m, ic = cfg.mapping, cfg.icp
     center = init[:3, 3]
-    if m.extract_hysteresis > 0.0:
-        # reuse the carried model while fresh enough; the coverage gate
-        # below shrinks by the staleness offset
-        moved = (torch.linalg.vector_norm(center - state.extract_center)
-                 > m.extract_hysteresis)
-        if bool(state.need_extract | moved):
-            loc_pts, loc_nrm, loc_msk, r_cover = voxel_map.extract_local(
-                state.vmap, center, m.local_model_size,
-                approx=m.extract_approx)
-            ex_center = center
-        else:
-            loc_pts, loc_nrm, loc_msk, r_cover, ex_center = (
-                state.loc_pts, state.loc_nrm, state.loc_msk, state.r_cover,
-                state.extract_center)
-        stale_off = torch.linalg.vector_norm(center - ex_center)
-    else:
+    if extract:
         loc_pts, loc_nrm, loc_msk, r_cover = voxel_map.extract_local(
             state.vmap, center, m.local_model_size, approx=m.extract_approx)
         ex_center = center
+    else:
+        loc_pts, loc_nrm, loc_msk, r_cover, ex_center = (
+            state.loc_pts, state.loc_nrm, state.loc_msk, state.r_cover,
+            state.extract_center)
+    if m.extract_hysteresis > 0.0:
+        # the coverage gate shrinks by the carried model's staleness
+        stale_off = torch.linalg.vector_norm(center - ex_center)
+    else:
         stale_off = torch.zeros((), dtype=torch.float32, device=center.device)
     # move the small model into the predicted sensor frame once; the hot
     # loop then sees scene-scale magnitudes and starts at identity
@@ -159,27 +217,55 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
     # coverage gate: scan points beyond the model's guaranteed radius have
     # no genuine counterpart and would latch onto its boundary
     r_gate = torch.clamp(r_cover - stale_off - ic.max_corr_dist, min=0.0)
-    if (ic.loop_backend == "fused" and ic.method == "point_to_plane"
-            and ic.degen_eps == 0.0 and ic.corr_range_rate == 0.0):
-        # whole-loop kernel K5: one launch per align
+    return _Pre(init=init, loc_pts=loc_pts, loc_nrm=loc_nrm, loc_msk=loc_msk,
+                r_cover=r_cover, ex_center=ex_center, loc_local=loc_local,
+                nrm_local=nrm_local, r_gate=r_gate)
+
+
+def _fused(ic) -> bool:
+    """The whole-loop kernel K5 runs the ICP (the reference's fused branch:
+    point-to-plane without degen_eps or corr_range_rate)."""
+    return (ic.loop_backend == "fused" and ic.method == "point_to_plane"
+            and ic.degen_eps == 0.0 and ic.corr_range_rate == 0.0)
+
+
+def _coverage_corr(ic, pre: _Pre, grid=None):
+    """NN into the sensor-frame model, gated by the coverage radius
+    (nn_backend="voxel": into `grid`, or a grid built here)."""
+    nn_corr = _nn_correspondence(ic, PointCloud(
+        points=pre.loc_local, mask=pre.loc_msk, normals=pre.nrm_local),
+        grid=grid)
+    r_gate = pre.r_gate
+
+    def corr(cur_pts):
+        q, n, gate, d2 = nn_corr(cur_pts)
+        in_cover = torch.sum(cur_pts * cur_pts, dim=-1) <= r_gate * r_gate
+        return q, n, gate * in_cover.to(gate.dtype), d2
+
+    return corr
+
+
+def _icp(points: torch.Tensor, mask: torch.Tensor, pre: _Pre, ic
+         ) -> ICPResult:
+    """The scan against the model in the predicted sensor frame, from I:
+    one K5 launch, or the steps loop."""
+    if _fused(ic):
         precision, kw = fused_args(ic)
         T, rmse, iters, n_inl, conv = icp_fused(
-            points, mask, loc_local, nrm_local, loc_msk, init_T=None,
-            r_gate=r_gate, precision=precision, **kw)
-        res = ICPResult(T=T, rmse=rmse, iters=iters, n_inliers=n_inl,
-                        converged=conv)
-    else:
-        dst = PointCloud(points=loc_local, mask=loc_msk, normals=nrm_local)
-        nn_corr = _nn_correspondence(ic, dst)
+            points, mask, pre.loc_local, pre.nrm_local, pre.loc_msk,
+            init_T=None, r_gate=pre.r_gate, precision=precision, **kw)
+        return ICPResult(T=T, rmse=rmse, iters=iters, n_inliers=n_inl,
+                         converged=conv)
+    return align_with_correspondence(PointCloud(points=points, mask=mask),
+                                     _coverage_corr(ic, pre), None, ic)
 
-        def corr(cur_pts):
-            q, n, gate, d2 = nn_corr(cur_pts)
-            in_cover = torch.sum(cur_pts * cur_pts, dim=-1) <= r_gate * r_gate
-            return q, n, gate * in_cover.to(gate.dtype), d2
 
-        res = align_with_correspondence(PointCloud(points=points, mask=mask),
-                                        corr, None, ic)
-    pose = init @ res.T  # world pose = prediction ∘ sensor-frame correction
+def _post(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor,
+          pre: _Pre, res: ICPResult, cfg: SlamConfig) -> _Post:
+    """Pose, T_rel, the trust-region flag and the keyframe and map-health
+    gates."""
+    p, ic = cfg.pipeline, cfg.icp
+    pose = pre.init @ res.T  # world pose = prediction ∘ sensor correction
     T_rel = se3.inverse(state.pose) @ pose
 
     # post-hoc trust-region binding flag: the correction sits on the ball
@@ -200,7 +286,8 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
     moved = (trans > p.keyframe_trans) | (rot > p.keyframe_rot)
     # map-hygiene gate over the points the gate could possibly accept
     cur_aligned = points @ res.T[:3, :3].T + res.T[:3, 3]
-    in_cov = torch.sum(cur_aligned * cur_aligned, dim=-1) <= r_gate * r_gate
+    in_cov = (torch.sum(cur_aligned * cur_aligned, dim=-1)
+              <= pre.r_gate * pre.r_gate)
     n_total = torch.clamp(torch.sum(mask.to(torch.int32)), min=1)
     n_valid = torch.clamp(torch.sum((mask & in_cov).to(torch.int32)), min=1)
     enough_testable = n_valid * 10 >= n_total
@@ -218,43 +305,309 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
         is_map_insert = healthy & (moved | (pressure & moved_a_bit))
     else:
         is_map_insert = is_kf
+    return _Post(pose=pose, T_rel=T_rel, clamped=clamped, is_kf=is_kf,
+                 is_map_insert=is_map_insert)
 
-    vm = state.vmap
-    if bool(is_map_insert):
-        world_pts = points @ pose[:3, :3].T + pose[:3, 3]
-        world_pts = torch.where(mask[:, None], world_pts,
-                                torch.full_like(world_pts, PAD_COORD))
-        nrm = normals_knn(points, mask, k=p.normal_k,
-                          ref_stride=p.normal_ref_stride,
-                          approx=p.normal_approx,
-                          oversample=p.normal_oversample) @ pose[:3, :3].T
-        insert = (voxel_map.insert_hash if m.insert_backend == "hash"
-                  else voxel_map.insert)
-        vm = insert(vm, world_pts, mask, nrm, voxel=m.map_voxel,
-                    center=pose[:3, 3])
-    new_state = MapOdomState(
-        pose=pose,
-        T_rel=T_rel,
-        last_kf_pose=torch.where(is_kf, pose, state.last_kf_pose),
+
+def _insert(vm: voxel_map.VoxelMap, points: torch.Tensor, mask: torch.Tensor,
+            pose: torch.Tensor, cfg: SlamConfig) -> voxel_map.VoxelMap:
+    """The scan, with its k-NN normals, into the map at `pose`."""
+    m, p = cfg.mapping, cfg.pipeline
+    world_pts = points @ pose[:3, :3].T + pose[:3, 3]
+    world_pts = torch.where(mask[:, None], world_pts,
+                            torch.full_like(world_pts, PAD_COORD))
+    nrm = normals_knn(points, mask, k=p.normal_k,
+                      ref_stride=p.normal_ref_stride, approx=p.normal_approx,
+                      oversample=p.normal_oversample) @ pose[:3, :3].T
+    insert = (voxel_map.insert_hash if m.insert_backend == "hash"
+              else voxel_map.insert)
+    return insert(vm, world_pts, mask, nrm, voxel=m.map_voxel,
+                  center=pose[:3, 3])
+
+
+def _advance(state: MapOdomState, pre: _Pre, post: _Post,
+             vm: voxel_map.VoxelMap) -> MapOdomState:
+    return MapOdomState(
+        pose=post.pose,
+        T_rel=post.T_rel,
+        last_kf_pose=torch.where(post.is_kf, post.pose, state.last_kf_pose),
         vmap=vm,
         frame=state.frame + 1,
-        n_keyframes=state.n_keyframes + is_kf.to(torch.int32),
-        loc_pts=loc_pts,
-        loc_nrm=loc_nrm,
-        loc_msk=loc_msk,
-        r_cover=r_cover,
-        extract_center=ex_center,
-        need_extract=is_map_insert,
+        n_keyframes=state.n_keyframes + post.is_kf.to(torch.int32),
+        loc_pts=pre.loc_pts,
+        loc_nrm=pre.loc_nrm,
+        loc_msk=pre.loc_msk,
+        r_cover=pre.r_cover,
+        extract_center=pre.ex_center,
+        need_extract=post.is_map_insert,  # map changed: re-extract next
     )
-    info = {
-        "pose": pose,
+
+
+def _info(res: ICPResult, post: _Post, vm: voxel_map.VoxelMap) -> dict:
+    return {
+        "pose": post.pose,
         "rmse": res.rmse,
         "iters": res.iters,
         "n_inliers": res.n_inliers,
         "converged": res.converged,
-        "clamped": clamped,
-        "is_keyframe": is_kf,
-        "map_inserted": is_map_insert,
+        "clamped": post.clamped,
+        "is_keyframe": post.is_kf,
+        "map_inserted": post.is_map_insert,
         "map_points": voxel_map.count(vm),
     }
-    return new_state, info
+
+
+def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
+          cfg: SlamConfig):
+    """One frame, eagerly: the composition of the stages, with the
+    reference's two lax.conds (extract hysteresis, the map insert) as host
+    branches. The pure reference the frame graphs are held against."""
+    init = _predict(state, cfg)
+    extract = (cfg.mapping.extract_hysteresis <= 0.0
+               or bool(_extract_needed(state, init, cfg)))
+    pre = _pre(state, init, cfg, extract)
+    res = _icp(points, mask, pre, cfg.icp)
+    post = _post(state, points, mask, pre, res, cfg)
+    vm = (_insert(state.vmap, points, mask, post.pose, cfg)
+          if bool(post.is_map_insert) else state.vmap)
+    return _advance(state, pre, post, vm), _info(res, post, vm)
+
+
+# The per-frame info as one float32 row of the frame graphs (every integer
+# below 2^24, so exact): pose (16), then these.
+_INFO = ("rmse", "iters", "n_inliers", "converged", "clamped", "is_keyframe",
+         "map_inserted", "map_points")
+_INFO_INT = ("iters", "n_inliers", "map_points")
+
+
+def _row(res: ICPResult, post: _Post, vm: voxel_map.VoxelMap) -> torch.Tensor:
+    info = _info(res, post, vm)
+    return torch.cat([info["pose"].reshape(16)] + [
+        torch.as_tensor(info[k]).to(torch.float32).reshape(1)
+        for k in _INFO])
+
+
+def _unrow(rows: torch.Tensor) -> dict:
+    """_row's (..., 24) rows back to _step's info dict (stacked over the
+    leading dims); iters as int32."""
+    out = {"pose": rows[..., :16].reshape(*rows.shape[:-1], 4, 4)}
+    for i, k in enumerate(_INFO):
+        v = rows[..., 16 + i]
+        out[k] = (v.to(torch.int32) if k in _INFO_INT
+                  else v if k == "rmse" else v != 0.0)
+    return out
+
+
+def _copy_into(dst, src) -> None:
+    """Each tensor field of the dataclass src into dst's (in place)."""
+    for f in dataclasses.fields(dst):
+        d, s = getattr(dst, f.name), getattr(src, f.name)
+        if isinstance(d, voxel_map.VoxelMap):
+            _copy_into(d, s)
+        else:
+            d.copy_(s)
+
+
+def _clone(x):
+    """A dataclass of tensors with every tensor cloned."""
+    fields = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    return type(x)(**{k: _clone(v) if dataclasses.is_dataclass(v)
+                      else v.clone() for k, v in fields.items()})
+
+
+class FrameGraphs:
+    """The scan-to-map frame as the reference runs it, one dispatch a stage:
+    `_step`'s stages over static buffers, each replayed as a CUDA graph
+    (`kernels.graphs.Graphed`, one memory pool for them all).
+
+    Static buffers hold the carried state (pose, T_rel, last_kf_pose, the
+    map, frame, n_keyframes, the carried local model, r_cover,
+    extract_center, need_extract), the frame's scan, the `_Pre` and `_Post`
+    of the frame, the ICP's state (`icp.loop.StaticAlign`) and the frame's
+    info as one row. A frame replays:
+
+      need    (extract hysteresis only) the prediction and whether to
+              re-extract; its one host read picks one of two `pre`s (the
+              reference's lax.cond at :154);
+      pre     `_pre`, then trip 0 of the ICP, or all of it where it reads
+              nothing back (K5 at loop_backend="fused", unroll_iters > 0),
+              and then `post` too;
+      trip    one ICP trip, replayed while the reference's while condition,
+              read once a trip, holds (`StaticAlign.go_on`);
+      post    `_post`, the state advanced, the info row;
+      insert  `_insert` into the static map, only when the host read of
+              is_map_insert (the reference's lax.cond at :326) is true.
+
+    Host syncs a frame: ICP trips + 1 at loop_backend="steps", 1 at
+    "fused" (+1 each with extract hysteresis). What stays eager, by a check
+    on the config: the ICP of `icp.loop.eager_loop`'s configurations
+    (degen_eps > 0), run between the pre and post graphs. On a CPU device
+    every stage runs eagerly over the same buffers.
+
+    States are values: `load` copies a caller's state into the static
+    buffers and `snapshot` returns clones, and each frame's info row is
+    cloned, so nothing returned aliases a buffer a later replay writes."""
+
+    def __init__(self, cfg: SlamConfig, capacity: int, device: torch.device):
+        self.cfg = cfg
+        m, ic = cfg.mapping, cfg.icp
+        dev = torch.device(device)
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        size, cap = m.local_model_size, m.map_capacity
+        self.state = MapOdomState(
+            pose=buf(4, 4), T_rel=buf(4, 4), last_kf_pose=buf(4, 4),
+            vmap=voxel_map.VoxelMap(points=buf(cap, 3), normals=buf(cap, 3),
+                                    mask=buf(cap, dtype=torch.bool)),
+            frame=buf(dtype=torch.int32), n_keyframes=buf(dtype=torch.int32),
+            loc_pts=buf(size, 3), loc_nrm=buf(size, 3),
+            loc_msk=buf(size, dtype=torch.bool), r_cover=buf(),
+            extract_center=buf(3), need_extract=buf(dtype=torch.bool))
+        self.points = buf(capacity, 3)
+        self.mask = buf(capacity, dtype=torch.bool)
+        self.pre = _Pre(init=buf(4, 4), loc_pts=buf(size, 3),
+                        loc_nrm=buf(size, 3),
+                        loc_msk=buf(size, dtype=torch.bool), r_cover=buf(),
+                        ex_center=buf(3), loc_local=buf(size, 3),
+                        nrm_local=buf(size, 3), r_gate=buf())
+        self.post = _Post(pose=buf(4, 4), T_rel=buf(4, 4),
+                          clamped=buf(dtype=torch.bool),
+                          is_kf=buf(dtype=torch.bool),
+                          is_map_insert=buf(dtype=torch.bool))
+        self.need = buf(dtype=torch.bool)
+        self.info = buf(16 + len(_INFO))
+        self.hysteresis = m.extract_hysteresis > 0.0
+        self.fused = _fused(ic)
+        self.eager_icp = not self.fused and eager_loop(ic)
+        self.icp_in_pre = self.fused or ic.unroll_iters > 0 \
+            or ic.max_iters < 1
+        # the scan's mask as float weights, which the trip reads in place
+        src = PointCloud(points=self.points, mask=buf(capacity))
+        # nn_backend="voxel": the model's hash grid, rebuilt by `pre`
+        self.grid = (voxel_nn.VoxelHashGrid(
+            table=buf(ic.voxel_table_size, ic.voxel_bucket,
+                      dtype=torch.int32), points=self.pre.loc_local)
+            if ic.nn_backend == "voxel" else None)
+        corr = (None if self.fused or self.eager_icp
+                else _coverage_corr(ic, self.pre, self.grid))
+        self.align = StaticAlign(ic, src, corr)
+        pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
+                else None)
+
+        def graph(fn):
+            return Graphed(fn, dev, pool)
+
+        self._need_g = graph(self._need_body)
+        self._pre_g = {True: graph(lambda: self._pre_body(True)),
+                       False: graph(lambda: self._pre_body(False))}
+        self._trip_g = graph(self.align.later)
+        self._post_g = graph(self._post_body)
+        self._insert_g = graph(self._insert_body)
+
+    def _need_body(self) -> None:
+        self.pre.init.copy_(_predict(self.state, self.cfg))
+        self.need.copy_(_extract_needed(self.state, self.pre.init, self.cfg))
+
+    def _pre_body(self, extract: bool) -> None:
+        self.align.src.mask.copy_(self.mask)
+        init = (self.pre.init if self.hysteresis
+                else _predict(self.state, self.cfg))
+        _copy_into(self.pre, _pre(self.state, init, self.cfg, extract))
+        if self.fused:
+            self.align.set_result(_icp(self.points, self.mask, self.pre,
+                                       self.cfg.icp))
+        elif not self.eager_icp:
+            if self.grid is not None:
+                self.grid.table.copy_(_voxel_grid(
+                    self.cfg.icp, self.pre.loc_local, self.pre.loc_msk).table)
+            self.align.first()
+        if self.icp_in_pre:
+            self._post_body()
+
+    def _post_body(self) -> None:
+        st = self.state
+        res = self.align.result()
+        post = _post(st, self.points, self.mask, self.pre, res, self.cfg)
+        new = _advance(st, self.pre, post, st.vmap)
+        row = _row(res, post, st.vmap)
+        _copy_into(self.post, post)
+        for f in dataclasses.fields(st):
+            if f.name != "vmap":
+                getattr(st, f.name).copy_(getattr(new, f.name))
+        self.info.copy_(row)
+
+    def _insert_body(self) -> None:
+        vm = _insert(self.state.vmap, self.points, self.mask, self.post.pose,
+                     self.cfg)
+        _copy_into(self.state.vmap, vm)
+        self.info[-1].copy_(voxel_map.count(vm).to(torch.float32))
+
+    def load(self, state: MapOdomState) -> None:
+        _copy_into(self.state, state)
+
+    def snapshot(self) -> MapOdomState:
+        return _clone(self.state)
+
+    def frame(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """One frame from the loaded state; returns its info row (a clone)."""
+        self.points.copy_(points)
+        self.mask.copy_(mask)
+        extract = True
+        if self.hysteresis:
+            self._need_g()
+            extract = bool(self.need)
+        self._pre_g[extract]()
+        if not self.icp_in_pre:
+            self._icp()
+            self._post_g()
+        if bool(self.post.is_map_insert):
+            self._update_map()
+        return self.info.clone()
+
+    def _icp(self) -> None:
+        """The ICP after `pre`: the trips after trip 0, or the eager loop."""
+        if self.eager_icp:
+            self.align.set_result(_icp(self.points, self.mask, self.pre,
+                                       self.cfg.icp))
+            return
+        trips = 1
+        while self.align.go_on(trips):
+            self._trip_g()
+            trips += 1
+
+    def _update_map(self) -> None:
+        """The insert graph, in a method of its own so that a profiler
+        range can wrap the stage (chip_ab.py --frame-profile)."""
+        self._insert_g()
+
+    def run(self, state: MapOdomState, points: torch.Tensor,
+            masks: torch.Tensor):
+        """(F, C, 3) points and (F, C) masks from `state`: (the state after
+        the last frame, infos stacked per frame)."""
+        self.load(state)
+        rows = torch.stack([self.frame(p, m) for p, m in zip(points, masks)])
+        return self.snapshot(), _unrow(rows)
+
+    def step(self, state: MapOdomState, points: torch.Tensor,
+             mask: torch.Tensor):
+        self.load(state)
+        row = self.frame(points, mask)
+        return self.snapshot(), _unrow(row)
+
+
+FRAME_GRAPH_CACHE = 8  # frame graphs kept, least recently used dropped first
+_frame_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+def frame_graphs(cfg: SlamConfig, capacity: int,
+                 device: torch.device) -> FrameGraphs:
+    """The frame graphs of (cfg, scan capacity, device), made on first use
+    and kept in a bounded cache, shared by every pipeline of that key."""
+    key = (cfg, capacity, torch.device(device))
+    graphs = _frame_graphs.pop(key, None) or FrameGraphs(*key)
+    _frame_graphs[key] = graphs
+    while len(_frame_graphs) > FRAME_GRAPH_CACHE:
+        _frame_graphs.popitem(last=False)
+    return graphs

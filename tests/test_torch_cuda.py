@@ -1910,3 +1910,137 @@ def test_graphed_align_batched_equals_eager_trips(cuda_device, d, batch,
                           res.iters), (eager[0], eager[1], eager[2],
                                        eager[3], eager[6])):
         assert torch.equal(got, want)
+
+
+def _frame_graph_case(cuda_device, **icp):
+    """A short log and chip_smoke's slice configuration cut to 2,048-point
+    scans, a 32,768-point map and a 4,096-point local model, on the card."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
+    from tpu_icp_slam_torch.slam.runner import pad_scans
+
+    cfg = SlamConfig(
+        icp=ICPConfig(**{
+            "method": "point_to_plane", "max_iters": 18,
+            "max_corr_dist": 1.0, "damping": 1e-3, "max_step_trans": 1.0,
+            "max_step_rot": 0.3, "min_inliers": 100, "huber_delta": 0.3,
+            "tol": 1e-5, "step_scale": 1.4, "tol_update": 0.01,
+            "prior_trans_weight": 0.004, "prior_rot_weight": 0.04,
+            "max_total_trans": 1.5, "max_total_rot": 0.5, **icp}),
+        mapping=MappingConfig(map_capacity=32768, local_model_size=4096,
+                              map_voxel=0.2),
+        pipeline=PipelineConfig(mode="scan_to_map", scan_capacity=2048,
+                                keyframe_trans=2.5, keyframe_rot=0.3,
+                                normal_ref_stride=4))
+    scans, _ = synthetic.velodyne_log(n_frames=9, n_rings=16, n_azimuth=320,
+                                      path_fraction=0.14)
+    pts, msk = pad_scans([voxel_downsample_np(s, 0.3) for s in scans], 2048)
+    return (cfg, torch.as_tensor(pts, device=cuda_device),
+            torch.as_tensor(msk, device=cuda_device))
+
+
+def _eager_step_frames(cfg, state, pts, msk):
+    from tpu_icp_slam_torch.slam import scan_to_map as s2m
+
+    infos = []
+    for f in range(len(pts)):
+        state, info = s2m._step(state, pts[f], msk[f], cfg=cfg)
+        infos.append({k: torch.as_tensor(v).cpu() for k, v in info.items()})
+    return state, {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+
+
+def _assert_frames_bit_equal(got, want):
+    for k, w in want.items():
+        g = got[k].cpu()
+        assert torch.equal(g.to(torch.int64) if k == "iters" else g,
+                           w.to(torch.int64) if k == "iters"
+                           else w.to(g.dtype)), k
+        if g.dtype == torch.float32:
+            assert torch.equal(_bits(g), _bits(w)), k
+
+
+def _sync_count(fn):
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the mode's own "prototype feature" warning, once a process, is no sync
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught), out
+
+
+@pytest.mark.parametrize("backend,precision", [
+    ("steps", "highest"), ("fused", "highest"), ("fused", "bf16"),
+    ("steps", "bf16"), ("steps", "rescore")])
+def test_frame_graphs_equal_eager_step_on_card(cuda_device, backend,
+                                               precision):
+    """ScanToMapPipeline.run_fused on the card replays the frame graphs:
+    every info and the final state bit-equal to the eager _step loop (the
+    same kernels in the same order), two runs from one state equal, the
+    kernels' launches equal with the replays counted, and the host syncs
+    the ICP trips' condition reads plus one insert read a frame ("steps"),
+    or that one read ("fused")."""
+    from tpu_icp_slam_torch.slam import scan_to_map as s2m
+
+    cfg, pts, msk = _frame_graph_case(cuda_device, loop_backend=backend,
+                                      nn_precision=precision)
+    pipe = s2m.ScanToMapPipeline(cfg, device=cuda_device)
+    state0 = pipe.init_state(pts[0], msk[0])
+    kernels = (nn_cuda.nn_bruteforce, gn_cuda.gn_accum, nn_bf16.nn_bf16,
+               nn_rescore.nn_rescore, icp_fused.icp_fused)
+    k0 = [k.launches for k in kernels]
+    st_e, inf_e = _eager_step_frames(cfg, state0, pts[1:], msk[1:])
+    eager_launches = [k.launches - b for k, b in zip(kernels, k0)]
+    for call in range(2):  # call 0 captures, call 1 replays
+        k0 = [k.launches for k in kernels]
+        st, infos = pipe.run_fused(state0, pts[1:], msk[1:])
+        assert [k.launches - b for k, b in zip(kernels, k0)] \
+            == eager_launches, call
+        _assert_frames_bit_equal(infos, inf_e)
+        for f in dataclasses.fields(st):
+            a, b = getattr(st, f.name), getattr(st_e, f.name)
+            if f.name == "vmap":
+                for x in ("points", "normals", "mask"):
+                    assert torch.equal(getattr(a, x), getattr(b, x)), x
+            else:
+                assert torch.equal(a, b), f.name
+    assert int(inf_e["map_inserted"].sum()) >= 1
+    syncs, _ = _sync_count(lambda: pipe.run_fused(state0, pts[1:], msk[1:]))
+    iters = inf_e["iters"].numpy()
+    reads = 0 if backend == "fused" else int(
+        (iters - (iters >= cfg.icp.max_iters)).sum())
+    assert syncs == reads + len(iters), (syncs, reads, len(iters))
+
+
+def test_frame_graphs_survive_k2_scratch_growth(cuda_device):
+    """K2's scratch is never freed: a frame graph captured over K2's
+    unbatched call keeps working after a batched call outgrows the
+    scratch and the freed sizes are allocated and scribbled over."""
+    from tpu_icp_slam_torch.slam import scan_to_map as s2m
+
+    cfg, pts, msk = _frame_graph_case(cuda_device, max_iters=17)
+    p, q, n, w = (torch.as_tensor(x, device=cuda_device)
+                  for x in _gn_case(4096, seed=3))
+    gn_cuda.gn_accum(p, q, n, w)  # the scratch exists, on this stream
+    pipe = s2m.ScanToMapPipeline(cfg, device=cuda_device)
+    state0 = pipe.init_state(pts[0], msk[0])
+    _, want = pipe.run_fused(state0, pts[1:], msk[1:])  # captures K2
+    # shapes only: a reference to the old buffers would keep them alive
+    shapes = [(t.shape, t.dtype) for t in gn_cuda._device_scratch(p.device)]
+    batch = shapes[1][0][0] + 1
+    gn_cuda.gn_accum(*(x.expand(batch, *x.shape).contiguous()
+                       for x in (p, q, n, w)))
+    assert gn_cuda._device_scratch(p.device)[1].shape[0] == batch
+    junk = [torch.full(shape, 7, dtype=dtype, device=cuda_device)
+            for shape, dtype in shapes for _ in range(4)]
+    _, got = pipe.run_fused(state0, pts[1:], msk[1:])  # replays
+    _, eager = _eager_step_frames(cfg, state0, pts[1:], msk[1:])
+    del junk
+    _assert_frames_bit_equal(got, eager)
+    _assert_frames_bit_equal(want, eager)
