@@ -106,8 +106,13 @@ in build/chip_ab_loop_scans.npz.
 
 With --frame-profile ROOT, ROOT's package runs each cell of FRAME_CELLS
 in a process of its own: the four slice cells above (run_fused, 29
-frames), phase 15(2)'s Slam2D.run and phase 13's front end (run_fused of
-the full-SLAM preset over the 180-frame loop log). Each process reports
+frames), phase 15(2)'s Slam2D.run, phase 13's front end (run_fused of
+the full-SLAM preset over the 180-frame loop log), "rgbd" (phase 16(2):
+RGBDOdometry.run_fused with configs/rgbd.json over the 640x480
+simrgbd_fullres log, 29 frames) and "s2s2d" (phase 15(3):
+OdometryPipeline.run_fused of SlamConfig()'s 2D scan-to-scan with its
+occupancy grid over the sim2d log, 29 frames; its "insert" stage is the
+fold into the grid). --frame-cells picks some of them. Each process reports
 call 1 (the warm-up, graph captures included where the tree makes them),
 one timed run, the host syncs by source line (as --loop-profile), the
 bytes torch's allocator reserves, then one torch.profiler run (the first
@@ -906,7 +911,7 @@ def loop_profile(root, rounds):
 
 
 FRAME_CELLS = ("steps-highest", "fused-highest", "fused-bf16", "steps-bf16",
-               "slam2d", "slam3d")
+               "slam2d", "slam3d", "rgbd", "s2s2d")
 SLAM3D_WINDOW = 60  # frames of phase 13's log that a profile of it traces
 
 
@@ -916,9 +921,12 @@ def _frame_cell(name):
     chip_smoke's 30-frame log; "slam2d" is phase 15(2)'s Slam2D.run (its
     front end the z = 0 lift onto the same pipeline); "slam3d" is phase 13's
     front end, run_fused over the 180-frame loop log with the full-SLAM
-    preset. run(k) runs the first k frames after the seed frame."""
+    preset; "rgbd" and "s2s2d" are _odometry_cell's. run(k) runs the first
+    k frames after the seed frame."""
     from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
 
+    if name in ("rgbd", "s2s2d"):
+        return _odometry_cell(name)
     if name == "slam2d":
         s2 = _slam2d_cell()
         return (lambda k=None: s2()), chip_smoke.SIM2D_FRAMES - 1
@@ -942,6 +950,42 @@ def _frame_cell(name):
     return run, n
 
 
+def _odometry_cell(name):
+    """(run(frames) -> None, frames) of the two frame-to-frame cells, their
+    logs on the card before the run: "rgbd" is phase 16(2)'s
+    RGBDOdometry.run_fused (configs/rgbd.json, simrgbd_fullres at
+    640x480, 30 frames), "s2s2d" phase 15(3)'s OdometryPipeline.run_fused
+    (SlamConfig(), 2D scan-to-scan with its occupancy grid, sim2d, 30
+    frames, as `cli run --dataset sim2d` pads it)."""
+    from tpu_icp_slam_torch import SlamConfig
+    from tpu_icp_slam_torch.slam import runner
+
+    if name == "rgbd":
+        from tpu_icp_slam_torch.slam.rgbd import RGBDOdometry
+
+        depths, _, K = chip_smoke.k2_rgbd_inputs()[1]
+        pipe = RGBDOdometry(chip_smoke._rgbd_cfg(), K, device="cuda")
+        logs = (torch.as_tensor(depths, dtype=torch.float32, device="cuda"),)
+        state0 = pipe.init_state(logs[0][0])
+    else:
+        from tpu_icp_slam_torch.slam.pipeline import OdometryPipeline
+
+        cfg = SlamConfig()
+        data = runner.load_dataset("sim2d", chip_smoke.RGBD_FRAMES)
+        pts, msk = runner.pad_scans(runner.preprocess(cfg, data.scans),
+                                    cfg.pipeline.scan_capacity)
+        pipe = OdometryPipeline(cfg, dim=2, device="cuda")
+        logs = chip_smoke._on_card(pts, msk)
+        state0 = pipe.init_state(logs[0][0], logs[1][0])
+    n = len(logs[0]) - 1
+
+    def run(k=None):
+        k = n if k is None else k
+        pipe.run_fused(state0, *(x[1:k + 1] for x in logs))
+
+    return run, n
+
+
 def _stage_ranges():
     """Wrap the stages of a frame in torch.profiler ranges: "frame" around
     scan_to_map._step (the eager frame) or FrameGraphs.frame (the graphed
@@ -951,6 +995,7 @@ def _stage_ranges():
     from torch.profiler import record_function
 
     from tpu_icp_slam_torch.mapping import voxel_map
+    from tpu_icp_slam_torch.slam import pipeline, rgbd
     from tpu_icp_slam_torch.slam import scan_to_map as s2m
 
     def ranged(label, fn):
@@ -964,10 +1009,18 @@ def _stage_ranges():
                (s2m, "icp_fused", "icp"), (s2m, "normals_knn", "insert"),
                (voxel_map, "insert", "insert"),
                (voxel_map, "insert_hash", "insert")]
-    graphs = getattr(s2m, "FrameGraphs", None)
-    if graphs is not None:
-        targets += [(graphs, "frame", "frame"), (graphs, "_icp", "icp"),
-                    (graphs, "_update_map", "insert")]
+    # the frame-to-frame odometry: the eager frame, its ICP and (2D) the
+    # fold into the occupancy grid
+    for mod in (rgbd, pipeline):
+        targets += [(mod, "_step", "frame"),
+                    (mod, "align_with_correspondence", "icp")]
+    targets.append((pipeline, "fold_scan", "insert"))
+    for mod, name in ((s2m, "FrameGraphs"), (rgbd, "RGBDFrameGraphs"),
+                      (pipeline, "OdomFrameGraphs")):
+        graphs = getattr(mod, name, None)
+        if graphs is not None:
+            targets += [(graphs, "frame", "frame"), (graphs, "_icp", "icp"),
+                        (graphs, "_update_map", "insert")]
     for owner, attr, label in targets:
         if hasattr(owner, attr):
             setattr(owner, attr, ranged(label, getattr(owner, attr)))
@@ -1036,8 +1089,8 @@ def _stage_split(prof, n_frames):
 
 def frame_worker(src_dir, cell, rounds):
     """One process of --frame-profile (rounds 0, one cell) or --frame-ab
-    (cell "all": every cell in turn): the package from src_dir; prints one
-    JSON line."""
+    (cell "a,b,...": those cells in turn): the package from src_dir;
+    prints one JSON line, the list of the cells' results."""
     sys.path.insert(0, str(Path(src_dir).resolve()))
     import tpu_icp_slam_torch
     from tpu_icp_slam_torch.kernels import _build
@@ -1045,11 +1098,8 @@ def frame_worker(src_dir, cell, rounds):
     assert Path(tpu_icp_slam_torch.__file__).resolve().is_relative_to(
         Path(src_dir).resolve()), tpu_icp_slam_torch.__file__
     _build.build()
-    if cell == "all":
-        print(json.dumps([_frame_cell_run(src_dir, c, rounds)
-                          for c in FRAME_CELLS]))
-    else:
-        print(json.dumps(_frame_cell_run(src_dir, cell, rounds)))
+    print(json.dumps([_frame_cell_run(src_dir, c, rounds)
+                      for c in cell.split(",")]))
 
 
 def _frame_cell_run(src_dir, cell, rounds):
@@ -1126,13 +1176,13 @@ def _frame_process(tree, cell, rounds):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def frame_profile(root):
-    """--frame-profile: each cell of FRAME_CELLS in a process of its own:
+def frame_profile(root, cells=FRAME_CELLS):
+    """--frame-profile: each of these cells in a process of its own:
     call 1, frames/s, host syncs by source line, then one profiler run
     with the frame's stages apart."""
     out = []
-    for cell in FRAME_CELLS:
-        res = _frame_process(Path(root) / "src", cell, 0)
+    for cell in cells:
+        res, = _frame_process(Path(root) / "src", cell, 0)
         n, prof = res["frames"], res["profile"]
         w = prof["frames"]
         print(f"[frame profile] {cell} {res['card']}: call 1 "
@@ -1155,19 +1205,20 @@ def frame_profile(root):
     return out
 
 
-def frame_ab(old_root, rounds):
-    """--frame-ab: each cell of FRAME_CELLS, OLD_ROOT's package against this
-    tree's, old, new, new, old, each in a process of its own; frames/s
-    over --rounds runs after call 1, and the medians."""
+def frame_ab(old_root, rounds, cells=FRAME_CELLS):
+    """--frame-ab: each of these cells, OLD_ROOT's package against this
+    tree's, old, new, new, old, each turn in a process of its own (the
+    cells one after another); frames/s over --rounds runs after call 1,
+    and the medians."""
     trees = [Path(old_root) / "src", Path(chip_smoke.ROOT) / "src"]
     results = []
     for tree in (trees[0], trees[1], trees[1], trees[0]):
         label = "old" if tree == trees[0] else "new"
-        for res in _frame_process(tree, "all", rounds):
+        for res in _frame_process(tree, ",".join(cells), rounds):
             print(f"[frame {label}] {res['cell']} {res['card']}: call 1 "
                   f"{res['call1_s']:.3f} s, frames/s {_join(res['fps'], 3)}")
             results.append({"tree": label, **res})
-    for cell in FRAME_CELLS:
+    for cell in cells:
         med = {label: statistics.median(
             v for r in results if r["tree"] == label and r["cell"] == cell
             for v in r["fps"]) for label in ("old", "new")}
@@ -1241,9 +1292,11 @@ def main() -> int:
     ap.add_argument("--frame-ab", default=None, metavar="OLD_ROOT",
                     help="frames/s of every cell, OLD_ROOT's package "
                          "against this tree's")
+    ap.add_argument("--frame-cells", default=",".join(FRAME_CELLS),
+                    help="the cells of --frame-profile and --frame-ab, "
+                         "comma-separated (default: all of FRAME_CELLS)")
     ap.add_argument("--frame-worker", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--frame-cell", choices=(*FRAME_CELLS, "all"),
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--frame-cell", help=argparse.SUPPRESS)
     ap.add_argument("--loop-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--loop-mode", choices=LOOP_MODES,
                     help=argparse.SUPPRESS)
@@ -1259,12 +1312,16 @@ def main() -> int:
         return 0
     chip_smoke.phase_device()
     if args.frame_profile or args.frame_ab:
+        cells = tuple(args.frame_cells.split(","))
+        unknown = set(cells) - set(FRAME_CELLS)
+        if unknown:
+            ap.error(f"unknown --frame-cells {sorted(unknown)}")
         if args.frame_profile:
             print(json.dumps({"frame_profile": frame_profile(
-                args.frame_profile)}))
+                args.frame_profile, cells)}))
         if args.frame_ab:
             print(json.dumps({"frame_ab": frame_ab(args.frame_ab,
-                                                   args.rounds)}))
+                                                   args.rounds, cells)}))
         print(json.dumps({"done": True}))
         return 0
     if args.loop_profile or args.loop_ab:

@@ -104,8 +104,11 @@ nonzero and the final line is not printed:
      values; bit-reproducible. (2) `cli run --config configs/rgbd.json
      --dataset simrgbd_fullres --frames 30` (640x480, rgbd_src_stride 1):
      rc 0, finite poses, ATE < 0.03 m, one K2 launch per ICP iteration and
-     no K1/K3/K4/K5; then RGBDOdometry.run_fused on the same log, timed
-     (fenced) and bit-equal to a loop of step. (3) the same 30 frames
+     no K1/K3/K4/K5; then RGBDOdometry.run_fused on the same log (its
+     frame graphs on CUDA, captured by the cli run), timed (fenced) and
+     bit-equal to a loop of step (the same graphs, a frame a call, as the
+     streaming `cli run` calls them; phase 22 holds both against the eager
+     _step). (3) the same 30 frames
      written as a TUM directory (datasets/tum.write_sequence) read back as
      the written uint16 / 5000 exactly, and `cli run` over it: ATE <
      0.03 m. (4) `cli eval` on simrgbd_fullres, 30 frames, with the preset:
@@ -184,13 +187,27 @@ nonzero and the final line is not printed:
      9, 10, 13 and 15 print their front ends' host syncs a frame (frames
      1-5, inputs on the card) beside the graphs' count, and hold them to
      it.
+ 22. The frame-to-frame odometries as frame graphs: RGBDOdometry.run_fused
+     (slam/rgbd.RGBDFrameGraphs on CUDA) on phase 16's 640x480
+     simrgbd_fullres log with configs/rgbd.json, and
+     OdometryPipeline.run_fused (slam/pipeline.OdomFrameGraphs) on phase
+     15(3)'s 30-frame sim2d log with SlamConfig() and its occupancy grid,
+     each against the eager _step loop on the same inputs on the card:
+     every info and every state field (the grid's log-odds included)
+     bit-equal, two runs from one state equal, call 1's returned state
+     unchanged after later runs, K1 (2-D), K2 and RF launches equal with
+     the replays counted, host syncs a frame the ICP's condition reads
+     (trip replays + 1, one fewer when max_iters stops the loop), and a
+     loop of step (the same graphs, a frame a call) bit-equal to run_fused.
+     Frames/s eager, call 1 (the captures included) and call 2, and the MiB
+     the graphs hold.
  19. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4, batched or not, must make their four
      launches and no more); then the host launch calls a frame of the
-     front ends of phases 4, 9, 10, 13 and 15 (frames 1-5). Last, because
-     a process that has run the profiler keeps its tracing hooks and runs
-     host-bound frames slower.
+     front ends of phases 4, 9, 10, 13 and 15 and of phase 22's two
+     odometries (frames 1-5). Last, because a process that has run the
+     profiler keeps its tracing hooks and runs host-bound frames slower.
 
 Every kernel's launch count is read from the path that runs it, with the
 counts set to 0 just before and read just after. The line before the last
@@ -2664,9 +2681,16 @@ def _expected_syncs(cfg, iters):
     per_frame = 1 + (cfg.mapping.extract_hysteresis > 0.0)
     if _fused(ic) or ic.unroll_iters > 0:
         return len(iters) * per_frame
+    return _condition_reads(iters, ic.max_iters) + len(iters) * per_frame
+
+
+def _condition_reads(iters, max_iters):
+    """The ICP's while-condition reads over frames with these iterations,
+    one after every trip unless max_iters stopped the loop (trip replays
+    + 1 a frame, one fewer at max_iters): the frame-to-frame graphs' host
+    syncs."""
     iters = np.asarray(iters)
-    return int((iters - (iters >= ic.max_iters)).sum()) + len(iters) * \
-        per_frame
+    return int((iters - (iters >= max_iters)).sum())
 
 
 def _frame_syncs(cfg, pts, msk, n=5):
@@ -2690,18 +2714,24 @@ def _launch_calls(cfg, pts, msk, n=5):
     torch.profiler run) of ScanToMapPipeline.run_fused over frames 1..n,
     inputs on the card, after a run that captures the graphs. It runs in
     the profile phase: a process that ran the profiler runs slower."""
-    from torch.profiler import ProfilerActivity, profile
-
     from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
 
     pipe = ScanToMapPipeline(cfg, device="cuda")
     P, M = _on_card(pts[:n + 1], msk[:n + 1])
     state0 = pipe.init_state(P[0], M[0])
-    pipe.run_fused(state0, P[1:], M[1:])
+    return _launch_calls_of(lambda: pipe.run_fused(state0, P[1:], M[1:]), n)
+
+
+def _launch_calls_of(run, n):
+    """Host launch calls a frame of run(), n frames, after a warm-up run
+    (which captures the graphs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipe.run_fused(state0, P[1:], M[1:])
+        run()
         torch.cuda.synchronize()
     calls = {}
     for a in prof.key_averages():
@@ -2724,30 +2754,35 @@ def _lifted_config2():
     return cfg, pts3.astype(np.float32), msk
 
 
-def _eager_frames(cfg, state0, P, M):
-    """scan_to_map._step frame after frame on the card: the pipeline as it
-    ran before its frames were graphed, and the graphs' reference."""
-    from tpu_icp_slam_torch.slam.scan_to_map import _step
-
+def _eager_frames(step, state0, logs, **kw):
+    """The eager `_step` frame after frame on the card, over the stacked
+    logs' frames: the pipeline as it ran before its frames were graphed,
+    and the graphs' reference. Infos stacked on the host."""
     st, infos = state0, []
-    for f in range(len(P)):
-        st, info = _step(st, P[f], M[f], cfg=cfg)
+    for inputs in zip(*logs):
+        st, info = step(st, *inputs, **kw)
         infos.append(info)
     return st, {k: torch.stack([torch.as_tensor(i[k]).cpu() for i in infos])
                 for k in infos[0]}
 
 
-def _state_leaves(st):
-    out = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)
-           if f.name != "vmap"}
-    out.update({f"vmap.{k}": getattr(st.vmap, k)
-                for k in ("points", "normals", "mask")})
+def _leaves(x, prefix=""):
+    """The tensor fields of a state dataclass, nested ones (the voxel map,
+    the occupancy grid) by dotted name."""
+    out = {}
+    for f in dataclasses.fields(x):
+        v = getattr(x, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(_leaves(v, f"{prefix}{f.name}."))
+        elif v is not None:
+            out[prefix + f.name] = v
     return out
 
 
 def _states_equal(a, b):
-    la, lb = _state_leaves(a), _state_leaves(b)
-    return [k for k in la if not bits_equal(la[k], lb[k])]
+    """The state fields whose values differ, bit for bit."""
+    la, lb = _leaves(a), _leaves(b)
+    return [k for k in lb if not bits_equal(la[k], lb[k])]
 
 
 def _infos_equal(got, want):
@@ -2763,65 +2798,78 @@ def _infos_equal(got, want):
     return bad
 
 
-def _graph_cell(label, cfg, pts, msk):
-    """Phase 21's check of one configuration on one log (see
-    phase_frame_graphs)."""
-    from tpu_icp_slam_torch.slam import scan_to_map as s2m
-
-    P, M = _on_card(pts, msk)
-    pipe = s2m.ScanToMapPipeline(cfg, device="cuda")
-    state0 = pipe.init_state(P[0], M[0])
-    n = len(P) - 1
-    s2m._frame_graphs.clear()  # call 1 captures this cell's graphs
-
+def _graph_check(tag, run, eager, n, want_syncs, describe):
+    """Phases 21 and 22: run() is a pipeline's run_fused from its seed
+    state over n frames (its frame graphs on CUDA, the cache cleared so
+    that call 1 captures), eager() the eager _step loop on the same
+    inputs. Every info and state field bit-equal in calls 1 and 2, call
+    1's returned state unchanged after later runs, each kernel's launches
+    equal with the replays counted, and the host syncs of call 3 equal to
+    want_syncs(the eager run's iterations); describe(infos) adds to the
+    printed line. Returns the cell's frames/s, syncs and memory."""
     def timed(fn):
         _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, {**_counts(),
-                                               "RF": _rf().launches}
+        return out, time.perf_counter() - t0, {
+            **_counts(), "K1 2-D": _counters()["K1"].launches_2d,
+            "RF": _rf().launches}
 
-    (st_e, inf_e), eager_s, c_e = timed(
-        lambda: _eager_frames(cfg, state0, P[1:], M[1:]))
+    (st_e, inf_e), eager_s, c_e = timed(eager)
     torch.cuda.empty_cache()
     held0 = torch.cuda.memory_reserved()
-    (st_1, inf_1), call1_s, c_1 = timed(
-        lambda: pipe.run_fused(state0, P[1:], M[1:]))
+    (st_1, inf_1), call1_s, c_1 = timed(run)
     held_mib = (torch.cuda.memory_reserved() - held0) / 2**20
-    kept = {k: v.clone() for k, v in _state_leaves(st_1).items()}
-    (st_2, inf_2), graph_s, c_2 = timed(
-        lambda: pipe.run_fused(state0, P[1:], M[1:]))
-    syncs = _host_syncs(lambda: pipe.run_fused(state0, P[1:], M[1:]))
+    kept = {k: v.clone() for k, v in _leaves(st_1).items()}
+    (st_2, inf_2), graph_s, c_2 = timed(run)
+    syncs = _host_syncs(run)
     # a returned state read after later frames: call 1's, after calls 2-3
-    changed = [k for k, v in _state_leaves(st_1).items()
+    changed = [k for k, v in _leaves(st_1).items()
                if not bits_equal(v, kept[k])]
     iters = inf_e["iters"].numpy()
-    want_syncs = _expected_syncs(cfg, iters)
+    want = want_syncs(iters)
     bad = {"call 1 infos": _infos_equal(inf_1, inf_e),
            "call 2 infos": _infos_equal(inf_2, inf_e),
            "call 1 state": _states_equal(st_1, st_e),
            "call 2 state": _states_equal(st_2, st_e),
            "returned state after later frames": changed}
     pos_gap = float((inf_2["pose"].cpu() - inf_e["pose"]).abs().max())
-    print(f"[frame graphs] {label}: {n} frames | eager _step "
-          f"{n / eager_s:.3f} frames/s, graphed call 1 {n / call1_s:.3f} "
-          f"frames/s ({call1_s:.3f} s with the captures), call 2 "
-          f"{n / graph_s:.3f} frames/s | ICP iterations {int(iters.sum())}, "
-          f"keyframes {int(inf_e['is_keyframe'].sum())}, inserts "
-          f"{int(inf_e['map_inserted'].sum())}, map points "
-          f"{int(inf_e['map_points'][-1])} | host syncs {syncs} "
-          f"({syncs / n:.3f} a frame; expected {want_syncs}) | launches "
+    print(f"{tag}: {n} frames | eager _step {n / eager_s:.3f} frames/s, "
+          f"graphed call 1 {n / call1_s:.3f} frames/s ({call1_s:.3f} s with "
+          f"the captures), call 2 {n / graph_s:.3f} frames/s | ICP "
+          f"iterations {int(iters.sum())}, {describe(inf_e)} | host syncs "
+          f"{syncs} ({syncs / n:.3f} a frame; expected {want}) | launches "
           f"eager {c_e}, graphed call 1 {c_1}, call 2 {c_2} | graphs hold "
           f"{held_mib:.1f} MiB | largest pose gap to eager {pos_gap:.3e} | "
           f"mismatches {bad}")
-    assert not any(bad.values()), (label, bad)
-    assert c_e == c_1 == c_2, (label, c_e, c_1, c_2)
-    assert syncs == want_syncs, (label, syncs, want_syncs)
+    assert not any(bad.values()), (tag, bad)
+    assert c_e == c_1 == c_2, (tag, c_e, c_1, c_2)
+    assert syncs == want, (tag, syncs, want)
     return {"eager_fps": n / eager_s, "call1_s": call1_s,
             "graph_fps": n / graph_s, "syncs_per_frame": syncs / n,
             "held_mib": held_mib}
+
+
+def _graph_cell(label, cfg, pts, msk):
+    """Phase 21's check of one configuration on one log (see
+    phase_frame_graphs)."""
+    from tpu_icp_slam_torch.slam import frame_graphs
+    from tpu_icp_slam_torch.slam import scan_to_map as s2m
+
+    P, M = _on_card(pts, msk)
+    pipe = s2m.ScanToMapPipeline(cfg, device="cuda")
+    state0 = pipe.init_state(P[0], M[0])
+    frame_graphs.clear()  # call 1 captures this cell's graphs
+    return _graph_check(
+        f"[frame graphs] {label}",
+        lambda: pipe.run_fused(state0, P[1:], M[1:]),
+        lambda: _eager_frames(s2m._step, state0, (P[1:], M[1:]), cfg=cfg),
+        len(P) - 1, lambda iters: _expected_syncs(cfg, iters),
+        lambda inf: f"keyframes {int(inf['is_keyframe'].sum())}, inserts "
+                    f"{int(inf['map_inserted'].sum())}, map points "
+                    f"{int(inf['map_points'][-1])}")
 
 
 def phase_frame_graphs(pts, msk):
@@ -2858,10 +2906,84 @@ def phase_frame_graphs(pts, msk):
     return {label: _graph_cell(label, cfg, p, m) for label, cfg, p, m in cells}
 
 
-def phase_launch_calls(pts, msk, full):
+# ---- phase 22: the frame-to-frame odometries as frame graphs --------------
+
+S2S_FRAMES = 30  # phase 15(3)'s `cli run --dataset sim2d --frames 30`
+
+
+def _s2s2d_log():
+    """Phase 15(3)'s run: SlamConfig()'s 2D scan-to-scan with its occupancy
+    grid over 30 frames of sim2d, padded as `cli run` pads them; (config,
+    points, masks) on the card."""
+    from tpu_icp_slam_torch import SlamConfig
+    from tpu_icp_slam_torch.slam import runner
+
+    cfg = SlamConfig()
+    data = runner.load_dataset("sim2d", S2S_FRAMES)
+    pts, msk = runner.pad_scans(runner.preprocess(cfg, data.scans),
+                                cfg.pipeline.scan_capacity)
+    return (cfg, *_on_card(pts, msk))
+
+
+def phase_odometry_graphs(log):
+    """Phase 22: RGBDOdometry.run_fused (RGBDFrameGraphs on CUDA) on
+    phase 16's 640x480 simrgbd_fullres log with configs/rgbd.json, and
+    OdometryPipeline.run_fused (OdomFrameGraphs) on phase 15(3)'s sim2d log
+    with SlamConfig() and its occupancy grid, each against the eager _step
+    loop on the same inputs: every info and state field (the grid's
+    log-odds included) bit-equal, two runs from one state equal, call 1's
+    returned state unchanged after later runs, K1 (2-D), K2 and RF
+    launches equal with the replays counted, host syncs the ICP's
+    condition reads; then a loop of step (the same graphs, a frame a call)
+    bit-equal to run_fused. Returns {label: run over frames 1-5} for the
+    launch calls of the profile phase."""
+    from tpu_icp_slam_torch.slam import frame_graphs, pipeline, rgbd
+
+    depths, _, K = log
+    cfg3 = _rgbd_cfg()
+    odo = rgbd.RGBDOdometry(cfg3, K, device="cuda")
+    D = torch.as_tensor(depths, dtype=torch.float32, device="cuda")
+    s3 = odo.init_state(D[0])
+    cfg2, P, M = _s2s2d_log()
+    pipe = pipeline.OdometryPipeline(cfg2, dim=2, device="cuda")
+    s2 = pipe.init_state(P[0], M[0])
+    cells = [
+        (f"RGB-D configs/rgbd.json {D.shape[2]}x{D.shape[1]}",
+         lambda: odo.run_fused(s3, D[1:]),
+         lambda: _eager_frames(rgbd._step, s3, (D[1:],), cfg=cfg3, K=K),
+         lambda: _eager_frames(odo.step, s3, (D[1:],)),
+         len(D) - 1, cfg3.icp.max_iters),
+        ("2D scan-to-scan SlamConfig() sim2d",
+         lambda: pipe.run_fused(s2, P[1:], M[1:]),
+         lambda: _eager_frames(pipeline._step, s2, (P[1:], M[1:]), cfg=cfg2),
+         lambda: _eager_frames(pipe.step, s2, (P[1:], M[1:])),
+         len(P) - 1, cfg2.icp.max_iters)]
+    for label, run, eager, stepped, n, max_iters in cells:
+        frame_graphs.clear()  # call 1 captures this cell's graphs
+        tag = f"[odometry graphs] {label}"
+        _graph_check(
+            tag, run, eager, n,
+            lambda iters: _condition_reads(iters, max_iters),
+            lambda inf: f"{int((inf['iters'] >= max_iters).sum())} frames "
+                        f"at max_iters {max_iters}")
+        # step() replays the same graphs a frame a call (streaming cli run)
+        (st_r, inf_r), (st_s, inf_s) = run(), stepped()
+        bad = {"infos": _infos_equal(inf_s, {k: v.cpu()
+                                             for k, v in inf_r.items()}),
+               "state": _states_equal(st_s, st_r)}
+        print(f"{tag}: a loop of step bit-equal to run_fused | mismatches "
+              f"{bad}")
+        assert not any(bad.values()), (tag, bad)
+    return {"phase 22 RGB-D": lambda: odo.run_fused(s3, D[1:6]),
+            "phase 22 2D scan-to-scan": lambda: pipe.run_fused(
+                s2, P[1:6], M[1:6])}
+
+
+def phase_launch_calls(pts, msk, full, odometry):
     """Host launch calls a frame of the frame graphs (runtime kernel and
     graph launches, torch.profiler) on the front ends of phases 4, 9, 10,
-    13 and 15, frames 1-5 of each phase's log. Run in the profile phase."""
+    13 and 15 and on phase 22's two odometries, frames 1-5 of each phase's
+    log. Run in the profile phase."""
     cfg13, pts13, msk13 = full[:3]
     runs = [("phase 4 steps highest", slice_config(), pts, msk),
             ("phase 9 fused highest", slice_config(loop_backend="fused"),
@@ -2875,6 +2997,10 @@ def phase_launch_calls(pts, msk, full):
             ("phase 15 config 2 lifted", *_lifted_config2())]
     for label, cfg, p, m in runs:
         per_frame, calls = _launch_calls(cfg, p, m)
+        print(f"[launch calls] {label}: {per_frame:.1f} host launch calls a "
+              f"frame (frames 1-5, profiled) {calls}")
+    for label, run in odometry.items():
+        per_frame, calls = _launch_calls_of(run, 5)
         print(f"[launch calls] {label}: {per_frame:.1f} host launch calls a "
               f"frame (frames 1-5, profiled) {calls}")
 
@@ -2971,10 +3097,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_frame_graphs(pts, msk)
     print(f"[frame graphs] phase 21 in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    odometry = phase_odometry_graphs(log)
+    print(f"[odometry graphs] phase 22 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
             k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows, rf_row]
     phase_profile(rows)
-    phase_launch_calls(pts, msk, full)
+    phase_launch_calls(pts, msk, full, odometry)
     for row in rows:
         row["share"] = row["bound_ms"] / row["ms"]
     print(json.dumps({"kernels": rows}))

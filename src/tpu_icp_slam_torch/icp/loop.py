@@ -17,8 +17,9 @@ so that each element's result is its own `align`'s. Its trip reads nothing
 back; on CUDA every trip after the first is one replay of a CUDA graph
 (`_TripGraph`), and the condition read is the trip's one host sync.
 `StaticAlign` gives the unbatched loop the same form over static buffers,
-for the scan-to-map frame's graphs (slam/scan_to_map.FrameGraphs). The
-drivers share one body; `icp.anderson` (AA(1) on twists) runs in each.
+for the frame graphs (slam/scan_to_map.FrameGraphs, slam/rgbd.
+RGBDFrameGraphs, slam/pipeline.OdomFrameGraphs). The loops share one
+body; `icp.anderson` (AA(1) on twists) runs in each.
 The point-to-point step's rigid fit is RF on CUDA (no host read either).
 """
 
@@ -375,11 +376,14 @@ def eager_loop(cfg: ICPConfig) -> bool:
 
 
 class StaticAlign:
-    """align_with_correspondence from T0 = I as align_batched runs it, over
-    static buffers: the source `src` (points, and its mask as float
-    weights, which _body reads in place) and whatever `corr_fn` closes over
-    are the caller's tensors, T0, T0⁻¹ and the prior's scale are made here
-    once, and `state` is _init_state's tuple, carried in place. `first()`
+    """align_with_correspondence as align_batched runs it, over static
+    buffers: the source `src` (points, and its mask as float weights, which
+    _body reads in place) and whatever `corr_fn` closes over are the
+    caller's tensors; T0 (I until `set_T0` writes it), T0⁻¹ (where _anchor
+    makes one: a prior or a trust region) and the prior's scale are
+    buffers made here, and `state` is _init_state's tuple, carried in
+    place. A caller's stage that starts from another pose writes it with
+    `set_T0` before `first()`; the scan-to-map frame keeps T0 = I. `first()`
     resets the state and runs trip 0 (it = 0, Anderson's first-iteration
     arm); `later()` runs one trip with it > 0. Neither reads the host:
     they are what a CUDA graph captures. `go_on(trips)` is the reference's
@@ -403,6 +407,13 @@ class StaticAlign:
                           self.prior_scale)
         self.trip = _batched_trip(self.body)
         self.state = tuple(t.clone() for t in _init_state(self.T0))
+
+    def set_T0(self, T0: torch.Tensor) -> None:
+        """T0 into its buffer and, where there is one, T0⁻¹ into its own,
+        as align_with_correspondence's _anchor computes it."""
+        self.T0.copy_(T0)
+        if self.T0_inv is not None:
+            self.T0_inv.copy_(torch.linalg.inv_ex(self.T0)[0])
 
     def commit(self, new: tuple) -> None:
         for s, v in zip(self.state, new):
@@ -532,11 +543,7 @@ def _trip_graph(*key) -> _TripGraph:
     """The trip graph of key = (cfg, B, G, M, N, D, dtype, device), made
     on first use and kept in a bounded cache (verification's B is
     candidates x yaws and varies)."""
-    graph = _graphs.pop(key, None) or _TripGraph(*key)
-    _graphs[key] = graph
-    while len(_graphs) > GRAPH_CACHE:
-        _graphs.popitem(last=False)
-    return graph
+    return graphs.cached(_graphs, GRAPH_CACHE, key, _TripGraph)
 
 
 def align_batched(src: PointCloud, dst_points: torch.Tensor,

@@ -13,14 +13,47 @@ still equals the launches the card ran. On a CPU device fn runs every time.
 A graph keeps the device pointers it was captured with: nothing it reads
 or writes may be freed or moved while it lives. The callers own their
 static buffers; the kernels' own scratch is allocated per call, or (K2)
-kept for the life of the process.
+kept for the life of the process. States are values: `copy_into` loads a
+caller's state into the static buffers and `clone` copies one out.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 from typing import Callable, Optional
 
 import torch
+
+
+def copy_into(dst, src) -> None:
+    """Each tensor field of the dataclass src into dst's, in place (nested
+    dataclasses field by field; a field None in both is skipped)."""
+    for f in dataclasses.fields(dst):
+        d, s = getattr(dst, f.name), getattr(src, f.name)
+        if dataclasses.is_dataclass(d):
+            copy_into(d, s)
+        elif d is not None:
+            d.copy_(s)
+
+
+def clone(x):
+    """A dataclass of tensors (nested dataclasses and None fields kept)
+    with every tensor cloned."""
+    fields = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+    return type(x)(**{k: clone(v) if dataclasses.is_dataclass(v)
+                      else None if v is None else v.clone()
+                      for k, v in fields.items()})
+
+
+def cached(cache: collections.OrderedDict, size: int, key, make: Callable):
+    """cache[key], made by make(*key) on first use; the `size` most
+    recently used entries are kept."""
+    value = cache.pop(key, None) or make(*key)
+    cache[key] = value
+    while len(cache) > size:
+        cache.popitem(last=False)
+    return value
 
 
 def launch_counters() -> list:

@@ -32,10 +32,10 @@ def normals_from_depth(vertex_map: torch.Tensor, valid: torch.Tensor
           & torch.roll(valid, -1, dims=1) & torch.roll(valid, 1, dims=1)
           & torch.roll(valid, -1, dims=0) & torch.roll(valid, 1, dims=0)
           & (norm[..., 0] > 1e-12))
-    ok[0, :] = False
-    ok[-1, :] = False
-    ok[:, 0] = False
-    ok[:, -1] = False
+    # fill_ on the border's views: no host value crosses to the device, so
+    # a CUDA graph can capture it
+    for border in (ok[0, :], ok[-1, :], ok[:, 0], ok[:, -1]):
+        border.fill_(False)
     return torch.where(ok[..., None], n, torch.zeros_like(n)), ok
 
 

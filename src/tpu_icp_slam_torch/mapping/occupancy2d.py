@@ -9,9 +9,11 @@ then free samples, then the clip). Out-of-bounds entries carry a zero value
 in the reference; here they are routed to one spare cell past the grid and
 dropped, so no host sync filters them.
 
-Float sums into one cell run in the scatter's order, which on CUDA is the
-atomics' order: log-odds may differ from a CPU run by a few ulps. The grid
-never feeds back into a pose.
+Float sums into one cell run in the scatter's order. On CUDA,
+`index_put_(accumulate=True)` sorts the indices and sums each cell's run,
+so a grid is reproducible (measured on an H100), but its log-odds may
+differ from a CPU run by a few ulps. The grid never feeds back into a
+pose.
 """
 
 from __future__ import annotations

@@ -6,9 +6,14 @@ or identity), ICP of the scan against the previous scan, the pose composed
 onto the trajectory and, in 2D with a grid, the scan folded into the
 occupancy grid (mapping/occupancy2d.py). This is config 1's and config 2's
 scan-to-scan pipeline and what `SlamConfig()`'s default
-(`pipeline.mode="scan_to_scan"`, `icp.method="point_to_point"`) runs. The
-reference's `lax.scan` over the log becomes a host loop over `step`, as in
-`ScanToMapPipeline.run_fused`.
+(`pipeline.mode="scan_to_scan"`, `icp.method="point_to_point"`) runs.
+
+The reference runs the whole log as one jitted `lax.scan`. On CUDA
+`step` and `run_fused` run `OdomFrameGraphs` (slam/frame_graphs.py): the
+frame's stages over static buffers, each replayed as a CUDA graph, so that
+a frame is one `pre` dispatch, one `trip` replay a further ICP iteration
+and one `post`, and its host syncs are the ICP's while-condition reads, one
+a trip. The CPU runs `_step` eagerly, the graphs' reference.
 """
 
 from __future__ import annotations
@@ -21,10 +26,15 @@ import torch
 from tpu_icp_slam_torch.config import SlamConfig
 from tpu_icp_slam_torch.core.pointcloud import PointCloud
 from tpu_icp_slam_torch.icp.loop import (
+    ICPResult,
     _nn_correspondence,
+    _voxel_grid,
     align_with_correspondence,
 )
+from tpu_icp_slam_torch.kernels import voxel_nn
 from tpu_icp_slam_torch.mapping import occupancy2d
+from tpu_icp_slam_torch.slam import frame_graphs
+from tpu_icp_slam_torch.slam.frame_graphs import motion_init, odom_info
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,42 +93,105 @@ class OdometryPipeline:
                          grid=grid, frame=torch.zeros((), dtype=torch.int32,
                                                       device=self.device))
 
+    def _graphs(self, state: OdomState, capacity: int):
+        """The frame graphs on CUDA, None on the CPU (eager `_step`)."""
+        if self.device.type != "cuda":
+            return None
+        grid = (None if state.grid is None
+                else tuple(state.grid.logodds.shape))
+        return frame_graphs.graphs_of(OdomFrameGraphs, self.cfg, capacity,
+                                      self.dim, grid, self.device)
+
     def step(self, state: OdomState, points, mask):
         """One frame: returns (new_state, info dict of tensors)."""
-        return _step(state, *self._as_tensors(points, mask), cfg=self.cfg)
+        points, mask = self._as_tensors(points, mask)
+        graphs = self._graphs(state, points.shape[0])
+        if graphs is not None:
+            return graphs.step(state, points, mask)
+        return _step(state, points, mask, cfg=self.cfg)
 
     def run_fused(self, state: OdomState, all_points, all_masks):
         """Step over a whole (F, C, D) log; infos are stacked per frame."""
         pts, msk = self._as_tensors(all_points, all_masks)
-        infos = []
-        for f in range(pts.shape[0]):
-            state, info = _step(state, pts[f], msk[f], cfg=self.cfg)
-            infos.append(info)
-        stacked = {k: torch.stack([torch.as_tensor(i[k]) for i in infos])
-                   for k in infos[0]}
-        return state, stacked
+        graphs = self._graphs(state, pts.shape[1])
+        if graphs is not None:
+            return graphs.run(state, pts, msk)
+        return frame_graphs.run_eager(_step, state, zip(pts, msk),
+                                      cfg=self.cfg)
 
 
-def _step(state: OdomState, points: torch.Tensor, mask: torch.Tensor, *,
-          cfg: SlamConfig):
-    d = points.shape[-1]
-    src = PointCloud(points=points, mask=mask)
-    dst = PointCloud(points=state.prev_points, mask=state.prev_mask)
-    init = (state.T_rel if cfg.pipeline.motion_model == "constant_velocity"
-            else torch.eye(d + 1, dtype=torch.float32, device=points.device))
-    res = align_with_correspondence(src, _nn_correspondence(cfg.icp, dst),
-                                    init, cfg.icp)
+def _advance(state: OdomState, points: torch.Tensor, mask: torch.Tensor,
+             res: ICPResult, cfg: SlamConfig):
+    """The pose composed, the scan folded into the grid and kept as the
+    next frame's target: (new_state, info)."""
     pose = state.pose @ res.T
     grid = state.grid
     if grid is not None:
         grid = fold_scan(grid, cfg, pose, points, mask)
     new_state = OdomState(pose=pose, T_rel=res.T, prev_points=points,
                           prev_mask=mask, grid=grid, frame=state.frame + 1)
-    info = {
-        "pose": pose,
-        "rmse": res.rmse,
-        "iters": res.iters,
-        "n_inliers": res.n_inliers,
-        "converged": res.converged,
-    }
-    return new_state, info
+    return new_state, odom_info(pose, res)
+
+
+def _step(state: OdomState, points: torch.Tensor, mask: torch.Tensor, *,
+          cfg: SlamConfig):
+    """One frame, eagerly: the CPU path and the graphs' reference."""
+    src = PointCloud(points=points, mask=mask)
+    dst = PointCloud(points=state.prev_points, mask=state.prev_mask)
+    res = align_with_correspondence(src, _nn_correspondence(cfg.icp, dst),
+                                    motion_init(state, cfg), cfg.icp)
+    return _advance(state, points, mask, res, cfg)
+
+
+class OdomFrameGraphs(frame_graphs.FrameGraphs):
+    """The scan-to-scan frame (`_step`) as frame graphs: static buffers
+    for the scan, the carried state (pose, T_rel, the previous scan, the
+    NN's target, the occupancy grid where there is one, frame) and, at
+    nn_backend="voxel", the previous scan's hash grid. `pre` takes the
+    scan's mask as the source's weights, rebuilds the hash grid into its
+    static table (the eager align builds it once an align) and writes T0
+    (`motion_init`); `post` composes the pose, folds the scan into the grid
+    and copies the scan into the previous scan's buffers."""
+
+    def __init__(self, cfg: SlamConfig, capacity: int, dim: int,
+                 grid_shape: Optional[tuple], device: torch.device):
+        dev = torch.device(device)
+        ic = cfg.icp
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        grid = (None if grid_shape is None else occupancy2d.OccupancyGrid2D(
+            logodds=buf(*grid_shape), origin=buf(2), resolution=buf()))
+        state = OdomState(pose=buf(dim + 1, dim + 1),
+                          T_rel=buf(dim + 1, dim + 1),
+                          prev_points=buf(capacity, dim),
+                          prev_mask=buf(capacity, dtype=torch.bool),
+                          grid=grid, frame=buf(dtype=torch.int32))
+        self.points = buf(capacity, dim)
+        self.mask = buf(capacity, dtype=torch.bool)
+        self.grid = (voxel_nn.VoxelHashGrid(
+            table=buf(ic.voxel_table_size, ic.voxel_bucket,
+                      dtype=torch.int32), points=state.prev_points)
+            if ic.nn_backend == "voxel" else None)
+        dst = PointCloud(points=state.prev_points, mask=state.prev_mask)
+        super().__init__(cfg, state,
+                         PointCloud(points=self.points, mask=buf(capacity)),
+                         _nn_correspondence(ic, dst, grid=self.grid), dev)
+
+    def _inputs(self, points: torch.Tensor, mask: torch.Tensor) -> None:
+        self.points.copy_(points)
+        self.mask.copy_(mask)
+
+    def _pre_body(self, _) -> None:
+        st = self.state
+        self.align.src.mask.copy_(self.mask)
+        if self.grid is not None:
+            self.grid.table.copy_(_voxel_grid(
+                self.cfg.icp, st.prev_points, st.prev_mask).table)
+        self.align.set_T0(motion_init(st, self.cfg))
+        self._pre_icp()
+
+    def _post_body(self) -> None:
+        self._keep(*_advance(self.state, self.points, self.mask,
+                             self.align.result(), self.cfg))

@@ -19,16 +19,15 @@ point-to-plane without degen_eps or corr_range_rate) is one launch of the
 whole-loop kernel K5.
 
 The reference runs a frame as one jitted program. On CUDA the port runs it
-as `FrameGraphs`: each stage over static buffers, replayed as a CUDA graph,
-so a frame is a handful of graph launches, and its host syncs are the ICP
-trips' condition reads and the insert read: trips + 1 at "steps", 1 at
-"fused" (+1 each with extract hysteresis). On the CPU `step` and
-`run_fused` run `_step` eagerly.
+as `FrameGraphs` (on slam/frame_graphs.py's frame loop): each stage over
+static buffers, replayed as a CUDA graph, so a frame is a handful of graph
+launches, and its host syncs are the ICP trips' condition reads and the
+insert read: trips + 1 at "steps", 1 at "fused" (+1 each with extract
+hysteresis). On the CPU `step` and `run_fused` run `_step` eagerly.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 
 import torch
@@ -38,17 +37,18 @@ from tpu_icp_slam_torch.core import se3
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD, PointCloud
 from tpu_icp_slam_torch.icp.loop import (
     ICPResult,
-    StaticAlign,
     _nn_correspondence,
     _voxel_grid,
     align_with_correspondence,
-    eager_loop,
 )
-from tpu_icp_slam_torch.kernels.graphs import Graphed
+# `_clone`: the name under which this module's tests copy a state
+from tpu_icp_slam_torch.kernels.graphs import clone as _clone  # noqa: F401
+from tpu_icp_slam_torch.kernels.graphs import copy_into as _copy_into
 from tpu_icp_slam_torch.kernels import voxel_nn
 from tpu_icp_slam_torch.kernels.icp_fused import fused_args, icp_fused
 from tpu_icp_slam_torch.mapping import voxel_map
 from tpu_icp_slam_torch.mapping.normals import normals_knn
+from tpu_icp_slam_torch.slam import frame_graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +88,8 @@ class ScanToMapPipeline:
         """The frame graphs on CUDA, None on the CPU (eager `_step`)."""
         if self.device.type != "cuda":
             return None
-        return frame_graphs(self.cfg, capacity, self.device)
+        return frame_graphs.graphs_of(FrameGraphs, self.cfg, capacity,
+                                      self.device)
 
     def step(self, state: MapOdomState, points, mask):
         points, mask = self._as_tensors(points, mask)
@@ -103,13 +104,8 @@ class ScanToMapPipeline:
         graphs = self._graphs(pts.shape[1])
         if graphs is not None:
             return graphs.run(state, pts, msk)
-        infos = []
-        for f in range(pts.shape[0]):
-            state, info = _step(state, pts[f], msk[f], cfg=self.cfg)
-            infos.append(info)
-        stacked = {k: torch.stack([torch.as_tensor(i[k]) for i in infos])
-                   for k in infos[0]}
-        return state, stacked
+        return frame_graphs.run_eager(_step, state, zip(pts, msk),
+                                      cfg=self.cfg)
 
 
 def init_state(first_points: torch.Tensor, first_mask: torch.Tensor,
@@ -373,57 +369,16 @@ def _step(state: MapOdomState, points: torch.Tensor, mask: torch.Tensor, *,
     return _advance(state, pre, post, vm), _info(res, post, vm)
 
 
-# The per-frame info as one float32 row of the frame graphs (every integer
-# below 2^24, so exact): pose (16), then these.
-_INFO = ("rmse", "iters", "n_inliers", "converged", "clamped", "is_keyframe",
-         "map_inserted", "map_points")
-_INFO_INT = ("iters", "n_inliers", "map_points")
-
-
-def _row(res: ICPResult, post: _Post, vm: voxel_map.VoxelMap) -> torch.Tensor:
-    info = _info(res, post, vm)
-    return torch.cat([info["pose"].reshape(16)] + [
-        torch.as_tensor(info[k]).to(torch.float32).reshape(1)
-        for k in _INFO])
-
-
-def _unrow(rows: torch.Tensor) -> dict:
-    """_row's (..., 24) rows back to _step's info dict (stacked over the
-    leading dims); iters as int32."""
-    out = {"pose": rows[..., :16].reshape(*rows.shape[:-1], 4, 4)}
-    for i, k in enumerate(_INFO):
-        v = rows[..., 16 + i]
-        out[k] = (v.to(torch.int32) if k in _INFO_INT
-                  else v if k == "rmse" else v != 0.0)
-    return out
-
-
-def _copy_into(dst, src) -> None:
-    """Each tensor field of the dataclass src into dst's (in place)."""
-    for f in dataclasses.fields(dst):
-        d, s = getattr(dst, f.name), getattr(src, f.name)
-        if isinstance(d, voxel_map.VoxelMap):
-            _copy_into(d, s)
-        else:
-            d.copy_(s)
-
-
-def _clone(x):
-    """A dataclass of tensors with every tensor cloned."""
-    fields = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
-    return type(x)(**{k: _clone(v) if dataclasses.is_dataclass(v)
-                      else v.clone() for k, v in fields.items()})
-
-
-class FrameGraphs:
-    """The scan-to-map frame as the reference runs it, one dispatch a stage:
-    `_step`'s stages over static buffers, each replayed as a CUDA graph
-    (`kernels.graphs.Graphed`, one memory pool for them all).
+class FrameGraphs(frame_graphs.FrameGraphs):
+    """The scan-to-map frame as the reference runs it, one dispatch a stage
+    (slam/frame_graphs.py): `_step`'s stages over static buffers, each
+    replayed as a CUDA graph.
 
     Static buffers hold the carried state (pose, T_rel, last_kf_pose, the
     map, frame, n_keyframes, the carried local model, r_cover,
     extract_center, need_extract), the frame's scan, the `_Pre` and `_Post`
-    of the frame, the ICP's state (`icp.loop.StaticAlign`) and the frame's
+    of the frame, the ICP's state (`icp.loop.StaticAlign`, from T0 = I:
+    the model is moved into the predicted sensor frame) and the frame's
     info as one row. A frame replays:
 
       need    (extract hysteresis only) the prediction and whether to
@@ -433,23 +388,22 @@ class FrameGraphs:
               nothing back (K5 at loop_backend="fused", unroll_iters > 0),
               and then `post` too;
       trip    one ICP trip, replayed while the reference's while condition,
-              read once a trip, holds (`StaticAlign.go_on`);
+              read once a trip, holds;
       post    `_post`, the state advanced, the info row;
       insert  `_insert` into the static map, only when the host read of
               is_map_insert (the reference's lax.cond at :326) is true.
 
     Host syncs a frame: ICP trips + 1 at loop_backend="steps", 1 at
-    "fused" (+1 each with extract hysteresis). What stays eager, by a check
-    on the config: the ICP of `icp.loop.eager_loop`'s configurations
-    (degen_eps > 0), run between the pre and post graphs. On a CPU device
-    every stage runs eagerly over the same buffers.
+    "fused" (+1 each with extract hysteresis). The ICP of
+    `icp.loop.eager_loop`'s configurations (degen_eps > 0) runs eagerly
+    between the pre and post graphs."""
 
-    States are values: `load` copies a caller's state into the static
-    buffers and `snapshot` returns clones, and each frame's info row is
-    cloned, so nothing returned aliases a buffer a later replay writes."""
+    INFO = ("rmse", "iters", "n_inliers", "converged", "clamped",
+            "is_keyframe", "map_inserted", "map_points")
+    INFO_INT = ("iters", "n_inliers", "map_points")
+    PRE_VARIANTS = (True, False)  # extract the local model, or carry it
 
     def __init__(self, cfg: SlamConfig, capacity: int, device: torch.device):
-        self.cfg = cfg
         m, ic = cfg.mapping, cfg.icp
         dev = torch.device(device)
 
@@ -457,7 +411,7 @@ class FrameGraphs:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         size, cap = m.local_model_size, m.map_capacity
-        self.state = MapOdomState(
+        state = MapOdomState(
             pose=buf(4, 4), T_rel=buf(4, 4), last_kf_pose=buf(4, 4),
             vmap=voxel_map.VoxelMap(points=buf(cap, 3), normals=buf(cap, 3),
                                     mask=buf(cap, dtype=torch.bool)),
@@ -477,61 +431,55 @@ class FrameGraphs:
                           is_kf=buf(dtype=torch.bool),
                           is_map_insert=buf(dtype=torch.bool))
         self.need = buf(dtype=torch.bool)
-        self.info = buf(16 + len(_INFO))
         self.hysteresis = m.extract_hysteresis > 0.0
-        self.fused = _fused(ic)
-        self.eager_icp = not self.fused and eager_loop(ic)
-        self.icp_in_pre = self.fused or ic.unroll_iters > 0 \
-            or ic.max_iters < 1
-        # the scan's mask as float weights, which the trip reads in place
-        src = PointCloud(points=self.points, mask=buf(capacity))
+        fused = _fused(ic)
         # nn_backend="voxel": the model's hash grid, rebuilt by `pre`
         self.grid = (voxel_nn.VoxelHashGrid(
             table=buf(ic.voxel_table_size, ic.voxel_bucket,
                       dtype=torch.int32), points=self.pre.loc_local)
             if ic.nn_backend == "voxel" else None)
-        corr = (None if self.fused or self.eager_icp
-                else _coverage_corr(ic, self.pre, self.grid))
-        self.align = StaticAlign(ic, src, corr)
-        pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
-                else None)
-
-        def graph(fn):
-            return Graphed(fn, dev, pool)
-
-        self._need_g = graph(self._need_body)
-        self._pre_g = {True: graph(lambda: self._pre_body(True)),
-                       False: graph(lambda: self._pre_body(False))}
-        self._trip_g = graph(self.align.later)
-        self._post_g = graph(self._post_body)
-        self._insert_g = graph(self._insert_body)
+        # the scan's mask as float weights, which the trip reads in place
+        super().__init__(cfg, state,
+                         PointCloud(points=self.points, mask=buf(capacity)),
+                         None if fused else _coverage_corr(ic, self.pre,
+                                                           self.grid),
+                         dev, fused=fused)
+        self._need_g = self.graph(self._need_body)
+        self._insert_g = self.graph(self._insert_body)
 
     def _need_body(self) -> None:
         self.pre.init.copy_(_predict(self.state, self.cfg))
         self.need.copy_(_extract_needed(self.state, self.pre.init, self.cfg))
+
+    def _inputs(self, points: torch.Tensor, mask: torch.Tensor) -> None:
+        self.points.copy_(points)
+        self.mask.copy_(mask)
+
+    def _pre_variant(self) -> bool:
+        if not self.hysteresis:
+            return True
+        self._need_g()
+        return bool(self.need)
 
     def _pre_body(self, extract: bool) -> None:
         self.align.src.mask.copy_(self.mask)
         init = (self.pre.init if self.hysteresis
                 else _predict(self.state, self.cfg))
         _copy_into(self.pre, _pre(self.state, init, self.cfg, extract))
-        if self.fused:
-            self.align.set_result(_icp(self.points, self.mask, self.pre,
-                                       self.cfg.icp))
-        elif not self.eager_icp:
-            if self.grid is not None:
-                self.grid.table.copy_(_voxel_grid(
-                    self.cfg.icp, self.pre.loc_local, self.pre.loc_msk).table)
-            self.align.first()
-        if self.icp_in_pre:
-            self._post_body()
+        if self.grid is not None and self.graphed_icp:
+            self.grid.table.copy_(_voxel_grid(
+                self.cfg.icp, self.pre.loc_local, self.pre.loc_msk).table)
+        self._pre_icp()
+
+    def _whole_icp(self) -> ICPResult:
+        return _icp(self.points, self.mask, self.pre, self.cfg.icp)
 
     def _post_body(self) -> None:
         st = self.state
         res = self.align.result()
         post = _post(st, self.points, self.mask, self.pre, res, self.cfg)
         new = _advance(st, self.pre, post, st.vmap)
-        row = _row(res, post, st.vmap)
+        row = frame_graphs.info_row(_info(res, post, st.vmap), self.INFO)
         _copy_into(self.post, post)
         for f in dataclasses.fields(st):
             if f.name != "vmap":
@@ -544,70 +492,11 @@ class FrameGraphs:
         _copy_into(self.state.vmap, vm)
         self.info[-1].copy_(voxel_map.count(vm).to(torch.float32))
 
-    def load(self, state: MapOdomState) -> None:
-        _copy_into(self.state, state)
-
-    def snapshot(self) -> MapOdomState:
-        return _clone(self.state)
-
-    def frame(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """One frame from the loaded state; returns its info row (a clone)."""
-        self.points.copy_(points)
-        self.mask.copy_(mask)
-        extract = True
-        if self.hysteresis:
-            self._need_g()
-            extract = bool(self.need)
-        self._pre_g[extract]()
-        if not self.icp_in_pre:
-            self._icp()
-            self._post_g()
+    def _after_post(self) -> None:
         if bool(self.post.is_map_insert):
             self._update_map()
-        return self.info.clone()
-
-    def _icp(self) -> None:
-        """The ICP after `pre`: the trips after trip 0, or the eager loop."""
-        if self.eager_icp:
-            self.align.set_result(_icp(self.points, self.mask, self.pre,
-                                       self.cfg.icp))
-            return
-        trips = 1
-        while self.align.go_on(trips):
-            self._trip_g()
-            trips += 1
 
     def _update_map(self) -> None:
         """The insert graph, in a method of its own so that a profiler
         range can wrap the stage (chip_ab.py --frame-profile)."""
         self._insert_g()
-
-    def run(self, state: MapOdomState, points: torch.Tensor,
-            masks: torch.Tensor):
-        """(F, C, 3) points and (F, C) masks from `state`: (the state after
-        the last frame, infos stacked per frame)."""
-        self.load(state)
-        rows = torch.stack([self.frame(p, m) for p, m in zip(points, masks)])
-        return self.snapshot(), _unrow(rows)
-
-    def step(self, state: MapOdomState, points: torch.Tensor,
-             mask: torch.Tensor):
-        self.load(state)
-        row = self.frame(points, mask)
-        return self.snapshot(), _unrow(row)
-
-
-FRAME_GRAPH_CACHE = 8  # frame graphs kept, least recently used dropped first
-_frame_graphs: collections.OrderedDict = collections.OrderedDict()
-
-
-def frame_graphs(cfg: SlamConfig, capacity: int,
-                 device: torch.device) -> FrameGraphs:
-    """The frame graphs of (cfg, scan capacity, device), made on first use
-    and kept in a bounded cache, shared by every pipeline of that key."""
-    key = (cfg, capacity, torch.device(device))
-    graphs = _frame_graphs.pop(key, None) or FrameGraphs(*key)
-    _frame_graphs[key] = graphs
-    while len(_frame_graphs) > FRAME_GRAPH_CACHE:
-        _frame_graphs.popitem(last=False)
-    return graphs

@@ -2044,3 +2044,83 @@ def test_frame_graphs_survive_k2_scratch_growth(cuda_device):
     del junk
     _assert_frames_bit_equal(got, eager)
     _assert_frames_bit_equal(want, eager)
+
+
+def _odom_graph_case(kind, device):
+    """(pipeline, seed state, logs on the card, eager step, its keywords,
+    max_iters) of the frame-to-frame odometries: configs/rgbd.json on 12
+    frames of the 160x120 depth log, or 2D scan-to-scan with its grid on
+    12 frames of sim2d."""
+    from tpu_icp_slam_torch import from_json
+    from tpu_icp_slam_torch.slam import pipeline, rgbd, runner
+
+    if kind == "rgbd":
+        root = Path(__file__).resolve().parents[1]
+        cfg = from_json((root / "configs" / "rgbd.json").read_text())
+        K, _, depths = _rgbd_maps("cpu", size=(160, 120), frames=(),
+                                  n_frames=12)
+        pipe = rgbd.RGBDOdometry(cfg, K, device=device)
+        logs = (torch.as_tensor(depths, dtype=torch.float32, device=device),)
+        return (pipe, pipe.init_state(logs[0][0]), logs, rgbd._step,
+                {"cfg": cfg, "K": K}, cfg.icp.max_iters)
+    cfg = _sim2d_cfg()
+    pts, msk = runner.pad_scans(runner.load_dataset("sim2d", 12).scans, 512)
+    pipe = pipeline.OdometryPipeline(cfg, dim=2, device=device)
+    logs = tuple(torch.as_tensor(x, device=device) for x in (pts, msk))
+    return (pipe, pipe.init_state(*(x[0] for x in logs)), logs,
+            pipeline._step, {"cfg": cfg}, cfg.icp.max_iters)
+
+
+def _odom_leaves(st):
+    out = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update({f"{f.name}.{k}": t for k, t in _odom_leaves(v).items()})
+        elif v is not None:
+            out[f.name] = v
+    return out
+
+
+@pytest.mark.parametrize("kind", ["rgbd", "scan-to-scan 2D"])
+def test_odometry_graphs_equal_eager_step_on_card(cuda_device, kind):
+    """RGBDOdometry.run_fused and OdometryPipeline.run_fused on the card
+    replay their frame graphs: every info and every state field (the
+    occupancy grid too) bit-equal to the eager _step loop, two runs from one
+    state equal, the kernels' launches equal with the replays counted, and
+    the host syncs the ICP's condition reads, one a trip. A loop of `step`
+    (the same graphs, a frame a call) gives the same frames."""
+    pipe, state0, logs, step, kw, max_iters = _odom_graph_case(kind,
+                                                               cuda_device)
+    kernels = (nn_cuda.nn_bruteforce, gn_cuda.gn_accum)
+    k0 = [k.launches for k in kernels]
+    st_e, infos = state0, []
+    for inputs in zip(*(x[1:] for x in logs)):
+        st_e, info = step(st_e, *inputs, **kw)
+        infos.append({k: torch.as_tensor(v).cpu() for k, v in info.items()})
+    inf_e = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+    eager_launches = [k.launches - b for k, b in zip(kernels, k0)]
+    for call in range(2):  # call 0 captures, call 1 replays
+        k0 = [k.launches for k in kernels]
+        st, got = pipe.run_fused(state0, *(x[1:] for x in logs))
+        assert [k.launches - b for k, b in zip(kernels, k0)] \
+            == eager_launches, call
+        _assert_frames_bit_equal(got, inf_e)
+        a, b = _odom_leaves(st), _odom_leaves(st_e)
+        assert a.keys() == b.keys()
+        for name in b:
+            assert torch.equal(a[name], b[name]), (call, name)
+    syncs, _ = _sync_count(lambda: pipe.run_fused(state0,
+                                                  *(x[1:] for x in logs)))
+    iters = inf_e["iters"].numpy()
+    assert syncs == int((iters - (iters >= max_iters)).sum()), syncs
+    assert max(eager_launches) == int(iters.sum()) > 0
+    st_s = state0
+    for f, inputs in enumerate(zip(*(x[1:] for x in logs))):
+        st_s, info = pipe.step(st_s, *inputs)
+        for k in inf_e:
+            assert torch.equal(torch.as_tensor(info[k]).cpu().to(
+                inf_e[k].dtype), inf_e[k][f]), (f, k)
+    a = _odom_leaves(st_s)
+    for name, v in _odom_leaves(st_e).items():
+        assert torch.equal(a[name], v), ("step", name)
