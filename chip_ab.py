@@ -118,9 +118,13 @@ one timed run, the host syncs by source line (as --loop-profile), the
 bytes torch's allocator reserves, then one torch.profiler run (the first
 SLAM3D_WINDOW frames of phase 13's log) with the frame split into its
 stages: pre (prediction, extract, the model moved into the sensor frame),
-icp, post (the gates) and insert, each stage's host ms, launch calls and
-device ms a frame. The stages are profiler ranges that this script wraps
-around the package's functions; the package is not edited.
+icp, post (the gates) and insert, each stage's host ms, launch calls
+(graph replays apart), device kernels and device ms a frame; and, where
+the ICP's later trips are graph replays, one later trip: trips a frame,
+its device kernels and device ms, and its device time by op family
+(_FAMILIES: the port's kernels, cuSOLVER/cuBLAS, gemm, reductions,
+elementwise ops, ...). The stages are profiler ranges that this script
+wraps around the package's functions; the package is not edited.
 
 With --frame-ab OLD_ROOT, the same cells run --rounds times after call 1,
 OLD_ROOT's package, this tree's, this tree's again and OLD_ROOT's again,
@@ -912,13 +916,17 @@ def loop_profile(root, rounds):
 
 FRAME_CELLS = ("steps-highest", "fused-highest", "fused-bf16", "steps-bf16",
                "slam2d", "slam3d", "rgbd", "s2s2d")
+# cells that --frame-cells may name but that no default run takes:
+# "steps-degen" is "steps-highest" at degen_eps 1e-6, whose ICP is the
+# eager host loop (icp.loop.eager_loop)
+EXTRA_FRAME_CELLS = ("steps-degen",)
 SLAM3D_WINDOW = 60  # frames of phase 13's log that a profile of it traces
 
 
 def _frame_cell(name):
     """(run(frames) -> None, frames): a cell of --frame-profile and
-    --frame-ab. The four slice cells run ScanToMapPipeline.run_fused over
-    chip_smoke's 30-frame log; "slam2d" is phase 15(2)'s Slam2D.run (its
+    --frame-ab. The four slice cells and "steps-degen" run
+    ScanToMapPipeline.run_fused over chip_smoke's 30-frame log; "slam2d" is phase 15(2)'s Slam2D.run (its
     front end the z = 0 lift onto the same pipeline); "slam3d" is phase 13's
     front end, run_fused over the 180-frame loop log with the full-SLAM
     preset; "rgbd" and "s2s2d" are _odometry_cell's. run(k) runs the first
@@ -934,8 +942,12 @@ def _frame_cell(name):
         cfg = chip_smoke.full_slam_config()
         pts, msk, _ = _loop_scans()
     else:
-        backend, prec = name.split("-")
-        cfg = chip_smoke.slice_config(loop_backend=backend, nn_precision=prec)
+        if name == "steps-degen":
+            cfg = chip_smoke.slice_config(degen_eps=1e-6)
+        else:
+            backend, prec = name.split("-")
+            cfg = chip_smoke.slice_config(loop_backend=backend,
+                                          nn_precision=prec)
         pts, msk, _ = chip_smoke._scans(
             chip_smoke.FRAMES, 48, 1024, chip_smoke.FRAMES / 110.0, 0.15,
             chip_smoke.SCAN_POINTS)
@@ -1062,7 +1074,8 @@ def _stage_split(prof, n_frames):
         i = bisect.bisect_right(starts, t) - 1
         return cuts[i][2] if i >= 0 and t < cuts[i][1] else None
 
-    out = {s: {"host_ms": 0.0, "launches": 0, "device_ms": 0.0}
+    out = {s: {"host_ms": 0.0, "launches": 0, "graph_launches": 0,
+               "device_ms": 0.0, "kernels": 0, "families": {}}
            for s in ("pre", "icp", "post", "insert")}
     for s0, s1, stage in cuts:
         out[stage]["host_ms"] += (s1 - s0) / 1e6
@@ -1074,6 +1087,8 @@ def _stage_split(prof, n_frames):
             stage = stage_of(e.start_ns())
             if stage:
                 out[stage]["launches"] += 1
+                if "Graph" in e.name():
+                    out[stage]["graph_launches"] += 1
     for e in events:
         # the profiler mirrors each range on the device's timeline
         if e.device_type() != DeviceType.CUDA or e.name() in spans:
@@ -1082,9 +1097,45 @@ def _stage_split(prof, n_frames):
             e.correlation_id())
         stage = stage_of(t) if t is not None else None
         if stage:
-            out[stage]["device_ms"] += e.duration_ns() / 1e6
-    return {s: {k: v / n_frames for k, v in d.items()}
+            ms = e.duration_ns() / 1e6
+            out[stage]["device_ms"] += ms
+            out[stage]["kernels"] += 1
+            fam = out[stage]["families"].setdefault(
+                _family(e.name()), [0, 0.0])
+            fam[0] += 1
+            fam[1] += ms
+    return {s: {k: ({f: [c / n_frames, ms / n_frames]
+                     for f, (c, ms) in v.items()} if k == "families"
+                    else v / n_frames) for k, v in d.items()}
             for s, d in out.items()}
+
+
+# (family, substrings of a device event's name), first match wins: what
+# the trip's and the frame's device time is spent on
+_FAMILIES = (
+    ("K2S", ("gn_step",)), ("K2", ("gn_accum",)),
+    ("NN (K1/K3/K4, voxel)", ("nn_", "packed_scan", "voxel")),
+    ("RF", ("rigid_fit",)),
+    ("cuSOLVER/cuBLAS solve", ("potrf", "potf2", "trsm", "trsv", "getrf",
+                               "getrs", "cusolver", "syevj", "laswp",
+                               "magma", "cholesky", "getf2")),
+    ("gemm/gemv", ("gemm", "gemv", "Kernel2", "cutlass", "sm90_xmma",
+                   "splitK", "dot_kernel")),
+    ("reduce", ("reduce_kernel", "Reduce")),
+    ("index/gather/scatter", ("index", "gather", "scatter", "Index")),
+    ("cat/stack", ("CatArray", "cat_")),
+    ("copy/fill", ("Memcpy", "Memset", "copy", "fill")),
+    ("sort/scan", ("sort", "Sort", "scan", "Scan", "radix", "topk",
+                   "bitonic")),
+    ("elementwise", ("elementwise", "Elementwise")),
+)
+
+
+def _family(name):
+    for fam, keys in _FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
 
 
 def frame_worker(src_dir, cell, rounds):
@@ -1196,13 +1247,34 @@ def frame_profile(root, cells=FRAME_CELLS):
         print(f"    syncs by site over {n} frames: {res['syncs']}")
         for stage, v in res["stages"].items():
             print(f"    stage {stage:<6} host {v['host_ms']:.3f} ms, launch "
-                  f"calls {v['launches']:.1f}, device {v['device_ms']:.3f} "
-                  f"ms a frame")
+                  f"calls {v['launches']:.1f} (graph replays "
+                  f"{v['graph_launches']:.2f}), device kernels "
+                  f"{v['kernels']:.1f}, device {v['device_ms']:.3f} ms a "
+                  f"frame")
+        _print_trip(res)
         for kind in ("top_host", "top_device"):
             for key, count, ms in prof[kind]:
                 print(f"    {kind} {key:<70} {count:7d} {ms:10.3f} ms")
         out.append(res)
     return out
+
+
+def _print_trip(res):
+    """One later ICP trip of a graphed frame: the "icp" stage is the trip
+    graph's replays (one a later trip), so its device kernels and time over
+    its replays are a trip's; trips a frame are those replays + 1 (trip 0
+    runs in "pre"). Eager frames (no replays in "icp") print nothing."""
+    icp = res["stages"]["icp"]
+    later = icp["graph_launches"]
+    if later <= 0:
+        return
+    print(f"    trip: {later + 1:.3f} trips a frame ({later:.3f} later), "
+          f"a later trip {icp['kernels'] / later:.1f} device kernels, "
+          f"{icp['device_ms'] / later:.4f} ms of device time; by family "
+          f"(kernels, ms a trip):")
+    for fam, (count, ms) in sorted(icp["families"].items(),
+                                   key=lambda kv: -kv[1][1]):
+        print(f"      {fam:<24} {count / later:7.1f} {ms / later:9.4f}")
 
 
 def frame_ab(old_root, rounds, cells=FRAME_CELLS):
@@ -1294,7 +1366,8 @@ def main() -> int:
                          "against this tree's")
     ap.add_argument("--frame-cells", default=",".join(FRAME_CELLS),
                     help="the cells of --frame-profile and --frame-ab, "
-                         "comma-separated (default: all of FRAME_CELLS)")
+                         "comma-separated (default: all of FRAME_CELLS; "
+                         "also EXTRA_FRAME_CELLS)")
     ap.add_argument("--frame-worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--frame-cell", help=argparse.SUPPRESS)
     ap.add_argument("--loop-worker", default=None, help=argparse.SUPPRESS)
@@ -1313,7 +1386,7 @@ def main() -> int:
     chip_smoke.phase_device()
     if args.frame_profile or args.frame_ab:
         cells = tuple(args.frame_cells.split(","))
-        unknown = set(cells) - set(FRAME_CELLS)
+        unknown = set(cells) - set(FRAME_CELLS) - set(EXTRA_FRAME_CELLS)
         if unknown:
             ap.error(f"unknown --frame-cells {sorted(unknown)}")
         if args.frame_profile:

@@ -15,8 +15,10 @@ nonzero and the final line is not printed:
   4. The main path at full width: ScanToMapPipeline.run_fused on a 30-frame
      synthetic Velodyne log (16,384-point scans, 131,072-point map,
      16,384-point local model) under the flagship configuration; finite
-     poses, ATE < 0.15 m against ground truth, and K1/K2 launch counts equal
-     to the total ICP iterations of the timed run.
+     poses, ATE < 0.15 m against ground truth, K1 and K2S launch counts
+     equal to the total ICP iterations of the timed run and no K2 launch
+     (K2S sums H and g itself); ICP iterations a frame beside those of the
+     torch step around K2 (PREV_ITERS).
   5. The same pipeline on the card and on the CPU (plain kernel versions)
      on a small log: per-frame poses agree.
   6. K5's capability probe (the Hopper counterpart of the Mosaic probes
@@ -38,10 +40,10 @@ nonzero and the final line is not printed:
      result rejected by the other precision's bounds.
   9. The main path with icp.loop_backend="fused" on phase 4's log, at
      "highest" and "bf16": finite poses, ATE < 0.15 m, one K5 launch per
-     frame and no K1/K2/K3 launch; frames/s and host syncs/frame beside the
-     steps path's.
- 10. Ten frames of the steps path at nn_precision="bf16": one K3 launch per
-     ICP iteration, no K1; its iterations and ATE.
+     frame and no K1/K2/K2S/K3 launch; frames/s and host syncs/frame beside
+     the steps path's.
+ 10. Ten frames of the steps path at nn_precision="bf16": one K3 and one
+     K2S launch per ICP iteration, no K1 or K2; its iterations and ATE.
  11. K4 (nn_rescore) vs its plain version at 16,384 x 16,384, sentinel rows:
      the device packing bit-equal to the plain packing, the tensor-core
      candidates equal to the plain version's on >= 0.999 of the (slot, row)
@@ -55,8 +57,9 @@ nonzero and the final line is not printed:
  13. The slice of full SLAM: Slam3D.run(mode="fused") with
      configs/kitti_full_res.json at nn_precision="rescore" (front end, loop
      closure, pose graph) on a 180-frame loop log at full width; finite
-     poses, >= 1 accepted closure, ATE < 0.5 m, K4 launches = the front
-     end's ICP iterations, K3 = K5 = 0, and every K1 launch a batched
+     poses, >= 1 accepted closure, ATE < 0.5 m, K4 and K2S launches = the
+     front end's ICP iterations, K2 = K3 = K5 = 0, and every K1 launch a
+     batched
      verification launch, as many as the batched iterations verification
      ran, as many RF launches; then one verification of a kept closure
      under sync debug mode: host syncs a batched iteration.
@@ -64,7 +67,7 @@ nonzero and the final line is not printed:
      default device, everything under build/chip_cli/. (1) Phase 4's log
      written as a KITTI sequence (datasets/kitti.write_sequence) and `cli
      run` over it with configs/kitti_full_res.json and --save-map: rc 0,
-     finite poses, ATE < 0.15 m, K1 = K2 = the front end's ICP iterations
+     finite poses, ATE < 0.15 m, K1 = K2S = the front end's ICP iterations
      beside the batched verification launches, every artifact written and
      map.png a PNG. (2) `cli localize` of frame 15 in that map: localized
      within 3.0 m of ground truth, on batched K1. (3) `cli eval` on the same
@@ -103,8 +106,8 @@ nonzero and the final line is not printed:
      entry of H and g within RGBD_K2_RTOL of the sum of its terms' absolute
      values; bit-reproducible. (2) `cli run --config configs/rgbd.json
      --dataset simrgbd_fullres --frames 30` (640x480, rgbd_src_stride 1):
-     rc 0, finite poses, ATE < 0.03 m, one K2 launch per ICP iteration and
-     no K1/K3/K4/K5; then RGBDOdometry.run_fused on the same log (its
+     rc 0, finite poses, ATE < 0.03 m, one K2S and one PJ launch per ICP
+     iteration and no K1/K2/K3/K4/K5; then RGBDOdometry.run_fused on the same log (its
      frame graphs on CUDA, captured by the cli run), timed (fenced) and
      bit-equal to a loop of step (the same graphs, a frame a call, as the
      streaming `cli run` calls them; phase 22 holds both against the eager
@@ -113,7 +116,7 @@ nonzero and the final line is not printed:
      the written uint16 / 5000 exactly, and `cli run` over it: ATE <
      0.03 m. (4) `cli eval` on simrgbd_fullres, 30 frames, with the preset:
      tpu_ate < 0.03 m. (5) phase 4's log with mapping.insert_backend="hash"
-     and mapping.extract_approx=True: ATE < 0.15 m, K1 = K2 = the ICP
+     and mapping.extract_approx=True: ATE < 0.15 m, K1 = K2S = the ICP
      iterations, frames/s beside phase 4's; insert_hash on the card equal
      to its CPU run on one insert, entry for entry.
  17. config 5 (the distributed layer), everything under build/chip_dist/.
@@ -195,12 +198,35 @@ nonzero and the final line is not printed:
      each against the eager _step loop on the same inputs on the card:
      every info and every state field (the grid's log-odds included)
      bit-equal, two runs from one state equal, call 1's returned state
-     unchanged after later runs, K1 (2-D), K2 and RF launches equal with
+     unchanged after later runs, K1 (2-D), K2S and RF launches equal with
      the replays counted, host syncs a frame the ICP's condition reads
      (trip replays + 1, one fewer when max_iters stops the loop), and a
      loop of step (the same graphs, a frame a call) bit-equal to run_fused.
      Frames/s eager, call 1 (the captures included) and call 2, and the MiB
      the graphs hold.
+ 23. K2S (csrc/gn_step.cu: the point-to-plane iteration after the
+     correspondence, one launch a trip on the 3D point-to-plane paths)
+     against its plain version (kernels/gn_step.trip_ref: the torch step
+     around K2, on the card) on phase 4's trip inputs (frame 1 against the
+     local model of the seeded map, K1's correspondence at identity) under
+     slice_config()'s and configs/kitti_full_res.json's ICP, and on phase
+     16's (the 640x480 RGB-D frame 1 looked up in frame 0) under
+     configs/rgbd.json's: at trips 0 and 1 of the preset, Anderson, a
+     min_inliers hold, a non-PD H (a zero step) and a converged state (left
+     as it was), T within K2S_T_TOL, rmse within K2S_RMSE_RTOL, inliers and
+     iterations equal, converged equal but within K2S_TOL_BAND of tol; two
+     launches bit-equal; H and g bit-equal to K2's on the same weights;
+     device ms, call ms and bound, and the plain version's device ms (the
+     torch step it replaces, a trip). PJ (csrc/projective.cu: RGB-D's
+     projective lookup, one launch a trip) against its plain version
+     (icp/projective._lookup_ref) on phase 16's source at identity and
+     moved 2 cm and 0.5 degrees, with and without a normal gate: q and n
+     bit-equal, d2 within 2 ulps, the gate equal but at its edge;
+     bit-reproducible; its times, with the L2 emptied before each call (its
+     bound is device memory's) and back to back. Then the configurations that keep K2
+     (degen_eps > 0: the eager loop): 5 frames of phase 4's log and of
+     phase 16's, K2 = ICP iterations and no K2S; these give K2's rows their
+     launches.
  19. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4, batched or not, must make their four
@@ -229,7 +255,12 @@ functions, and RF's is torch.linalg.svd alone on the same (B, 3, 3), which
 the port never calls on the card; share, bound_ms / ms. RF's bound counts
 its float64 operations over the H100's FP64 peak. The batched rows (phase
 18) count their launches on phase 17's sharded align and give
-launches_per_trip.
+launches_per_trip. K2S's rows and PJ's count theirs on phase 4 and phase
+16's cli run; K2's unbatched rows, which the main path no longer launches,
+on phase 23's degen_eps runs. PJ's ms, kernel_ms and plain_ms are taken
+with the L2 cache emptied before each call, so that its bound by bytes over
+3.35 TB/s bounds them; ms_l2_warm is its back-to-back device time, with
+the maps in L2 as on the main path.
 """
 
 from __future__ import annotations
@@ -384,8 +415,60 @@ def _device_ms(fn, n=50, reps=5, strict=True):
     return statistics.median(times)
 
 
+@functools.cache
+def _l2_flush():
+    """A write over twice the card's L2 cache: run before a call, it leaves
+    nothing of the last call's data there, so the call reads its inputs
+    from device memory."""
+    size = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0)
+    buf = torch.empty(2 * max(size, 50 << 20) // 4, dtype=torch.float32,
+                      device="cuda")
+    return lambda: buf.fill_(0.0)
+
+
+def _cold_ms(fn, n=20, reps=5, strict=True):
+    """Device time per call of fn with the L2 cache emptied before each call
+    (_l2_flush): CUDA events around fn alone, n calls a window, their mean,
+    the median of reps windows. As in _device_ms, a sleep kernel ahead of
+    each window lets the host queue it whole, so a window holds no host
+    gaps; one the card reached early is timed again with a longer sleep
+    (kept as it is with strict=False)."""
+    flush = _l2_flush()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        flush()
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    torch.cuda.synchronize()
+    sleep_ms = 2.0 + 2.0 * n * host_ms
+    times, retries = [], 0
+    while len(times) < reps:
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
+        for start, end in pairs:
+            flush()
+            start.record()
+            fn()
+            end.record()
+        ahead = not pairs[0][0].query()
+        torch.cuda.synchronize()
+        if ahead or not strict:
+            times.append(sum(s.elapsed_time(e) for s, e in pairs) / n)
+            continue
+        retries += 1
+        if retries > 8:
+            raise RuntimeError("the host cannot queue the timed calls ahead "
+                               "of the card")
+        sleep_ms *= 2
+    return statistics.median(times)
+
+
 # The port's own CUDA kernels (csrc/*.cu), as the profiler names them.
 OWN_KERNELS = ("nn_split_kernel", "nn_fold_kernel", "gn_accum_kernel",
+               "gn_step_kernel", "projective_kernel",
                "nn_centre_kernel", "nn_pack_kernel", "packed_scan_kernel",
                "nn_rescore_kernel", "icp_fused_kernel", "coop_probe_kernel",
                "rigid_fit_kernel")
@@ -670,7 +753,7 @@ def phase_k2(p, valid):
 
 
 def phase_slice(pts, msk, gt):
-    from tpu_icp_slam_torch.kernels import gn_cuda, nn_cuda
+    from tpu_icp_slam_torch.kernels import gn_cuda, gn_step, nn_cuda
     from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
 
     pipe = ScanToMapPipeline(slice_config(), device="cuda")
@@ -681,12 +764,14 @@ def phase_slice(pts, msk, gt):
     warm_s = time.perf_counter() - t0
     nn_cuda.nn_bruteforce.launches = 0
     gn_cuda.gn_accum.launches = 0
+    gn_step.gn_step.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, infos = pipe.run_fused(state0, pts[1:], msk[1:])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     k1, k2 = nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches
+    k2s = gn_step.gn_step.launches
     poses = np.concatenate(
         [np.eye(4)[None], infos["pose"].cpu().numpy().astype(np.float64)])
     iters = infos["iters"].cpu().numpy()
@@ -702,13 +787,14 @@ def phase_slice(pts, msk, gt):
           f"{int(infos['is_keyframe'].sum())} | map inserts "
           f"{int(infos['map_inserted'].sum())} | map points "
           f"{int(infos['map_points'][-1])} | ATE {ate:.5f} m")
-    print(f"[slice] launches K1 {k1} K2 {k2} total ICP iters "
-          f"{int(iters.sum())}")
+    print(f"[slice] launches K1 {k1} K2S {k2s} K2 {k2} total ICP iters "
+          f"{int(iters.sum())} | {_iters_beside_prev('slice', iters)}")
     assert np.isfinite(poses).all(), "non-finite pose"
     assert ate < 0.15, f"ATE {ate} m"
-    assert k1 == k2 == int(iters.sum()) > 0, (k1, k2, int(iters.sum()))
+    assert k1 == k2s == int(iters.sum()) > 0 and k2 == 0, \
+        (k1, k2s, k2, int(iters.sum()))
     assert syncs == want, (syncs, want)
-    return k1, k2, n_frames, n_frames / dt
+    return k1, k2s, n_frames, n_frames / dt
 
 
 def phase_cpu_agreement():
@@ -740,12 +826,14 @@ def phase_cpu_agreement():
 
 def _counters():
     from tpu_icp_slam_torch.kernels import (
-        gn_cuda, icp_fused, nn_bf16, nn_cuda, nn_rescore,
+        gn_cuda, gn_step, icp_fused, nn_bf16, nn_cuda, nn_rescore,
+        projective_cuda,
     )
 
     return {"K1": nn_cuda.nn_bruteforce, "K2": gn_cuda.gn_accum,
             "K3": nn_bf16.nn_bf16, "K4": nn_rescore.nn_rescore,
-            "K5": icp_fused.icp_fused}
+            "K5": icp_fused.icp_fused, "K2S": gn_step.gn_step,
+            "PJ": projective_cuda.projective_lookup}
 
 
 def _rf():
@@ -981,6 +1069,29 @@ def phase_k5(pts, msk):
     return rows
 
 
+# ICP iterations (total, frames) of the point-to-plane runs with the
+# iteration's step as torch ops around K2 (before K2S, whose float32 sums
+# round otherwise), read by this script on an NVIDIA H100 80GB HBM3 at
+# 700 W: phases 4, 9, 10, 13's front end and 16's cli run.
+PREV_ITERS = {"slice": (92, 29), "fused slice highest": (94, 29),
+              "fused slice bf16": (94, 29),
+              "steps slice highest, 5 frames, for its host syncs": (16, 5),
+              "steps slice bf16": (35, 10), "full slam": (733, 179),
+              "rgbd": (113, 29)}
+
+
+def _iters_beside_prev(label, iters, n_frames=None):
+    """ICP iterations a frame of a run, beside PREV_ITERS[label]."""
+    total = int(np.sum(iters))
+    n = n_frames or len(iters)
+    prev = PREV_ITERS.get(label)
+    text = f"ICP iterations a frame {total / n:.3f} ({total} over {n})"
+    if prev:
+        text += (f", with the torch step around K2 {prev[0] / prev[1]:.3f} "
+                 f"({prev[0]} over {prev[1]})")
+    return text
+
+
 def _run_slice(cfg, pts, msk, gt, label):
     """Warm-up run, then a timed run with every launch count set to 0
     just before it; returns the counts, the ICP iterations, the frames and
@@ -1014,6 +1125,7 @@ def _run_slice(cfg, pts, msk, gt, label):
     assert np.isfinite(poses).all(), f"{label}: non-finite pose"
     assert ate < 0.15, f"{label}: ATE {ate} m"
     assert syncs == want, (label, syncs, want)
+    print(f"[{label}] {_iters_beside_prev(label, iters)}")
     return counts, int(iters.sum()), n_frames, ate
 
 
@@ -1023,8 +1135,8 @@ def phase_fused_slice(pts, msk, gt):
         c, _, n_frames, _ = _run_slice(
             slice_config(loop_backend="fused", nn_precision=prec), pts, msk,
             gt, f"fused slice {prec}")
-        assert c == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": n_frames}, \
-            (prec, c)
+        assert c == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": n_frames,
+                     "K2S": 0, "PJ": 0}, (prec, c)
         counts[prec] = c["K5"], n_frames
     _run_slice(slice_config(), pts[:6], msk[:6], gt,
                "steps slice highest, 5 frames, for its host syncs")
@@ -1038,8 +1150,8 @@ def phase_steps_bf16(pts, msk, gt):
     print(f"[steps slice bf16] ICP iterations {iters}, ATE {ate:.5f} m "
           f"(K3 on the CUDA cores, commit ad1ed22, on an H100: 35 "
           f"iterations, 0.00638 m)")
-    assert c["K3"] == c["K2"] == iters > 0, c
-    assert c["K1"] == c["K4"] == c["K5"] == 0, c
+    assert c["K3"] == c["K2S"] == iters > 0, c
+    assert c["K1"] == c["K2"] == c["K4"] == c["K5"] == 0, c
     return c["K3"], n_frames
 
 
@@ -1222,12 +1334,13 @@ def phase_full_slam():
           f"{np.median(lc_err):.4f} m, max {np.max(lc_err):.4f} m | ATE "
           f"{ate:.5f} m (front end only {ate_fe:.5f} m) | launches "
           f"{c}, K1 batched {batched}, RF {rf}, verify iterations "
-          f"{slam.detector.verify_iters}")
+          f"{slam.detector.verify_iters} | front end "
+          f"{_iters_beside_prev('full slam', slam.frontend_iters)}")
     assert np.isfinite(poses).all(), "non-finite pose"
     assert rep.n_loop_closures >= 1, "no accepted closure"
     assert ate < 0.5, f"ATE {ate} m"
-    assert c["K4"] == c["K2"] == iters > 0, (c, iters)
-    assert c["K3"] == c["K5"] == 0, c
+    assert c["K4"] == c["K2S"] == iters > 0, (c, iters)
+    assert c["K2"] == c["K3"] == c["K5"] == 0, c
     assert c["K1"] == batched == rf == slam.detector.verify_iters > 0, \
         (c["K1"], batched, rf, slam.detector.verify_iters)
     _verify_syncs(slam.detector, pts, msk, slam.kf_frames,
@@ -1325,7 +1438,8 @@ def phase_cli(full):
     assert rc == 0 and rep["mode"] == "slam3d", rep
     assert poses.shape == (FRAMES, 4, 4) and np.isfinite(poses).all()
     assert rep["ate_rmse"] < 0.15, rep["ate_rmse"]
-    assert c["K2"] == c["K1"] - batched == ev["icp_iters"] > 0, (c, ev)
+    assert c["K2S"] == c["K1"] - batched == ev["icp_iters"] > 0, (c, ev)
+    assert c["K2"] == 0, c
     assert batched == ev["verify_iters"] and c["K3"] == c["K4"] == \
         c["K5"] == 0, (c, ev)
     for name in ("trajectory.npz", "trajectory_tum.txt",
@@ -1407,7 +1521,8 @@ def phase_cli(full):
           f"{s2s['ate_rmse']:.5f} m, ICP iterations {ev['icp_iters']} | "
           f"launches {c} | {dt:.3f} s")
     assert rc == 0 and s2s["mode"] == "fused", s2s
-    assert c["K1"] == ev["icp_iters"] > 0 and c["K2"] == 0, (c, ev)
+    assert c["K1"] == ev["icp_iters"] > 0, (c, ev)
+    assert c["K2"] == c["K2S"] == 0, (c, ev)
 
 
 # ---- config 2: 2D lidar SLAM ------------------------------------------------
@@ -1681,6 +1796,17 @@ def k2_rgbd_inputs():
     looked up projectively in frame 0's maps at identity, with the weights
     the ICP loop gives it (gate x mask), all contiguous on the card;
     (depths, ground truth, intrinsics)."""
+    p, mask, corr, log, _ = rgbd_problem()
+    q, n, gate, _ = corr(p)
+    return (p, q, n, gate * mask.to(gate.dtype)), log
+
+
+def rgbd_problem():
+    """The RGB-D path's first align at full width: frame 1 of the 640x480
+    log as the source (invalid pixels at the sentinel), its mask, the
+    projective lookup into frame 0's maps, the log (depths, ground truth,
+    intrinsics) and the lookup's arguments (intrinsics, frame 0's vertex
+    map, normal map and validity, the gate's distance)."""
     from tpu_icp_slam_torch import synthetic
     from tpu_icp_slam_torch.core.pointcloud import PAD_COORD
     from tpu_icp_slam_torch.icp import projective
@@ -1701,9 +1827,10 @@ def k2_rgbd_inputs():
     p = torch.where(mask[:, None], v1.reshape(-1, 3),
                     torch.full_like(v1.reshape(-1, 3), PAD_COORD))
     cfg = _rgbd_cfg()
-    q, n, gate, _ = projective.projective_correspondence(
-        K, v0, n0, ok0, max_corr_dist=cfg.icp.max_corr_dist)(p)
-    return (p, q, n, gate * mask.to(gate.dtype)), (depths, gt, K)
+    corr = projective.projective_correspondence(
+        K, v0, n0, ok0, max_corr_dist=cfg.icp.max_corr_dist)
+    return p, mask, corr, (depths, gt, K), (K, v0, n0, ok0,
+                                            cfg.icp.max_corr_dist)
 
 
 def _rgbd_cfg():
@@ -1758,8 +1885,8 @@ def _ate_ok(rep, limit, what):
 
 def phase_config3(log):
     """Config 3 through the command line with the default device, then
-    RGBDOdometry directly; returns the K2 launches of the cli run and its
-    frame count."""
+    RGBDOdometry directly; returns the K2S and the PJ launches of the cli
+    run, each with its frame count."""
     from tpu_icp_slam_torch.datasets import tum
     from tpu_icp_slam_torch.slam.rgbd import RGBDOdometry
 
@@ -1785,13 +1912,14 @@ def phase_config3(log):
           f"run of the process; {dt:.3f} s with the log and artifacts) | "
           f"ICP iterations {iters} ({iters / n_frames:.3f} a frame) | ATE "
           f"{rep['ate_rmse']:.5f} m, RPE {rep['rpe_trans']:.5f} m "
-          f"{rep['rpe_rot']:.5f} rad | launches {c}")
+          f"{rep['rpe_rot']:.5f} rad | launches {c} | "
+          f"{_iters_beside_prev('rgbd', iters, n_frames)}")
     assert rc == 0 and poses.shape == (RGBD_FRAMES, 4, 4), rep
     assert np.isfinite(poses).all()
     _ate_ok(rep, 0.03, "config 3 run")
-    assert c["K2"] == iters > 0, (c, iters)
-    assert c["K1"] == c["K3"] == c["K4"] == c["K5"] == 0, c
-    k2_launches = c["K2"]
+    assert c["K2S"] == c["PJ"] == iters > 0, (c, iters)
+    assert c["K1"] == c["K2"] == c["K3"] == c["K4"] == c["K5"] == 0, c
+    k2s_launches, pj_launches = c["K2S"], c["PJ"]
 
     # (2) RGBDOdometry itself: run_fused timed, and a loop of step
     cfg = _rgbd_cfg()
@@ -1842,7 +1970,7 @@ def phase_config3(log):
           f"{rep['ate_rmse']:.5f}) | keys {sorted(ev)} | {dt:.3f} s")
     assert rc == 0 and set(ev) == {"dataset", "frames", "mode", "tpu_ate"}
     assert ev["tpu_ate"] < 0.03, ev
-    return k2_launches, n_frames
+    return (k2s_launches, n_frames), (pj_launches, n_frames)
 
 
 def phase_mapping_options(pts, msk, gt, slice_fps):
@@ -1914,7 +2042,7 @@ def phase_mapping_options(pts, msk, gt, slice_fps):
           f"{cost['hash'][2]}; the sort-based insert {cost['sort'][0]:.4f} "
           f"/ {cost['sort'][1]:.4f} ms, {cost['sort'][2]}")
     assert np.isfinite(poses).all() and ate < 0.15, ate
-    assert c["K1"] == c["K2"] == iters > 0, (c, iters)
+    assert c["K1"] == c["K2S"] == iters > 0 and c["K2"] == 0, (c, iters)
 
 
 # ---- config 5: the distributed layer ---------------------------------------
@@ -2072,7 +2200,7 @@ def phase_config5(pts, msk, gt, full):
             assert c[nn] == cb[nn] == trips > 0, (prec, c, cb)
             assert c["K2"] == cb["K2"] == trips, (prec, c, cb)
             assert all(v == 0 for k, v in c.items()
-                       if k not in (nn, "K2")), (prec, c)
+                       if k not in (nn, "K2")), (prec, c)  # K2S too
             sharded[prec] = {"T": T_p, "iters": iters, "trips": trips,
                              "s": dt, "launches": c}
         T1 = sharded["highest"]["T"]
@@ -2184,6 +2312,7 @@ def phase_config5(pts, msk, gt, full):
     print(f"[config 5] one sequence at loop_backend=\"fused\": ATE "
           f"{fate:.5f} m, launches {fc}")
     assert fc["K5"] == FRAMES - 1 and fc["K1"] == fc["K2"] == 0, fc
+    assert fc["K2S"] == 0, fc
     assert fate < 0.15, fate
 
     # (2) two gloo ranks sharing the card
@@ -3005,6 +3134,311 @@ def phase_launch_calls(pts, msk, full, odometry):
               f"frame (frames 1-5, profiled) {calls}")
 
 
+# ---- K2S: the point-to-plane iteration after the correspondence ------------
+
+# Largest gaps of one K2S trip from its plain version (the torch step
+# around K2, on the card, on the same inputs and state) that phase 23
+# accepts: >= 10x the largest seen on an H100 (T 1.19e-7 at M = 16,384 and
+# 3.7e-9 at 307,200; rmse 1.8e-7 relative), the two differing only in the
+# order of float32 sums (Σw, Σw·d², the trace) and in the 6x6 solve and
+# SE(3) functions; and the band around `tol` within which `converged` may
+# differ.
+K2S_T_TOL = 2e-6
+K2S_RMSE_RTOL = 2e-6
+K2S_TOL_BAND = 1e-7
+
+
+def k2s_bound(m):
+    """K2S's least time: its bytes (cur, q, n 36 bytes a row, gate, d2 and
+    the mask 12; the state, T0, T0⁻¹, the prior's scale, H and g out, under
+    512 bytes), ~75 FP32 operations a row."""
+    return _bound(75.0 * m, 48.0 * m + 512)
+
+
+def _k2s_options(base):
+    """Phase 23's option sets on an ICPConfig: name -> (cfg, variant)."""
+    rep = dataclasses.replace
+    return {"preset": (base, None),
+            "anderson": (rep(base, anderson=True), None),
+            "min_inliers hold": (rep(base, min_inliers=10 ** 7), None),
+            "non-PD": (rep(base, damping=0.0, prior_trans_weight=0.0,
+                           prior_rot_weight=0.0), "non-PD"),
+            "frozen": (base, "frozen")}
+
+
+def _k2s_trip(icp, src, mask_f, corr, it, variant=None):
+    """One trip of K2S and of its plain version from the same state on the
+    card (trip 0 from loop._init_state, or trip 1 after a plain trip 0):
+    (kernel state, plain state, inputs, the kernel's H and g, a second
+    launch's state, the anchors, the rmse before the trip). "non-PD" moves every row onto the z axis with normal
+    z (H of rank 1, no damping: a zero step); "frozen" starts converged."""
+    from tpu_icp_slam_torch.icp import loop
+    from tpu_icp_slam_torch.kernels import gn_step as k2s
+
+    T0 = torch.eye(4, device="cuda")
+    use_prior = icp.prior_trans_weight > 0.0 or icp.prior_rot_weight > 0.0
+    T0_inv, prior_scale = loop._anchor(icp, T0, use_prior)
+    anchors = (T0, T0_inv, prior_scale)
+    state = tuple(t.clone() for t in loop._init_state(T0))
+
+    def inputs(st):
+        cur = loop._moved(src, st[0])
+        q, n, gate, d2 = corr(cur)
+        if variant == "non-PD":
+            cur = cur.clone()
+            cur[:, :2] = 0.0
+            n = torch.zeros_like(n)
+            n[:, 2] = 1.0
+        return cur, q, n, gate, d2
+
+    if it == 1:
+        k2s.trip_ref(icp, mask_f, *inputs(state), state, 0, *anchors)
+    if variant == "frozen":
+        state[3].fill_(True)
+    prev = float(state[1])
+    args = inputs(state)
+    got, want, again = (tuple(t.clone() for t in state) for _ in range(3))
+    k2s.gn_step(icp, mask_f, *args, got, it, *anchors)
+    H, g = (t.clone() for t in k2s.last_hg(src.device))
+    k2s.gn_step(icp, mask_f, *args, again, it, *anchors)
+    k2s.trip_ref(icp, mask_f, *args, want, it, *anchors)
+    return got, want, args, (H, g), again, anchors, prev
+
+
+def _k2s_gaps(got, want):
+    """(T gap, rmse gap, the fields that disagree) of a K2S state against
+    the plain one: T and rmse beyond their limits, n_inliers, iters or
+    converged unequal (the caller forgives converged within K2S_TOL_BAND
+    of tol)."""
+    T_gap = float(torch.max(torch.abs(got[0] - want[0])))
+    r, rw = float(got[1]), float(want[1])
+    rmse_rel = abs(r - rw) / max(abs(rw), 1e-30)
+    bad = [name for name, i in (("n_inliers", 2), ("iters", 6))
+           if int(got[i]) != int(want[i])]
+    if bool(got[3]) != bool(want[3]):
+        bad.append("converged")
+    if not T_gap <= K2S_T_TOL:
+        bad.append(f"T {T_gap:.3e}")
+    if not (rmse_rel <= K2S_RMSE_RTOL or (math.isnan(r) and math.isnan(rw))):
+        bad.append(f"rmse {rmse_rel:.3e}")
+    return T_gap, rmse_rel, bad
+
+
+def _k2s_row(label, base, src, mask_f, corr, m):
+    """K2S against its plain version over _k2s_options(base) at trips 0 and
+    1 on one problem; its H and g against K2's; its timings."""
+    from tpu_icp_slam_torch.kernels import gn_cuda
+    from tpu_icp_slam_torch.kernels import gn_step as k2s
+
+    worst = {"T": 0.0, "rmse": 0.0}
+    parts = []
+    for name, (icp, variant) in _k2s_options(base).items():
+        for it in (0, 1):
+            got, want, args, (H, g), again, _, prev = _k2s_trip(
+                icp, src, mask_f, corr, it, variant)
+            torch.cuda.synchronize()
+            assert all(bits_equal(a, b) for a, b in zip(got, again)), \
+                f"K2S {label} {name}: not bit-reproducible"
+            if variant == "frozen":
+                assert all(bits_equal(a, b) for a, b in zip(got, want)), \
+                    f"K2S {label}: a frozen state changed"
+                parts.append(f"{name} t{it} unchanged")
+                continue
+            T_gap, rmse_rel, bad = _k2s_gaps(got, want)
+            if bad == ["converged"] and min(
+                    abs(abs(prev - float(x[1])) - icp.tol)
+                    for x in (got, want)) <= K2S_TOL_BAND:
+                bad = []
+            assert not bad, f"K2S {label} {name} trip {it}: {bad}"
+            cur, q, n, gate, d2 = args
+            w = k2s.huber(icp, gate * mask_f, d2)
+            H2, g2 = gn_cuda.gn_accum(cur, q, n, w)
+            assert bits_equal(H, H2) and bits_equal(g, g2), \
+                f"K2S {label} {name} trip {it}: H, g differ from K2's"
+            worst["T"] = max(worst["T"], T_gap)
+            worst["rmse"] = max(worst["rmse"], rmse_rel)
+            parts.append(f"{name} t{it} T {T_gap:.2e} rmse {rmse_rel:.2e} "
+                         f"iters {int(got[6])} inl {int(got[2])} conv "
+                         f"{bool(got[3])}")
+            if variant == "non-PD":
+                assert torch.equal(got[0], torch.eye(4, device="cuda")), \
+                    "K2S: a non-PD H gave a step"
+    # timings: a configuration that never converges, so that every launch
+    # does the whole trip (the state walks on under a fixed correspondence)
+    icp = dataclasses.replace(base, tol=0.0, tol_update=0.0,
+                              max_iters=2 ** 30)
+    got, want, args, _, _, anchors, _ = _k2s_trip(icp, src, mask_f, corr,
+                                                  1)
+    t = _timings(lambda: k2s.gn_step(icp, mask_f, *args, got, 1, *anchors),
+                 lambda: k2s.trip_ref(icp, mask_f, *args, want, 1,
+                                      *anchors),
+                 bound=k2s_bound(m), plain_n=20)
+    t["_wrapper"] = (lambda: k2s.gn_step(icp, mask_f, *args, got, 1,
+                                         *anchors), 1)
+    print(f"[K2S gn_step {label}] {card()} | M={m} | largest gaps to the "
+          f"plain version T {worst['T']:.3e} (limit {K2S_T_TOL:.0e}), rmse "
+          f"{worst['rmse']:.3e} relative (limit {K2S_RMSE_RTOL:.0e}); H, g "
+          f"bit-equal to K2's; bit-reproducible | {'; '.join(parts)} | "
+          f"{_fmt(t)} (plain: the torch step around K2, a trip)")
+    return {"name": "gn_step" if label == "scan-to-map" else "gn_step[rgbd]",
+            "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/gn_step.cu",
+            "replaces": "src/tpu_icp_slam/icp/loop.py:150",
+            "max_abs_err": worst["T"], **t}
+
+
+def _degen_k2(pts, msk, gt, rgbd_log):
+    """The configurations that keep K2 (degen_eps > 0, the eager loop):
+    phase 4's first 5 frames and phase 16's first 5 RGB-D frames with
+    degen_eps = 1e-6; K2 = ICP iterations, K2S = 0. Returns the K2
+    launches and frames of each."""
+    from tpu_icp_slam_torch.slam.rgbd import RGBDOdometry
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    out = {}
+    cfg = slice_config(degen_eps=1e-6)
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    P, M = _on_card(pts[:6], msk[:6])
+    state0 = pipe.init_state(P[0], M[0])
+    _zero_counts()
+    _, infos = pipe.run_fused(state0, P[1:], M[1:])
+    c, iters = _counts(), int(infos["iters"].sum())
+    poses = np.concatenate(
+        [np.eye(4)[None], infos["pose"].cpu().numpy().astype(np.float64)])
+    ate = _ate(poses, gt)
+    print(f"[K2S degen_eps] scan-to-map, degen_eps 1e-6, 5 frames: ICP "
+          f"iterations {iters}, ATE {ate:.5f} m | launches {c}")
+    assert c["K2"] == iters > 0 and c["K2S"] == 0, (c, iters)
+    assert ate < 0.15, ate
+    out["scan-to-map"] = c["K2"], 5
+    depths, _, K = rgbd_log
+    rc = _rgbd_cfg()
+    rc = dataclasses.replace(rc, icp=dataclasses.replace(rc.icp,
+                                                         degen_eps=1e-6))
+    odo = RGBDOdometry(rc, K, device="cuda")
+    d = torch.as_tensor(depths[:6], dtype=torch.float32, device="cuda")
+    _zero_counts()
+    _, infos = odo.run_fused(odo.init_state(d[0]), d[1:])
+    c, iters = _counts(), int(infos["iters"].sum())
+    print(f"[K2S degen_eps] RGB-D, degen_eps 1e-6, 5 frames: ICP iterations "
+          f"{iters} | launches {c}")
+    assert c["K2"] == iters > 0 and c["K2S"] == 0, (c, iters)
+    out["rgbd"] = c["K2"], 5
+    return out
+
+
+def phase_k2s(pts, msk, gt, rgbd_log):
+    """Phase 23: K2S against its plain version on phase 4's and phase 16's
+    trip inputs; the configurations that keep K2. Returns K2S's two rows
+    and the K2 launches of _degen_k2."""
+    from tpu_icp_slam_torch import from_json
+    from tpu_icp_slam_torch.core.pointcloud import PointCloud
+    from tpu_icp_slam_torch.icp import loop
+
+    (src, smask, loc, nrm, lmsk), _ = _first_align_problem(pts, msk)
+    with open(os.path.join(ROOT, "configs", "kitti_full_res.json")) as fh:
+        kitti = from_json(fh.read()).icp
+    rows = []
+    for label, base in (("scan-to-map", slice_config().icp),
+                        ("scan-to-map, kitti_full_res.json", kitti)):
+        corr = loop._nn_correspondence(
+            base, PointCloud(points=loc, mask=lmsk, normals=nrm))
+        row = _k2s_row(label, base, src, smask.float(), corr, src.shape[0])
+        if label == "scan-to-map":
+            rows.append(row)
+    p, mask, corr, _, lookup = rgbd_problem()
+    rows.append(_k2s_row("rgbd", _rgbd_cfg().icp, p, mask.float(), corr,
+                         p.shape[0]))
+    rows.append(_pj_row(p, *lookup))
+    return rows, _degen_k2(pts, msk, gt, rgbd_log)
+
+
+def pj_bound(m):
+    """PJ's least time: its bytes (cur and the gathered q, n and valid
+    flag in, 37 bytes a row; q, n, gate and d2 out, 32) over the device
+    memory's rate, ~30 FP32 operations a row. It bounds a call that reads
+    its inputs from device memory, so PJ is timed with the L2 emptied
+    before each call (_cold_ms); back to back, or on the main path, the
+    maps stay in the 50 MB L2 and a call may take less."""
+    return _bound(30.0 * m, 69.0 * m)
+
+
+def _pj_row(p, K, v0, n0, ok0, max_corr_dist):
+    """PJ against its plain version (icp/projective._lookup_ref) at phase
+    16's shape, at identity and with the source moved 2 cm and 0.5 degrees
+    (other pixels), with and without a normal gate: q and n bit-equal, d2
+    within 2 ulps, gate equal but where d2 lies within 2 ulps of the gate's
+    distance; bit-reproducible; its timings."""
+    from tpu_icp_slam_torch.icp import projective
+    from tpu_icp_slam_torch.kernels import projective_cuda
+
+    fx, fy = (torch.full((), v, device="cuda") for v in (K.fx, K.fy))
+    max_d2 = max_corr_dist * max_corr_dist
+    c, s_ = math.cos(0.0087), math.sin(0.0087)
+    moved = (p @ torch.tensor([[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]],
+                              device="cuda").T
+             + torch.tensor([0.02, -0.01, 0.01], device="cuda")).contiguous()
+    nrm = torch.nn.functional.normalize(p - p.mean(0), dim=-1).contiguous()
+    err, n_gate = 0.0, 0
+    for cur in (p, moved):
+        for src_normals, cos in ((None, -1.0), (nrm, 0.0)):
+            args = (v0, n0, ok0, torch.stack([fx, fy]), K.cx, K.cy, max_d2,
+                    src_normals, cos)
+            got = projective_cuda.projective_lookup(cur, *args)
+            again = projective_cuda.projective_lookup(cur, *args)
+            want = projective._lookup_ref(K, v0, n0, ok0, fx, fy, max_d2,
+                                          cos, src_normals, cur)
+            assert all(bits_equal(a, b) for a, b in zip(got, again)), \
+                "PJ is not bit-reproducible"
+            assert bits_equal(got[0], want[0]) and bits_equal(got[1],
+                                                              want[1]), \
+                "PJ's q or n differ from the plain version's"
+            ulp = torch.abs(torch.nextafter(want[3], torch.full_like(
+                want[3], math.inf)) - want[3])
+            gap = torch.abs(got[3] - want[3])
+            assert bool(torch.all(gap <= 2 * ulp)), float(gap.max())
+            near = torch.abs(want[3] - max_d2) <= 2 * ulp
+            if src_normals is not None:
+                near = near | (torch.abs(torch.sum(src_normals * want[1], -1)
+                                         - cos) <= 1e-6)
+            differ = got[2] != want[2]
+            assert not bool(torch.any(differ & ~near)), \
+                int((differ & ~near).sum())
+            err = max(err, float(gap.max()))
+            n_gate += int(want[2].sum())
+    args = (v0, n0, ok0, torch.stack([fx, fy]), K.cx, K.cy, max_d2, None,
+            -1.0)
+
+    def run():
+        return projective_cuda.projective_lookup(moved, *args)
+
+    def plain():
+        return projective._lookup_ref(K, v0, n0, ok0, fx, fy, max_d2, -1.0,
+                                      None, moved)
+
+    # the bound is device memory's, so the device, kernel and plain times
+    # are taken with the L2 emptied before each call; call_ms is one call
+    # alone, as in every row, and ms_l2_warm the back-to-back time
+    flush = _l2_flush()
+    bound = pj_bound(p.shape[0])
+    t = {"ms": _cold_ms(run), "call_ms": _call_ms(run),
+         "plain_ms": _cold_ms(plain, strict=False), "bound_ms": bound[0],
+         "bound_by": bound[1], "library_ms": None,
+         "ms_l2_warm": _device_ms(run),
+         "_profile": (lambda: (flush(), run()), 20)}
+    print(f"[PJ projective] {card()} | M={p.shape[0]} (640x480) at identity "
+          f"and moved, with and without a normal gate ({n_gate} gated rows "
+          f"over the four): q, n bit-equal to the plain version, max |d2 - "
+          f"plain| {err:.3e}, the gate equal but at the gate's edge | "
+          f"{_fmt(t)}, each with the L2 emptied before a call; back to back "
+          f"(the maps in L2) {t['ms_l2_warm']:.4f} ms a call (plain: the "
+          f"torch lookup, ~30 launches)")
+    return {"name": "projective", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/projective.cu",
+            "replaces": "src/tpu_icp_slam/icp/projective.py:60",
+            "max_abs_err": err, **t}
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -3046,10 +3480,10 @@ def main() -> int:
                           SCAN_POINTS)
     k1_row, src, dst = phase_k1(pts, msk)
     k2_row = phase_k2(src, msk[1])
-    k1, k2, n_frames, slice_fps = phase_slice(pts, msk, gt)
+    k1, k2s, n_frames, slice_fps = phase_slice(pts, msk, gt)
     phase_cpu_agreement()
     _count(k1_row, k1, n_frames)
-    _count(k2_row, k2, n_frames)
+    slice_k2s = k2s, n_frames
     probe_row = phase_probe()
     k3_row = phase_k3(pts, msk)
     k5_rows = phase_k5(pts, msk)
@@ -3073,7 +3507,7 @@ def main() -> int:
     print(f"[config 2] phase 15 in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     k2_rgbd_row, log = phase_k2_rgbd()
-    _count(k2_rgbd_row, *phase_config3(log))
+    rgbd_k2s, rgbd_pj = phase_config3(log)
     phase_mapping_options(pts, msk, gt, slice_fps)
     print(f"[config 3] phase 16 in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -3100,8 +3534,17 @@ def main() -> int:
     t0 = time.perf_counter()
     odometry = phase_odometry_graphs(log)
     print(f"[odometry graphs] phase 22 in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    (k2s_row, k2s_rgbd_row, pj_row), degen = phase_k2s(pts, msk, gt, log)
+    _count(k2s_row, *slice_k2s)
+    _count(k2s_rgbd_row, *rgbd_k2s)
+    _count(pj_row, *rgbd_pj)
+    _count(k2_row, *degen["scan-to-map"])
+    _count(k2_rgbd_row, *degen["rgbd"])
+    print(f"[K2S] phase 23 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
-            k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows, rf_row]
+            k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows, rf_row,
+            k2s_row, k2s_rgbd_row, pj_row]
     phase_profile(rows)
     phase_launch_calls(pts, msk, full, odometry)
     for row in rows:

@@ -12,7 +12,9 @@
 //
 // Design:
 //  - Each thread accumulates the 27 unique sums (21 of H's upper triangle,
-//    6 of g) over a grid-stride range of rows, in registers.
+//    6 of g) over a grid-stride range of rows, in registers. The terms and
+//    the grid reduction live in gn_rows.cuh, shared with K2S (gn_step.cu),
+//    whose H and g are this kernel's bit for bit.
 //  - Warp shuffles reduce them, then the block's warps are summed in
 //    shared memory in warp order; each block writes one (27,) partial.
 //  - One launch: each block fences its partial and takes a ticket; the
@@ -40,11 +42,12 @@
 
 #include <cuda_runtime.h>
 
+#include "gn_rows.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 27;
+constexpr int kThreads = gn_rows::kThreads;
+constexpr int kSums = gn_rows::kTerms;
 
 __global__ void __launch_bounds__(kThreads)
 gn_accum_kernel(const float* __restrict__ p, const float* __restrict__ q,
@@ -68,76 +71,12 @@ gn_accum_kernel(const float* __restrict__ p, const float* __restrict__ q,
   for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
 
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < m;
-       i += gridDim.x * kThreads) {
-    const float px = p[3 * i], py = p[3 * i + 1], pz = p[3 * i + 2];
-    const float qx = q[3 * i], qy = q[3 * i + 1], qz = q[3 * i + 2];
-    const float nx = nrm[3 * i], ny = nrm[3 * i + 1], nz = nrm[3 * i + 2];
-    const float wi = w[i];
-    float J[6];
-    J[0] = nx;
-    J[1] = ny;
-    J[2] = nz;
-    J[3] = py * nz - pz * ny;
-    J[4] = pz * nx - px * nz;
-    J[5] = px * ny - py * nx;
-    const float r = (px - qx) * nx + (py - qy) * ny + (pz - qz) * nz;
-    int k = 0;
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      const float wa = wi * J[a];
-#pragma unroll
-      for (int b = a; b < 6; ++b) acc[k++] += wa * J[b];
-    }
-    const float wr = wi * r;
-#pragma unroll
-    for (int a = 0; a < 6; ++a) acc[21 + a] += wr * J[a];
-  }
-
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[k] += __shfl_down_sync(0xffffffffu, acc[k], off);
-  }
-  __shared__ float warp_sums[kWarps][kSums];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < kSums; ++k) warp_sums[warp][k] = acc[k];
-  }
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    float s = 0.f;
-#pragma unroll
-    for (int v = 0; v < kWarps; ++v) s += warp_sums[v][threadIdx.x];
-    partial[blockIdx.x * kSums + threadIdx.x] = s;
-    __threadfence();  // the partial is visible before the ticket is taken
-  }
-  __syncthreads();
-  __shared__ bool last;
-  if (threadIdx.x == 0)
-    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
+       i += gridDim.x * kThreads)
+    gn_rows::add_row(p, q, nrm, i, w[i], acc);
 
   __shared__ float sums[kSums];
-  const int t = threadIdx.x;
-  if (t < kSums) {
-    float s = 0.f;
-    for (unsigned b = 0; b < gridDim.x; ++b)
-      s += __ldcg(partial + b * kSums + t);
-    sums[t] = s;
-  }
-  __syncthreads();
-  if (t < 36) {
-    const int a = t / 6, b = t % 6;
-    const int lo = min(a, b), hi = max(a, b);
-    // row `lo` of the upper triangle starts at lo*6 - lo*(lo-1)/2
-    const int k = lo * 6 - (lo * (lo - 1)) / 2 + (hi - lo);
-    H[t] = sums[k];
-  }
-  if (t < 6) g[t] = sums[21 + t];
+  if (!gn_rows::grid_sum<kSums>(acc, partial, ticket, sums)) return;
+  gn_rows::write_hg(sums, H, g);
 }
 
 }  // namespace

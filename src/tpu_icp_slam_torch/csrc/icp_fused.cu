@@ -71,6 +71,7 @@
 #include "nn_exact.cuh"
 #include "packed_d2.cuh"
 #include "packed_mma.cuh"
+#include "se3_scalar.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -93,21 +94,15 @@ constexpr int kChunks = kThreads / kStride;
 
 // ---- scalar SE(3) helpers (icp_fused_pallas.py:143-285) -----------------
 
+using se3s::chol6_solve;
+using se3s::hat2;
+
 __device__ float acos_poly(float x) {
   const float t = fabsf(x);
   const float p = sqrtf(fmaxf(1.f - t, 0.f)) *
                   (1.5707288f +
                    t * (-0.2121144f + t * (0.0742610f + t * (-0.0187293f))));
   return x >= 0.f ? p : 3.14159265358979f - p;
-}
-
-__device__ void hat2(const float w[3], float W[3][3], float W2[3][3]) {
-  W[0][0] = 0.f;   W[0][1] = -w[2]; W[0][2] = w[1];
-  W[1][0] = w[2];  W[1][1] = 0.f;   W[1][2] = -w[0];
-  W[2][0] = -w[1]; W[2][1] = w[0];  W[2][2] = 0.f;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      W2[i][j] = W[i][0] * W[0][j] + W[i][1] * W[1][j] + W[i][2] * W[2][j];
 }
 
 // se3.exp: xi = [rho, phi] -> (R, t), with the small-angle Taylor branches.
@@ -181,35 +176,6 @@ __device__ void orig_correction(const float* T, const float* T0,
   for (int i = 0; i < 3; ++i)
     t_orig[i] = tx[i] + c[i] -
                 (Rx[i][0] * c[0] + Rx[i][1] * c[1] + Rx[i][2] * c[2]);
-}
-
-// Unrolled 6x6 Cholesky solve of h·xi = -g; a non-positive pivot gives NaN,
-// which the caller's finite check turns into a zero step.
-__device__ void chol6_solve(const float h[6][6], const float g[6],
-                            float xi[6]) {
-  float L[6][6] = {};
-  for (int j = 0; j < 6; ++j) {
-    float s = h[j][j];
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    L[j][j] = sqrtf(s);
-    const float inv = 1.f / L[j][j];
-    for (int i = j + 1; i < 6; ++i) {
-      float v = h[i][j];
-      for (int k = 0; k < j; ++k) v -= L[i][k] * L[j][k];
-      L[i][j] = v * inv;
-    }
-  }
-  float y[6];
-  for (int i = 0; i < 6; ++i) {
-    float s = -g[i];
-    for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-  for (int i = 5; i >= 0; --i) {
-    float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s -= L[k][i] * xi[k];
-    xi[i] = s / L[i][i];
-  }
 }
 
 // One iteration's scalar step (icp_fused_pallas.py:517-636) from the 30

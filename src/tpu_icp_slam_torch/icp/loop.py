@@ -18,9 +18,18 @@ back; on CUDA every trip after the first is one replay of a CUDA graph
 (`_TripGraph`), and the condition read is the trip's one host sync.
 `StaticAlign` gives the unbatched loop the same form over static buffers,
 for the frame graphs (slam/scan_to_map.FrameGraphs, slam/rgbd.
-RGBDFrameGraphs, slam/pipeline.OdomFrameGraphs). The loops share one
-body; `icp.anderson` (AA(1) on twists) runs in each.
-The point-to-point step's rigid fit is RF on CUDA (no host read either).
+RGBDFrameGraphs, slam/pipeline.OdomFrameGraphs). `icp.anderson` (AA(1)
+on twists) runs in each loop. The point-to-point step's rigid fit is RF on
+CUDA (no host read either).
+
+The unbatched loops (the host loop, the unrolled form and StaticAlign's
+trips) run one in-place step, `_step`, on the carried state. For the 3D
+point-to-plane iteration (gn_backend "auto" or "pallas", degen_eps 0:
+`kernels.gn_step.routes`) it is the reference's compiled step: after the
+correspondence, one K2S launch on CUDA (`kernels.gn_step.gn_step`) does
+the rest of the iteration and writes the state. Every other
+configuration, and every one on the CPU, runs the plain version
+(`gn_step.trip_ref`), which align_batched's body runs too.
 """
 
 from __future__ import annotations
@@ -34,11 +43,15 @@ from typing import Callable, Optional
 import torch
 
 from tpu_icp_slam_torch.config import ICPConfig
-from tpu_icp_slam_torch.core import se2, se3
 from tpu_icp_slam_torch.core.pointcloud import PointCloud
-from tpu_icp_slam_torch.icp.point_to_plane import gauss_newton_step
-from tpu_icp_slam_torch.icp.point_to_point import umeyama_masked
 from tpu_icp_slam_torch.kernels import graphs, voxel_nn
+from tpu_icp_slam_torch.kernels.gn_step import (
+    freeze,
+    gn_step,
+    gn_step_ref,
+    routes,
+    trip_ref,
+)
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
 
 
@@ -50,13 +63,6 @@ class ICPResult:
     # the unrolled loop and from align_batched, one per element)
     n_inliers: torch.Tensor  # gated correspondences in the final iteration
     converged: torch.Tensor  # bool: tol reached before max_iters
-
-
-def _lie(d: int):
-    """The group module of d-dimensional rigid motions."""
-    if d not in (2, 3):
-        raise ValueError(f"unsupported point dimension {d}")
-    return se3 if d == 3 else se2
 
 
 @functools.cache
@@ -123,41 +129,6 @@ def _nn_correspondence(cfg: ICPConfig, dst: PointCloud,
     return corr
 
 
-def _huber(cfg: ICPConfig, w: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
-    if cfg.huber_delta > 0.0:
-        dist = torch.sqrt(torch.clamp(d2, min=1e-20))
-        w = w * torch.clamp(cfg.huber_delta / dist, max=1.0)
-    return w
-
-
-def _project_total(cfg: ICPConfig, T_new: torch.Tensor, T0: torch.Tensor,
-                   T0_inv: torch.Tensor) -> torch.Tensor:
-    """Trust region: project the total correction log(T_new T0⁻¹) back onto
-    the ball around T0 (batched over leading dims)."""
-    d = T_new.shape[-1] - 1
-    lie = _lie(d)
-    xi_tot = lie.log(T_new @ T0_inv)
-    s = torch.ones(xi_tot.shape[:-1], dtype=T_new.dtype, device=T_new.device)
-    if cfg.max_total_trans > 0.0:
-        tn = torch.linalg.vector_norm(xi_tot[..., :d], dim=-1)
-        s = torch.minimum(s, cfg.max_total_trans / torch.clamp(tn, min=1e-12))
-    if cfg.max_total_rot > 0.0:
-        rn = torch.linalg.vector_norm(xi_tot[..., d:], dim=-1)
-        s = torch.minimum(s, cfg.max_total_rot / torch.clamp(rn, min=1e-12))
-    return torch.where(s[..., None, None] < 1.0,
-                       lie.exp(s[..., None] * xi_tot) @ T0, T_new)
-
-
-def _step_converged(cfg: ICPConfig, prev_rmse, rmse, dT, eye_d):
-    d = dT.shape[-1] - 1
-    converged = torch.abs(prev_rmse - rmse) < cfg.tol
-    if cfg.tol_update > 0.0:
-        step_mag = torch.linalg.vector_norm(dT[..., :d, d], dim=-1) + \
-            torch.linalg.matrix_norm(dT[..., :d, :d] - eye_d)
-        converged = converged | (step_mag < cfg.tol_update)
-    return converged
-
-
 def align(src: PointCloud, dst: PointCloud,
           init_T: Optional[torch.Tensor] = None,
           cfg: ICPConfig = ICPConfig()) -> ICPResult:
@@ -166,74 +137,60 @@ def align(src: PointCloud, dst: PointCloud,
                                      init_T, cfg)
 
 
+def _moved(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """points (M, D) moved by T (..., D+1, D+1) -> (..., M, D)."""
+    d = points.shape[-1]
+    return points @ T[..., :d, :d].transpose(-1, -2) + T[..., None, :d, d]
+
+
 def _body(cfg: ICPConfig, src: PointCloud, corr_fn: Callable, T0, T0_inv,
           prior_scale):
     """One ICP iteration as a function of the carried state, batched over
     the leading dims of T: (T, prev_rmse, it, f_prev, g_prev) -> (T_new,
-    rmse, n_inliers, converged, f, g). `it` (an int, or a tensor of the
-    batch's shape) only arms Anderson's first-iteration safeguard."""
-    d = src.dim
-    lie = _lie(d)
-    dev, dtype = src.points.device, src.points.dtype
-    eye = torch.eye(d + 1, dtype=dtype, device=dev)
+    rmse, n_inliers, converged, f, g), the correspondence at the moved
+    source and then `gn_step_ref`. `it` (an int, or a tensor of the batch's
+    shape) only arms Anderson's first-iteration safeguard."""
+    dtype = src.points.dtype
     src_mask_f = src.mask.to(dtype)
-    min_inl = max(cfg.min_inliers, d + 1)
+    eye = torch.eye(src.dim + 1, dtype=dtype, device=src.points.device)
 
     def body(T, prev_rmse, it, f_prev, g_prev):
-        cur = src.points @ T[..., :d, :d].transpose(-1, -2) \
-            + T[..., None, :d, d]
+        cur = _moved(src.points, T)
         q, n, gate, d2 = corr_fn(cur)
-        w = _huber(cfg, gate * src_mask_f, d2)
-        n_inl = torch.sum(w > 0, dim=-1, dtype=torch.int32)
-        if cfg.method == "point_to_plane":
-            if n is None:
-                raise ValueError("point_to_plane requires target normals")
-            prior_w = xi_prior = None
-            if prior_scale is not None:
-                # motion prior anchored at T0, λ relative to the frame's own
-                # point evidence (see the reference's loop.py)
-                prior_w = torch.clamp(torch.sum(w), min=1e-6) * prior_scale
-                xi_prior = lie.log(T @ T0_inv)
-            dT = gauss_newton_step(
-                cur, q, n, w, damping=cfg.damping,
-                max_step_trans=cfg.max_step_trans,
-                max_step_rot=cfg.max_step_rot, backend=cfg.gn_backend,
-                degen_eps=cfg.degen_eps, prior_w=prior_w, xi_prior=xi_prior)
-        else:
-            dT = umeyama_masked(cur, q, w)
-        if cfg.step_scale != 1.0:
-            dT = lie.exp(cfg.step_scale * lie.log(dT))
-        # too few inliers: hold the pose (the motion-model init survives)
-        dT = torch.where((n_inl >= min_inl)[..., None, None], dT, eye)
-        T_new = dT @ T
-        if cfg.anderson:
-            # AA(1) on the fixed-point map T -> dT T in twist coordinates:
-            # x = log T, g = log(dT T), f = g - x, x+ = g - γ (g - g_prev)
-            # with γ = fᵀ(f - f_prev) / |f - f_prev|² clipped to [-1, 1];
-            # the plain step on the first iteration or when |f| grew
-            x = lie.log(T)
-            g = lie.log(T_new)
-            f = g - x
-            df = f - f_prev
-            denom = torch.sum(df * df, dim=-1)
-            gamma = torch.where(
-                denom > 1e-20,
-                torch.sum(f * df, dim=-1) / torch.clamp(denom, min=1e-20),
-                torch.zeros_like(denom))
-            gamma = torch.clamp(gamma, -1.0, 1.0)
-            x_aa = g - gamma[..., None] * (g - g_prev)
-            use_aa = (torch.linalg.vector_norm(f, dim=-1)
-                      <= torch.linalg.vector_norm(f_prev, dim=-1)) & (it > 0)
-            T_new = torch.where(use_aa[..., None, None], lie.exp(x_aa), T_new)
-            f_prev, g_prev = f, g
-        if cfg.max_total_trans > 0.0 or cfg.max_total_rot > 0.0:
-            T_new = _project_total(cfg, T_new, T0, T0_inv)
-        wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)
-        rmse = torch.sqrt(torch.sum(w * d2, dim=-1) / wsum)
-        converged = _step_converged(cfg, prev_rmse, rmse, dT, eye[:d, :d])
-        return T_new, rmse, n_inl, converged, f_prev, g_prev
+        return gn_step_ref(cfg, src_mask_f, cur, q, n, gate, d2, T,
+                           prev_rmse, it, f_prev, g_prev, T0, T0_inv,
+                           prior_scale, eye)
 
     return body
+
+
+def _step(cfg: ICPConfig, src: PointCloud, corr_fn: Callable, T0, T0_inv,
+          prior_scale) -> Callable:
+    """The unbatched iteration in place: step(state, it, unrolled=False)
+    runs one trip of _body on _init_state's tuple, frozen as _batched_trip
+    freezes it (or, unrolled, as _drive's unrolled form does), and counts
+    the iteration. Where K2S computes the iteration (`gn_step.routes`: 3D
+    point-to-plane through K2's route, degen_eps 0) that is one launch
+    after the correspondence on CUDA; everywhere else, and on the CPU, the
+    plain `trip_ref`."""
+    dtype = src.points.dtype
+    src_mask_f = src.mask.to(dtype)
+    k2s = routes(cfg, src.dim)
+    eye = torch.eye(src.dim + 1, dtype=dtype, device=src.points.device)
+
+    def step(state: tuple, it: Optional[int], unrolled: bool = False):
+        cur = _moved(src.points, state[0])
+        q, n, gate, d2 = corr_fn(cur)
+        if not k2s:
+            trip_ref(cfg, src_mask_f, cur, q, n, gate, d2, state, it, T0,
+                     T0_inv, prior_scale, unrolled=unrolled, eye=eye)
+            return
+        if n is None:
+            raise ValueError("point_to_plane requires target normals")
+        gn_step(cfg, src_mask_f, cur, q, n, gate, d2, state, it, T0, T0_inv,
+                prior_scale, unrolled=unrolled)
+
+    return step
 
 
 def _init_state(T0: torch.Tensor) -> tuple:
@@ -252,16 +209,6 @@ def _init_state(T0: torch.Tensor) -> tuple:
             torch.zeros(bs, dtype=torch.int32, device=dev))
 
 
-def _freeze(stop: torch.Tensor, new: tuple, old: tuple) -> tuple:
-    """new, but old where `stop` holds (stop batched over the leading
-    dims)."""
-    out = []
-    for n, o in zip(new, old):
-        s = stop.reshape(stop.shape + (1,) * (o.dim() - stop.dim()))
-        out.append(torch.where(s, o, n))
-    return tuple(out)
-
-
 def _batched_trip(body: Callable) -> Callable:
     """One iteration of a batch as trip(state, it) -> state over
     _init_state's tuple: the elements that have converged keep their state,
@@ -272,7 +219,7 @@ def _batched_trip(body: Callable) -> Callable:
     def trip(state: tuple, it: int) -> tuple:
         T, prev_rmse, _, converged, f_prev, g_prev, iters = state
         new = body(T, prev_rmse, it, f_prev, g_prev)
-        return (*_freeze(converged, new, state[:6]),
+        return (*freeze(converged, new, state[:6]),
                 iters + (~converged).to(torch.int32))
 
     return trip
@@ -289,36 +236,45 @@ def _run_trips(cfg: ICPConfig, trip: Callable, state: tuple) -> tuple:
     return state
 
 
-def _drive(cfg: ICPConfig, body: Callable, T0: torch.Tensor,
-           batched: bool) -> ICPResult:
-    """Run `body` from T0 under the reference's stopping rule: the host
-    loop (condition read back before each body) or, with unroll_iters > 0,
-    the fixed-trip frozen form. A batched loop runs until every element has
-    stopped and freezes each stopped element."""
+def _drive(cfg: ICPConfig, step: Callable, T0: torch.Tensor) -> ICPResult:
+    """Run an unbatched `step` (_step's) in place from T0 under the
+    reference's stopping rule: the host loop (condition read back before
+    each step) or, with unroll_iters > 0, the fixed-trip frozen form."""
+    state = tuple(t.clone() for t in _init_state(T0))
+    T, prev_rmse, n_inl, converged, _, _, iters = state
+    if cfg.unroll_iters > 0:
+        for _ in range(cfg.unroll_iters):
+            step(state, None, unrolled=True)
+        return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
+                         converged=converged)
+    it = 0
+    # cond before body, as lax.while_loop: `converged` is read on the host
+    while it < cfg.max_iters and not (it > 0 and bool(converged)):
+        step(state, it)
+        it += 1
+    return ICPResult(T=T, rmse=prev_rmse, iters=it, n_inliers=n_inl,
+                     converged=converged)
+
+
+def _drive_batched(cfg: ICPConfig, body: Callable,
+                   T0: torch.Tensor) -> ICPResult:
+    """Run a batched `body` from T0 under the reference's stopping rule,
+    until every element has stopped, each stopped element frozen: the host
+    loop or, with unroll_iters > 0, the fixed-trip frozen form."""
     state = _init_state(T0)
     if cfg.unroll_iters > 0:
         T, prev_rmse, n_inl, converged, f_prev, g_prev, iters = state
         for _ in range(cfg.unroll_iters):
             stop = converged | (iters >= cfg.max_iters)
-            T, prev_rmse, n_inl, converged, f_prev, g_prev = _freeze(
+            T, prev_rmse, n_inl, converged, f_prev, g_prev = freeze(
                 stop, body(T, prev_rmse, iters, f_prev, g_prev),
                 (T, prev_rmse, n_inl, converged, f_prev, g_prev))
             iters = iters + (~stop).to(torch.int32)
         return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
                          converged=converged)
-    if batched:
-        T, prev_rmse, n_inl, converged, _, _, iters = _run_trips(
-            cfg, _batched_trip(body), state)
-        return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
-                         converged=converged)
-    T, prev_rmse, n_inl, converged, f_prev, g_prev, _ = state
-    it = 0
-    # cond before body, as lax.while_loop: `converged` is read on the host
-    while it < cfg.max_iters and not (it > 0 and bool(converged)):
-        T, prev_rmse, n_inl, converged, f_prev, g_prev = body(
-            T, prev_rmse, it, f_prev, g_prev)
-        it += 1
-    return ICPResult(T=T, rmse=prev_rmse, iters=it, n_inliers=n_inl,
+    T, prev_rmse, n_inl, converged, _, _, iters = _run_trips(
+        cfg, _batched_trip(body), state)
+    return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
                      converged=converged)
 
 
@@ -328,6 +284,9 @@ def _anchor(cfg: ICPConfig, T0: torch.Tensor, prior: bool):
     trust_region = cfg.max_total_trans > 0.0 or cfg.max_total_rot > 0.0
     T0_inv = (torch.linalg.inv_ex(T0)[0] if (prior or trust_region)
               else None)
+    if T0_inv is not None and T0_inv.is_cuda:
+        # K2S reads T0⁻¹ row-major; the solver returns it column-major
+        T0_inv = T0_inv.contiguous()
     prior_scale = None
     if prior:
         # filled on the device: a tensor from a host list would sync the
@@ -361,8 +320,7 @@ def align_with_correspondence(src: PointCloud, corr_fn: Callable,
     use_prior = cfg.method == "point_to_plane" and (
         cfg.prior_trans_weight > 0.0 or cfg.prior_rot_weight > 0.0)
     T0_inv, prior_scale = _anchor(cfg, T0, use_prior)
-    body = _body(cfg, src, corr_fn, T0, T0_inv, prior_scale)
-    return _drive(cfg, body, T0, batched=False)
+    return _drive(cfg, _step(cfg, src, corr_fn, T0, T0_inv, prior_scale), T0)
 
 
 def eager_loop(cfg: ICPConfig) -> bool:
@@ -378,7 +336,7 @@ def eager_loop(cfg: ICPConfig) -> bool:
 class StaticAlign:
     """align_with_correspondence as align_batched runs it, over static
     buffers: the source `src` (points, and its mask as float weights, which
-    _body reads in place) and whatever `corr_fn` closes over are the
+    _step reads in place) and whatever `corr_fn` closes over are the
     caller's tensors; T0 (I until `set_T0` writes it), T0⁻¹ (where _anchor
     makes one: a prior or a trust region) and the prior's scale are
     buffers made here, and `state` is _init_state's tuple, carried in
@@ -388,9 +346,9 @@ class StaticAlign:
     arm); `later()` runs one trip with it > 0. Neither reads the host:
     they are what a CUDA graph captures. `go_on(trips)` is the reference's
     while_loop condition, read once a trip, as align_batched reads it; a
-    trip of a B = 1 state that has not converged is _drive's body, so the
-    result equals the eager loop's bit for bit. `unroll_iters > 0` runs its
-    fixed trips inside `first()`. A caller that runs the ICP otherwise (K5,
+    trip is the eager loop's `_step` in place, so the result equals the
+    eager loop's bit for bit. `unroll_iters > 0` runs its fixed trips
+    inside `first()`. A caller that runs the ICP otherwise (K5,
     or the eager loop for `eager_loop`'s configurations) passes corr_fn
     None and keeps its result in `state` through `set_result`."""
 
@@ -403,9 +361,8 @@ class StaticAlign:
         use_prior = cfg.method == "point_to_plane" and (
             cfg.prior_trans_weight > 0.0 or cfg.prior_rot_weight > 0.0)
         self.T0_inv, self.prior_scale = _anchor(cfg, self.T0, use_prior)
-        self.body = _body(cfg, src, corr_fn, self.T0, self.T0_inv,
-                          self.prior_scale)
-        self.trip = _batched_trip(self.body)
+        self.step = (_step(cfg, src, corr_fn, self.T0, self.T0_inv,
+                           self.prior_scale) if corr_fn is not None else None)
         self.state = tuple(t.clone() for t in _init_state(self.T0))
 
     def set_T0(self, T0: torch.Tensor) -> None:
@@ -415,21 +372,17 @@ class StaticAlign:
         if self.T0_inv is not None:
             self.T0_inv.copy_(torch.linalg.inv_ex(self.T0)[0])
 
-    def commit(self, new: tuple) -> None:
-        for s, v in zip(self.state, new):
-            s.copy_(v)
-
     def first(self) -> None:
         if self.cfg.unroll_iters > 0:
-            res = _drive(self.cfg, self.body, self.T0, batched=False)
-            self.set_result(res)
+            self.set_result(_drive(self.cfg, self.step, self.T0))
             return
-        self.commit(_init_state(self.T0))
+        for buf, v in zip(self.state, _init_state(self.T0)):
+            buf.copy_(v)
         if self.cfg.max_iters >= 1:
-            self.commit(self.trip(self.state, 0))
+            self.step(self.state, 0)
 
     def later(self) -> None:
-        self.commit(self.trip(self.state, 1))
+        self.step(self.state, 1)
 
     def go_on(self, trips: int) -> bool:
         return trips < self.cfg.max_iters and not bool(self.state[3])
@@ -575,7 +528,7 @@ def align_batched(src: PointCloud, dst_points: torch.Tensor,
     if (T0.device.type != "cuda" or cfg.nn_backend == "voxel"
             or cfg.unroll_iters > 0 or cfg.max_iters < 1):
         body = _batched_body(cfg, src, dst_points, dst_mask, T0, T0_inv)
-        return _drive(cfg, body, T0, batched=True)
+        return _drive_batched(cfg, body, T0)
     batch, (targets, n, d) = T0.shape[0], dst_points.shape
     graph = _trip_graph(cfg, batch, batch // targets, src.capacity, n, d,
                         T0.dtype, T0.device)

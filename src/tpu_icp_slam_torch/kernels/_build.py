@@ -149,6 +149,15 @@ def load() -> ctypes.CDLL:
             lib.coop_probe_f32.restype = i32
             lib.rigid_fit_f32.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr]
             lib.rigid_fit_f32.restype = i32
+            lib.gn_step_f32.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+                i32, ptr, ptr, ptr, ptr]
+            lib.gn_step_f32.restype = i32
+            f32 = ctypes.c_float
+            lib.projective_f32.argtypes = [
+                ptr, i32, ptr, ptr, ptr, ptr, f32, f32, i32, i32, f32, ptr,
+                f32, ptr, ptr, ptr, ptr, ptr]
+            lib.projective_f32.restype = i32
             _lib = lib
         return _lib
 

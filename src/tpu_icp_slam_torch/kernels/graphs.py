@@ -61,13 +61,16 @@ def launch_counters() -> list:
     that a captured trip or frame can launch."""
     from tpu_icp_slam_torch.icp.point_to_point import rigid_from_stats
     from tpu_icp_slam_torch.kernels.gn_cuda import gn_accum
+    from tpu_icp_slam_torch.kernels.gn_step import gn_step
     from tpu_icp_slam_torch.kernels.icp_fused import icp_fused
     from tpu_icp_slam_torch.kernels.nn_bf16 import nn_bf16
     from tpu_icp_slam_torch.kernels.nn_cuda import nn_bruteforce
     from tpu_icp_slam_torch.kernels.nn_rescore import nn_rescore
+    from tpu_icp_slam_torch.kernels.projective_cuda import projective_lookup
 
     return [(f, a) for f in (nn_bruteforce, nn_bf16, nn_rescore, gn_accum,
-                             icp_fused, rigid_from_stats)
+                             gn_step, icp_fused, rigid_from_stats,
+                             projective_lookup)
             for a in vars(f) if "launches" in a]
 
 

@@ -5,15 +5,20 @@ evenly spaced samples along the ray, which stop 1.5 cells short of the
 endpoint so that a beam never clears its own hit cell; then the grid is
 clipped to ±clip. The reference's two `.at[].add(mode="drop")` scatters
 become two accumulating `index_put_` into the flat grid, in its order (hits,
-then free samples, then the clip). Out-of-bounds entries carry a zero value
-in the reference; here they are routed to one spare cell past the grid and
-dropped, so no host sync filters them.
+then free samples, then the clip). The reference drops the entries that
+fall off the grid; here each goes to a spare cell of its own past the grid
+(entry i of a scatter to flat index h * w + i, in a buffer of h * w + B * K
+floats), and the spares are dropped, so no host sync filters them and no
+one cell piles them up. Masked beams inside the grid add their zero, as in
+the reference.
 
 Float sums into one cell run in the scatter's order. On CUDA,
-`index_put_(accumulate=True)` sorts the indices and sums each cell's run,
-so a grid is reproducible (measured on an H100), but its log-odds may
-differ from a CPU run by a few ulps. The grid never feeds back into a
-pose.
+`index_put_(accumulate=True)` sorts the indices (stably) and sums each
+cell's run, so a grid is reproducible (measured on an H100), but its
+log-odds may differ from a CPU run by a few ulps. Every spare index sorts
+after every grid cell, so where the spares go changes no grid cell's run,
+its place in the sort or its summing order. The grid never feeds back into
+a pose.
 """
 
 from __future__ import annotations
@@ -52,11 +57,13 @@ def world_to_cell(grid: OccupancyGrid2D, pts: torch.Tensor) -> torch.Tensor:
 
 
 def _flat_cells(cells: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(N, 2) (iy, ix) -> (N,) flat indices, h * w for a cell off the grid."""
+    """(N, 2) (iy, ix) -> (N,) flat indices, h * w + i for entry i if its
+    cell is off the grid; and the inside mask."""
     inside = ((cells[:, 0] >= 0) & (cells[:, 0] < h) & (cells[:, 1] >= 0)
               & (cells[:, 1] < w))
     flat = cells[:, 0].long() * w + cells[:, 1].long()
-    return torch.where(inside, flat, torch.full_like(flat, h * w)), inside
+    spare = h * w + torch.arange(flat.shape[0], device=flat.device)
+    return torch.where(inside, flat, spare), inside
 
 
 def update(grid: OccupancyGrid2D, pose: torch.Tensor, points: torch.Tensor,
@@ -69,9 +76,10 @@ def update(grid: OccupancyGrid2D, pose: torch.Tensor, points: torch.Tensor,
     sensor = pose[:2, 2]
     pts_w = points @ pose[:2, :2].T + sensor  # (B, 2)
     mf = mask.to(torch.float32)
-    # a spare cell past the grid takes what falls off it
+    # a spare cell past the grid for each entry that falls off it
     lo = torch.cat([grid.logodds.reshape(-1),
-                    torch.zeros(1, dtype=torch.float32,
+                    torch.zeros(points.shape[0] * max(ray_samples, 1),
+                                dtype=torch.float32,
                                 device=grid.logodds.device)])
 
     # hit cells: one scatter-add per beam

@@ -236,7 +236,7 @@ def _coverage_corr(ic, pre: _Pre, grid=None):
     def corr(cur_pts):
         q, n, gate, d2 = nn_corr(cur_pts)
         in_cover = torch.sum(cur_pts * cur_pts, dim=-1) <= r_gate * r_gate
-        return q, n, gate * in_cover.to(gate.dtype), d2
+        return q, n, gate * in_cover, d2  # the bool promotes: one launch
 
     return corr
 

@@ -20,6 +20,7 @@ from tpu_icp_slam_torch import SlamConfig
 from tpu_icp_slam_torch.kernels import (
     coop_probe,
     gn_cuda,
+    gn_step,
     icp_fused,
     nn_bf16,
     nn_cuda,
@@ -710,9 +711,10 @@ def test_fused_pipeline_on_cuda_matches_cpu(cuda_device):
 
 
 def test_pipeline_on_cuda_matches_cpu(cuda_device):
-    """The scan-to-map slice on the card (kernels K1/K2) against the same
-    port on the CPU (their plain versions); K1 and K2 run once per ICP
-    iteration."""
+    """The scan-to-map slice on the card (kernels K1/K2S) against the same
+    port on the CPU (their plain versions); K1 and K2S run once per ICP
+    iteration, K2 never (K2S sums H and g itself); gn_backend "xla" runs
+    neither K2 nor K2S."""
     from tpu_icp_slam_torch import synthetic
     from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
     from tpu_icp_slam_torch.slam.runner import pad_scans
@@ -733,26 +735,31 @@ def test_pipeline_on_cuda_matches_cpu(cuda_device):
     out = {}
     for dev in (cuda_device, torch.device("cpu")):
         pipe = ScanToMapPipeline(cfg, device=dev)
-        k0 = (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches)
+        k0 = (nn_cuda.nn_bruteforce.launches, gn_step.gn_step.launches,
+              gn_cuda.gn_accum.launches)
         _, infos = pipe.run_fused(pipe.init_state(pts[0], msk[0]), pts[1:],
                                   msk[1:])
         launches = (nn_cuda.nn_bruteforce.launches - k0[0],
-                    gn_cuda.gn_accum.launches - k0[1])
+                    gn_step.gn_step.launches - k0[1],
+                    gn_cuda.gn_accum.launches - k0[2])
         out[dev.type] = ({k: v.cpu().numpy() for k, v in infos.items()},
                          launches)
     (gpu, gpu_launches), (cpu, cpu_launches) = out["cuda"], out["cpu"]
     n_iters = int(gpu["iters"].sum())
-    assert gpu_launches == (n_iters, n_iters) and cpu_launches == (0, 0)
+    assert gpu_launches == (n_iters, n_iters, 0)
+    assert cpu_launches == (0, 0, 0)
     np.testing.assert_allclose(gpu["pose"], cpu["pose"], atol=5e-3)
     for k in ("is_keyframe", "map_inserted"):
         np.testing.assert_array_equal(gpu[k], cpu[k])
     cfg_xla = dataclasses.replace(
         cfg, icp=dataclasses.replace(cfg.icp, nn_backend="xla",
                                      gn_backend="xla"))
-    k0 = (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches)
+    k0 = (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches,
+          gn_step.gn_step.launches)
     pipe = ScanToMapPipeline(cfg_xla, device=cuda_device)
     pipe.run_fused(pipe.init_state(pts[0], msk[0]), pts[1:3], msk[1:3])
-    assert (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches) == k0
+    assert (nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches,
+            gn_step.gn_step.launches) == k0
 
 
 def _chip_smoke():
@@ -1358,7 +1365,7 @@ def test_projective_correspondence_on_cuda_matches_cpu(cuda_device):
                                          ((640, 480), 2)])
 def test_rgbd_odometry_on_cuda_matches_cpu(cuda_device, size, stride):
     """One RGBDOdometry frame (init, then frame 1) with configs/rgbd.json on
-    the card and the CPU: poses within 1e-5, the same iterations, one K2
+    the card and the CPU: poses within 1e-5, the same iterations, one K2S
     launch per iteration on the card."""
     from tpu_icp_slam_torch import from_json
     from tpu_icp_slam_torch.slam.rgbd import RGBDOdometry
@@ -1371,10 +1378,10 @@ def test_rgbd_odometry_on_cuda_matches_cpu(cuda_device, size, stride):
     out = {}
     for dev in ("cpu", cuda_device):
         odo = RGBDOdometry(cfg, K, device=dev)
-        gn_cuda.gn_accum.launches = 0
+        gn_step.gn_step.launches = 0
         _, info = odo.step(odo.init_state(depths[0]), depths[1])
         out[str(dev)] = (info["pose"].cpu(), int(info["iters"]),
-                         gn_cuda.gn_accum.launches)
+                         gn_step.gn_step.launches)
     (pc, ic, _), (pg, ig, launches) = out["cpu"], out["cuda"]
     assert ig == ic == launches > 0
     torch.testing.assert_close(pg, pc, rtol=0, atol=1e-5)
@@ -1993,7 +2000,7 @@ def test_frame_graphs_equal_eager_step_on_card(cuda_device, backend,
     pipe = s2m.ScanToMapPipeline(cfg, device=cuda_device)
     state0 = pipe.init_state(pts[0], msk[0])
     kernels = (nn_cuda.nn_bruteforce, gn_cuda.gn_accum, nn_bf16.nn_bf16,
-               nn_rescore.nn_rescore, icp_fused.icp_fused)
+               nn_rescore.nn_rescore, icp_fused.icp_fused, gn_step.gn_step)
     k0 = [k.launches for k in kernels]
     st_e, inf_e = _eager_step_frames(cfg, state0, pts[1:], msk[1:])
     eager_launches = [k.launches - b for k, b in zip(kernels, k0)]
@@ -2019,18 +2026,24 @@ def test_frame_graphs_equal_eager_step_on_card(cuda_device, backend,
 
 
 def test_frame_graphs_survive_k2_scratch_growth(cuda_device):
-    """K2's scratch is never freed: a frame graph captured over K2's
-    unbatched call keeps working after a batched call outgrows the
-    scratch and the freed sizes are allocated and scribbled over."""
+    """K2's scratch is never freed: a graph captured over K2's unbatched
+    call (and a frame graph, over K2S, whose scratch is its own) keeps
+    working after a batched call outgrows the scratch and the freed sizes
+    are allocated and scribbled over."""
+    from tpu_icp_slam_torch.kernels import graphs
     from tpu_icp_slam_torch.slam import scan_to_map as s2m
 
     cfg, pts, msk = _frame_graph_case(cuda_device, max_iters=17)
     p, q, n, w = (torch.as_tensor(x, device=cuda_device)
                   for x in _gn_case(4096, seed=3))
-    gn_cuda.gn_accum(p, q, n, w)  # the scratch exists, on this stream
+    H_want, g_want = (t.clone() for t in gn_cuda.gn_accum(p, q, n, w))
+    out = []
+    k2 = graphs.Graphed(lambda: out.append(gn_cuda.gn_accum(p, q, n, w)),
+                        cuda_device)
+    k2()  # runs and captures K2 over the scratch as it is
     pipe = s2m.ScanToMapPipeline(cfg, device=cuda_device)
     state0 = pipe.init_state(pts[0], msk[0])
-    _, want = pipe.run_fused(state0, pts[1:], msk[1:])  # captures K2
+    _, want = pipe.run_fused(state0, pts[1:], msk[1:])  # captures K2S
     # shapes only: a reference to the old buffers would keep them alive
     shapes = [(t.shape, t.dtype) for t in gn_cuda._device_scratch(p.device)]
     batch = shapes[1][0][0] + 1
@@ -2040,10 +2053,13 @@ def test_frame_graphs_survive_k2_scratch_growth(cuda_device):
     junk = [torch.full(shape, 7, dtype=dtype, device=cuda_device)
             for shape, dtype in shapes for _ in range(4)]
     _, got = pipe.run_fused(state0, pts[1:], msk[1:])  # replays
+    k2()  # replays K2 into the captured outputs
     _, eager = _eager_step_frames(cfg, state0, pts[1:], msk[1:])
     del junk
     _assert_frames_bit_equal(got, eager)
     _assert_frames_bit_equal(want, eager)
+    H, g = out[0]
+    assert torch.equal(H, H_want) and torch.equal(g, g_want)
 
 
 def _odom_graph_case(kind, device):
@@ -2092,7 +2108,7 @@ def test_odometry_graphs_equal_eager_step_on_card(cuda_device, kind):
     (the same graphs, a frame a call) gives the same frames."""
     pipe, state0, logs, step, kw, max_iters = _odom_graph_case(kind,
                                                                cuda_device)
-    kernels = (nn_cuda.nn_bruteforce, gn_cuda.gn_accum)
+    kernels = (nn_cuda.nn_bruteforce, gn_cuda.gn_accum, gn_step.gn_step)
     k0 = [k.launches for k in kernels]
     st_e, infos = state0, []
     for inputs in zip(*(x[1:] for x in logs)):
@@ -2124,3 +2140,185 @@ def test_odometry_graphs_equal_eager_step_on_card(cuda_device, kind):
     a = _odom_leaves(st_s)
     for name, v in _odom_leaves(st_e).items():
         assert torch.equal(a[name], v), ("step", name)
+
+
+# ---- K2S: the point-to-plane iteration after the correspondence -----------
+
+
+def _k2s_problem(m, seed, device):
+    """A fixed correspondence at M rows, the last eighth padded: targets on
+    three planes, the source the targets under a small motion with noise;
+    (cur source, mask as float, corr)."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-20.0, 20.0, (m, 3))
+    n = np.zeros((m, 3))
+    axis = np.arange(m) % 3
+    q[np.arange(m), axis] = rng.choice([-15.0, 15.0], m)
+    n[np.arange(m), axis] = 1.0
+    c, s = np.cos(0.02), np.sin(0.02)
+    R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    src = (q - [0.1, -0.05, 0.03]) @ R + 0.01 * rng.standard_normal((m, 3))
+    pad = m // 8
+    src[-pad:] = 1.0e6
+    mask = np.ones(m, np.float32)
+    mask[-pad:] = 0.0
+    qt, nt, srct = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                    for a in (q, n, src))
+
+    def corr(cur, max_d2=1.0):
+        diff = cur - qt
+        d2 = torch.sum(diff * diff, dim=-1)
+        return qt, nt, (d2 <= max_d2).to(torch.float32), d2
+
+    return srct, torch.as_tensor(mask, device=device), corr
+
+
+def _k2s_option_sets():
+    cs = _chip_smoke()
+    root = Path(__file__).resolve().parents[1]
+    from tpu_icp_slam_torch import from_json
+
+    presets = {name: from_json((root / "configs" / f"{name}.json")
+                               .read_text()).icp
+               for name in ("rgbd", "kitti_full_res")}
+    base = cs.slice_config().icp
+    out = {"slice": (base, None), **{k: (v, None) for k, v in
+                                     presets.items()}}
+    for name, (icp, variant) in cs._k2s_options(base).items():
+        if name != "preset":
+            out[name] = (icp, variant)
+    return cs, out
+
+
+@pytest.mark.parametrize("m", [16384, 307200])
+def test_gn_step_kernel_matches_plain(cuda_device, m):
+    """K2S against its plain version (the torch step around K2) on the same
+    inputs and state, trips 0 and 1, over the option sets: chip_smoke's
+    slice, configs/rgbd.json, configs/kitti_full_res.json, Anderson, a
+    min_inliers hold, a non-PD H (a zero step) and a converged state (left
+    as it was): T within chip_smoke.K2S_T_TOL, rmse within K2S_RMSE_RTOL,
+    n_inliers and iters equal, converged equal but within K2S_TOL_BAND of
+    tol; bit-reproducible across two launches; H and g bit-equal to K2's
+    on the same weights."""
+    cs, options = _k2s_option_sets()
+    src, mask, corr = _k2s_problem(m, seed=m % 97, device=cuda_device)
+    for name, (icp, variant) in options.items():
+        for it in (0, 1):
+            got, want, args, (H, g), again, _, prev = cs._k2s_trip(
+                icp, src, mask, corr, it, variant)
+            for a, b in zip(got, again):
+                assert cs.bits_equal(a, b), (name, it)
+            if variant == "frozen":
+                for a, b in zip(got, want):
+                    assert cs.bits_equal(a, b), (name, it)
+                continue
+            _, _, bad = cs._k2s_gaps(got, want)
+            if bad == ["converged"]:
+                assert min(abs(abs(prev - float(x[1])) - icp.tol)
+                           for x in (got, want)) <= cs.K2S_TOL_BAND
+            else:
+                assert not bad, (name, it, bad)
+            cur, q, n, gate, d2 = args
+            w = gn_step.huber(icp, gate * mask, d2)
+            H2, g2 = gn_cuda.gn_accum(cur, q, n, w)
+            assert cs.bits_equal(H, H2) and cs.bits_equal(g, g2), (name, it)
+            if variant == "non-PD":
+                assert torch.equal(got[0], torch.eye(4, device=cuda_device))
+
+
+def test_gn_step_kernel_in_the_loops(cuda_device):
+    """The loops on the card run one K2S launch a trip and no K2:
+    align_with_correspondence's eager host loop and its unrolled form (8
+    trips, frozen after max_iters = 6) on a fixed correspondence, with the
+    convergence tests off so that both devices run 6 iterations, equal the
+    CPU's run of the same loop within chip_smoke.K2S_T_TOL a trip. A
+    wrapper on CPU tensors launches nothing."""
+    from tpu_icp_slam_torch.core.pointcloud import PointCloud
+    from tpu_icp_slam_torch.icp import loop
+
+    cs = _chip_smoke()
+    icp = dataclasses.replace(cs.slice_config().icp, max_iters=6, tol=0.0,
+                              tol_update=0.0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        src, mask, corr = _k2s_problem(4096, seed=5, device=dev)
+        cloud = PointCloud(points=src, mask=mask > 0)
+        for unroll in (0, 8):
+            cfg = dataclasses.replace(icp, unroll_iters=unroll)
+            k0 = (gn_step.gn_step.launches, gn_cuda.gn_accum.launches)
+            res = loop.align_with_correspondence(cloud, corr, None, cfg)
+            k = (gn_step.gn_step.launches - k0[0],
+                 gn_cuda.gn_accum.launches - k0[1])
+            out[(str(dev), unroll)] = res, k
+    for unroll in (0, 8):
+        (rc, kc), (rg, kg) = out[("cpu", unroll)], out[("cuda", unroll)]
+        iters = int(torch.as_tensor(rg.iters))
+        assert iters == int(torch.as_tensor(rc.iters)) == icp.max_iters
+        assert kc == (0, 0)
+        assert kg == ((iters, 0) if unroll == 0 else (unroll, 0))
+        assert float(torch.max(torch.abs(rg.T.cpu() - rc.T))) \
+            <= cs.K2S_T_TOL * iters
+        assert int(rg.n_inliers) == int(rc.n_inliers)
+
+
+def test_occupancy_fold_on_card_bit_equal_to_one_spare_form(cuda_device):
+    """occupancy2d.update on the card, a spare cell an off-grid entry,
+    against its one-spare-cell form on the same scans (off-grid, masked and
+    padded beams): the log-odds bit for bit."""
+    import _occupancy_one_spare as fold_ref
+    from tpu_icp_slam_torch.mapping import occupancy2d as occ
+
+    new = old = occ.create(200, 0.1, device=cuda_device)
+    for k in range(4):
+        pose, pts, mask = (torch.as_tensor(a, device=cuda_device)
+                           for a in fold_ref.fold_scans(k, capacity=4096))
+        new = occ.update(new, pose, pts, mask)
+        old = fold_ref.update_one_spare(old, pose, pts, mask)
+        assert torch.equal(new.logodds.view(torch.int32),
+                           old.logodds.view(torch.int32)), k
+    assert (new.logodds > 0).any() and (new.logodds < 0).any()
+
+
+@pytest.mark.parametrize("normal_gate", [False, True])
+def test_projective_kernel_matches_plain(cuda_device, normal_gate):
+    """PJ (the projective lookup's kernel) against its plain version, the
+    torch lookup, on the card from the same maps: a moved 640x480 frame,
+    with and without a normal gate: q and n bit-equal, d2 within 2 ulps,
+    the gate equal but where d2 (or the normal's cosine) lies at the
+    gate's edge; one launch a call, bit-reproducible."""
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.icp import projective
+    from tpu_icp_slam_torch.kernels import projective_cuda
+
+    K, ((v0, n0, ok0), (v1, n1, ok1)), _ = _rgbd_maps(cuda_device)
+    T = synthetic.rigid_transform(3, np.random.default_rng(4),
+                                  rot_scale=0.02, trans_scale=0.03)
+    Tt = torch.as_tensor(T, dtype=torch.float32, device=cuda_device)
+    pts = (v1.reshape(-1, 3) @ Tt[:3, :3].T + Tt[:3, 3]).contiguous()
+    pts[~ok1.reshape(-1)] = 1.0e6
+    src_n = n1.reshape(-1, 3).contiguous() if normal_gate else None
+    cos = 0.5 if normal_gate else -1.0
+    corr = projective.projective_correspondence(
+        K, v0, n0, ok0, max_corr_dist=0.3, normal_gate_cos=cos,
+        src_normals=src_n)
+    before = projective_cuda.projective_lookup.launches
+    got = corr(pts)
+    again = corr(pts)
+    assert projective_cuda.projective_lookup.launches == before + 2
+    fx, fy = (torch.full((), v, device=cuda_device) for v in (K.fx, K.fy))
+    max_d2 = 0.3 * 0.3
+    want = projective._lookup_ref(K, v0, n0, ok0, fx, fy, max_d2, cos, src_n,
+                                  pts)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ulp = torch.abs(torch.nextafter(want[3], torch.full_like(
+        want[3], float("inf"))) - want[3])
+    assert bool(torch.all(torch.abs(got[3] - want[3]) <= 2 * ulp))
+    edge = torch.abs(want[3] - max_d2) <= 2 * ulp
+    if normal_gate:
+        edge |= torch.abs(torch.sum(src_n * want[1], -1) - cos) <= 1e-6
+    assert not bool(torch.any((got[2] != want[2]) & ~edge))
+    assert float(want[2].sum()) > 0.3 * len(pts)
+    with pytest.raises(ValueError):
+        corr(pts.T.contiguous().T)  # not contiguous
