@@ -123,8 +123,13 @@ icp, post (the gates) and insert, each stage's host ms, launch calls
 the ICP's later trips are graph replays, one later trip: trips a frame,
 its device kernels and device ms, and its device time by op family
 (_FAMILIES: the port's kernels, cuSOLVER/cuBLAS, gemm, reductions,
-elementwise ops, ...). The stages are profiler ranges that this script
-wraps around the package's functions; the package is not edited.
+elementwise ops, ...); pre's and insert's device time a frame by op
+family; and, in the scan-to-map cells, the map stages called eagerly on
+the map after a run (_map_stages: extract_local, normals_knn and the map
+insert, kernels and device ms a call by op family), which splits the
+insert graph's one replay into its two parts. The stages are profiler
+ranges that this script wraps around the package's functions; the package
+is not edited.
 
 With --frame-ab OLD_ROOT, the same cells run --rounds times after call 1,
 OLD_ROOT's package, this tree's, this tree's again and OLD_ROOT's again,
@@ -959,7 +964,65 @@ def _frame_cell(name):
         k = n if k is None else k
         pipe.run_fused(state0, pts[1:k + 1], msk[1:k + 1])
 
+    run.map_parts = (pipe, state0, pts, msk)
     return run, n
+
+
+def _map_stages(pipe, state0, pts, msk, reps=5):
+    """Device kernels and ms a call of the map stages, each called eagerly
+    `reps` times (after one warm-up call) on the map after a run over the
+    cell's log and on its last frame: pre's extract_local at the last pose,
+    and insert's two parts, normals_knn and the map insert. A graph replays
+    the same kernels; this splits the insert graph, which the profiler sees
+    as one replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_icp_slam_torch.mapping import normals, voxel_map
+
+    state, _ = pipe.run_fused(state0, pts[1:], msk[1:])
+    m, p = pipe.cfg.mapping, pipe.cfg.pipeline
+    points = torch.as_tensor(pts[-1], device="cuda")
+    mask = torch.as_tensor(msk[-1], device="cuda")
+    center = state.pose[:3, 3]
+    world = torch.where(mask[:, None], points @ state.pose[:3, :3].T + center,
+                        torch.full_like(points, 1e6))
+
+    def knn():
+        return normals.normals_knn(
+            points, mask, k=p.normal_k, ref_stride=p.normal_ref_stride,
+            approx=p.normal_approx, oversample=p.normal_oversample)
+
+    nrm = knn()
+    insert = (voxel_map.insert_hash if m.insert_backend == "hash"
+              else voxel_map.insert)
+    calls = {
+        "extract_local": lambda: voxel_map.extract_local(
+            state.vmap, center, m.local_model_size, approx=m.extract_approx),
+        "normals_knn": knn,
+        "voxel_map.insert": lambda: insert(state.vmap, world, mask, nrm,
+                                           voxel=m.map_voxel, center=center)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and e.name() not in STAGE_RANGES]
+        fams = {}
+        for e in dev:
+            f = fams.setdefault(_family(e.name()), [0.0, 0.0])
+            f[0] += 1 / reps
+            f[1] += e.duration_ns() / 1e6 / reps
+        out[name] = {"calls": reps, "kernels": len(dev) / reps,
+                     "device_ms": sum(e.duration_ns() for e in dev)
+                     / 1e6 / reps, "families": fams}
+    return out
 
 
 def _odometry_cell(name):
@@ -1113,6 +1176,8 @@ def _stage_split(prof, n_frames):
 # (family, substrings of a device event's name), first match wins: what
 # the trip's and the frame's device time is spent on
 _FAMILIES = (
+    ("KN", ("knn_select", "knn_fit")),
+    ("EX", ("ex_keys", "ex_refine", "ex_count", "ex_write")),
     ("K2S", ("gn_step",)), ("K2", ("gn_accum",)),
     ("NN (K1/K3/K4, voxel)", ("nn_", "packed_scan", "voxel")),
     ("RF", ("rigid_fit",)),
@@ -1122,11 +1187,11 @@ _FAMILIES = (
     ("gemm/gemv", ("gemm", "gemv", "Kernel2", "cutlass", "sm90_xmma",
                    "splitK", "dot_kernel")),
     ("reduce", ("reduce_kernel", "Reduce")),
+    ("sort/top-k/scan", ("sort", "Sort", "scan", "Scan", "radix", "topk",
+                         "TopK", "bitonic")),
     ("index/gather/scatter", ("index", "gather", "scatter", "Index")),
     ("cat/stack", ("CatArray", "cat_")),
     ("copy/fill", ("Memcpy", "Memset", "copy", "fill")),
-    ("sort/scan", ("sort", "Sort", "scan", "Scan", "radix", "topk",
-                   "bitonic")),
     ("elementwise", ("elementwise", "Elementwise")),
 )
 
@@ -1188,6 +1253,8 @@ def _frame_cell_run(src_dir, cell, rounds):
         out["profile"] = _profile_of(prof, wall_ms)
         out["profile"]["frames"] = window
         out["stages"] = _stage_split(prof, window)
+        if hasattr(run, "map_parts"):
+            out["map_stages"] = _map_stages(*run.map_parts)
     return out
 
 
@@ -1252,6 +1319,7 @@ def frame_profile(root, cells=FRAME_CELLS):
                   f"{v['kernels']:.1f}, device {v['device_ms']:.3f} ms a "
                   f"frame")
         _print_trip(res)
+        _print_map_stages(res)
         for kind in ("top_host", "top_device"):
             for key, count, ms in prof[kind]:
                 print(f"    {kind} {key:<70} {count:7d} {ms:10.3f} ms")
@@ -1275,6 +1343,27 @@ def _print_trip(res):
     for fam, (count, ms) in sorted(icp["families"].items(),
                                    key=lambda kv: -kv[1][1]):
         print(f"      {fam:<24} {count / later:7.1f} {ms / later:9.4f}")
+
+
+def _families(fams, per=1.0):
+    return ", ".join(f"{fam} {count / per:.1f} / {ms / per:.4f}"
+                     for fam, (count, ms) in sorted(fams.items(),
+                                                    key=lambda kv: -kv[1][1]))
+
+
+def _print_map_stages(res):
+    """pre's and insert's device time a frame by op family and, in the
+    scan-to-map cells, _map_stages' eager calls: extract_local,
+    normals_knn and the map insert, each a call."""
+    for stage in ("pre", "insert"):
+        v = res["stages"][stage]
+        print(f"    {stage} by family (kernels / ms a frame; "
+              f"{v['graph_launches']:.3f} graph replays a frame): "
+              f"{_families(v['families'])}")
+    for name, v in res.get("map_stages", {}).items():
+        print(f"    map stage {name:<16} {v['kernels']:.1f} kernels, "
+              f"{v['device_ms']:.4f} ms of device time a call (eager, "
+              f"{v['calls']} calls): {_families(v['families'])}")
 
 
 def frame_ab(old_root, rounds, cells=FRAME_CELLS):

@@ -227,6 +227,22 @@ nonzero and the final line is not printed:
      (degen_eps > 0: the eager loop): 5 frames of phase 4's log and of
      phase 16's, K2 = ICP iterations and no K2S; these give K2's rows their
      launches.
+ 24. KN (csrc/knn_normals.cu: the k-NN plane fit of normals_knn, one call
+     of two launches at the seed frame and at each map insert) against the
+     plain k-NN and fit on phase 4's frame 1 at 16,384 x 4,096 (the
+     slice's normal_ref_stride 4) and 16,384 x 16,384
+     (configs/kitti_full_res.json): the picks equal to the plain version's
+     on every row whose scores are clear by KN_TAU_REL and on at least
+     KN_ROWS_EQUAL of all rows, the normals within KN_DOT_TOL on every
+     well-posed row, zero off the mask, bit-reproducible; on 600 integer
+     lattice points (exact ties) the picks bit-equal at strides 1 and 2.
+     EX (csrc/local_select.cu: extract_local's select, four launches an
+     extracting frame) against extract_local_ref at C = 131,072 -> 16,384
+     on the map after phase 4's run (radius 0 and 20 m, another centre),
+     the seeded map and a lattice map with exact d² ties: the four outputs
+     bit-equal. An eager pre runs no sort or top-k kernel. Their launches
+     a frame come from phase 4 (KN at stride 4, EX) and phase 13 (KN at
+     kitti_full_res.json); EX's library_ms is torch.topk of the same d².
  19. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4, batched or not, must make their four
@@ -250,14 +266,16 @@ alone (device time plus the wrapper's host work); plain_ms, the plain
 version's time; bound_ms and bound_by, the least time the card could take
 (FP32 or bf16 operations over the published H100 peak, or bytes over 3.35
 TB/s, whichever is larger), from this run's shapes and iteration counts;
-library_ms, null but for RF's row: no single PyTorch call computes these
-functions, and RF's is torch.linalg.svd alone on the same (B, 3, 3), which
-the port never calls on the card; share, bound_ms / ms. RF's bound counts
+library_ms, null but for RF's and EX's rows: no single PyTorch call
+computes the other functions, RF's is torch.linalg.svd alone on the same
+(B, 3, 3), which the port never calls on the card; share, bound_ms / ms. RF's bound counts
 its float64 operations over the H100's FP64 peak. The batched rows (phase
 18) count their launches on phase 17's sharded align and give
 launches_per_trip. K2S's rows and PJ's count theirs on phase 4 and phase
 16's cli run; K2's unbatched rows, which the main path no longer launches,
-on phase 23's degen_eps runs. PJ's ms, kernel_ms and plain_ms are taken
+on phase 23's degen_eps runs; KN's and EX's on phases 4 and 13, and EX's
+library_ms is torch.topk(d², size) alone, the select without the
+map-order pass. PJ's ms, kernel_ms and plain_ms are taken
 with the L2 cache emptied before each call, so that its bound by bytes over
 3.35 TB/s bounds them; ms_l2_warm is its back-to-back device time, with
 the maps in L2 as on the main path.
@@ -468,7 +486,9 @@ def _cold_ms(fn, n=20, reps=5, strict=True):
 
 # The port's own CUDA kernels (csrc/*.cu), as the profiler names them.
 OWN_KERNELS = ("nn_split_kernel", "nn_fold_kernel", "gn_accum_kernel",
-               "gn_step_kernel", "projective_kernel",
+               "gn_step_kernel", "projective_kernel", "knn_select_kernel",
+               "knn_fit_kernel", "ex_keys_kernel", "ex_refine_kernel",
+               "ex_count_kernel", "ex_write_kernel",
                "nn_centre_kernel", "nn_pack_kernel", "packed_scan_kernel",
                "nn_rescore_kernel", "icp_fused_kernel", "coop_probe_kernel",
                "rigid_fit_kernel")
@@ -762,9 +782,7 @@ def phase_slice(pts, msk, gt):
     pipe.run_fused(state0, pts[1:], msk[1:])  # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    nn_cuda.nn_bruteforce.launches = 0
-    gn_cuda.gn_accum.launches = 0
-    gn_step.gn_step.launches = 0
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, infos = pipe.run_fused(state0, pts[1:], msk[1:])
@@ -772,6 +790,8 @@ def phase_slice(pts, msk, gt):
     dt = time.perf_counter() - t0
     k1, k2 = nn_cuda.nn_bruteforce.launches, gn_cuda.gn_accum.launches
     k2s = gn_step.gn_step.launches
+    kn, ex = _counts()["KN"], _counts()["EX"]
+    inserts = int(infos["map_inserted"].sum())
     poses = np.concatenate(
         [np.eye(4)[None], infos["pose"].cpu().numpy().astype(np.float64)])
     iters = infos["iters"].cpu().numpy()
@@ -788,13 +808,15 @@ def phase_slice(pts, msk, gt):
           f"{int(infos['map_inserted'].sum())} | map points "
           f"{int(infos['map_points'][-1])} | ATE {ate:.5f} m")
     print(f"[slice] launches K1 {k1} K2S {k2s} K2 {k2} total ICP iters "
-          f"{int(iters.sum())} | {_iters_beside_prev('slice', iters)}")
+          f"{int(iters.sum())} | KN {kn} (map inserts {inserts}) EX {ex} "
+          f"(extracts: one a frame) | {_iters_beside_prev('slice', iters)}")
     assert np.isfinite(poses).all(), "non-finite pose"
     assert ate < 0.15, f"ATE {ate} m"
     assert k1 == k2s == int(iters.sum()) > 0 and k2 == 0, \
         (k1, k2s, k2, int(iters.sum()))
+    assert kn == inserts > 0 and ex == n_frames, (kn, inserts, ex, n_frames)
     assert syncs == want, (syncs, want)
-    return k1, k2s, n_frames, n_frames / dt
+    return k1, k2s, n_frames, n_frames / dt, kn, ex
 
 
 def phase_cpu_agreement():
@@ -826,14 +848,15 @@ def phase_cpu_agreement():
 
 def _counters():
     from tpu_icp_slam_torch.kernels import (
-        gn_cuda, gn_step, icp_fused, nn_bf16, nn_cuda, nn_rescore,
-        projective_cuda,
+        gn_cuda, gn_step, icp_fused, knn_cuda, nn_bf16, nn_cuda, nn_rescore,
+        projective_cuda, select_cuda,
     )
 
     return {"K1": nn_cuda.nn_bruteforce, "K2": gn_cuda.gn_accum,
             "K3": nn_bf16.nn_bf16, "K4": nn_rescore.nn_rescore,
             "K5": icp_fused.icp_fused, "K2S": gn_step.gn_step,
-            "PJ": projective_cuda.projective_lookup}
+            "PJ": projective_cuda.projective_lookup,
+            "KN": knn_cuda.knn_normals, "EX": select_cuda.local_select}
 
 
 def _rf():
@@ -1126,6 +1149,10 @@ def _run_slice(cfg, pts, msk, gt, label):
     assert ate < 0.15, f"{label}: ATE {ate} m"
     assert syncs == want, (label, syncs, want)
     print(f"[{label}] {_iters_beside_prev(label, iters)}")
+    # KN at each map insert, EX once a frame
+    inserts = int(infos["map_inserted"].sum())
+    assert counts["KN"] == inserts and counts["EX"] == n_frames, \
+        (label, counts, inserts)
     return counts, int(iters.sum()), n_frames, ate
 
 
@@ -1136,7 +1163,8 @@ def phase_fused_slice(pts, msk, gt):
             slice_config(loop_backend="fused", nn_precision=prec), pts, msk,
             gt, f"fused slice {prec}")
         assert c == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": n_frames,
-                     "K2S": 0, "PJ": 0}, (prec, c)
+                     "K2S": 0, "PJ": 0, "KN": c["KN"], "EX": n_frames}, \
+            (prec, c)
         counts[prec] = c["K5"], n_frames
     _run_slice(slice_config(), pts[:6], msk[:6], gt,
                "steps slice highest, 5 frames, for its host syncs")
@@ -1341,6 +1369,8 @@ def phase_full_slam():
     assert ate < 0.5, f"ATE {ate} m"
     assert c["K4"] == c["K2S"] == iters > 0, (c, iters)
     assert c["K2"] == c["K3"] == c["K5"] == 0, c
+    # one extract a frame; KN at the seed frame and at each map insert
+    assert c["EX"] == n_frames and c["KN"] > 1, (c, n_frames)
     assert c["K1"] == batched == rf == slam.detector.verify_iters > 0, \
         (c["K1"], batched, rf, slam.detector.verify_iters)
     _verify_syncs(slam.detector, pts, msk, slam.kf_frames,
@@ -1350,7 +1380,8 @@ def phase_full_slam():
           f"mode, frames 1-5; the frame graphs' count {want:.3f}; launch "
           f"calls a frame in the profile phase)")
     assert syncs == want, (syncs, want)
-    return c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam), rf
+    return (c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam), rf,
+            c["KN"], c["EX"])
 
 
 def _verify_syncs(det, pts, msk, kf_frames, closure, label):
@@ -3439,6 +3470,221 @@ def _pj_row(p, K, v0, n0, ok0, max_corr_dist):
             "max_abs_err": err, **t}
 
 
+def kn_bound(m, n, k):
+    """KN's least time: 9 FP32 operations a pair, as K1's row counts a
+    pair (the factored score is a product, three fused multiply-adds and
+    an add, then a compare), against its bytes (points and mask in;
+    normals and the (M, k) picks out)."""
+    return _bound(9.0 * m * n, 13.0 * m + (12.0 + 4.0 * k) * m)
+
+
+def ex_bound(c, size):
+    """EX's least time: its bytes (the map's points and mask in, the kept
+    rows' normals, the outputs out); a few operations a slot."""
+    return _bound(8.0 * c, 13.0 * c + 12.0 * size + 25.0 * size + 4.0)
+
+
+# KN's picks against the plain version's: where the plain version's
+# (k+1)-th score lies more than KN_TAU_REL * (|a|² + |b|²) above its k-th
+# (a few float32 roundings of the factored score at that magnitude, the
+# most by which cuBLAS's product, if it summed a·b in another order, could
+# move a score), the ordered lists must be equal; the whole must agree on
+# KN_ROWS_EQUAL of the rows.
+KN_TAU_REL = 2.0 ** -20
+KN_ROWS_EQUAL = 0.999
+# KN's normals against the plain fit (the same picks, sums in another
+# order): dot >= 1 - KN_DOT_TOL on every masked row whose fit is well
+# posed (an eigen-gap above 1e-2 of the largest eigenvalue and a normal
+# more than 1e-2 off the view ray, float64 on the picks); elsewhere
+# (nearly collinear ring segments, the orientation's tie) only counted.
+KN_DOT_TOL = 1e-4
+
+
+def _kn_check(p, m, k, stride):
+    """KN against its plain versions on one scan: picks, normals; returns
+    (rows equal, ill-posed rows, worst well-posed dot)."""
+    from tpu_icp_slam_torch.kernels import knn_cuda
+    from tpu_icp_slam_torch.kernels.nn_plain import knn_bruteforce
+    from tpu_icp_slam_torch.mapping import normals
+
+    nrm, idx = knn_cuda.knn_normals(p, m, k, stride)
+    again, idx2 = knn_cuda.knn_normals(p, m, k, stride)
+    assert bits_equal(nrm, again) and bits_equal(idx, idx2), \
+        "KN is not bit-reproducible"
+    ref = p[::stride].contiguous()
+    want_i, want_d = knn_bruteforce(p, ref, k + 1)
+    plain = normals.normals_knn_ref(p, m, k, None, stride)
+    same = (idx == want_i[:, :k]).all(1)
+    scale = (torch.sum(p * p, -1)[:, None]
+             + torch.sum(ref * ref, -1)[want_i.long()]).amax(1)
+    clear = (want_d[:, k] - want_d[:, k - 1]) > KN_TAU_REL * scale
+    gaps = want_d[:, 1:] - want_d[:, :-1]
+    clear_all = clear & (gaps[:, :k - 1] > KN_TAU_REL * scale[:, None]).all(1)
+    assert bool(same[clear_all].all()), int((~same & clear_all).sum())
+    assert float(same.float().mean()) >= KN_ROWS_EQUAL, \
+        float(same.float().mean())
+    nb = ref[idx.long()].double()
+    x = nb - nb.mean(1, keepdim=True)
+    ev, V = torch.linalg.eigh(torch.einsum("nki,nkj->nij", x, x) / k)
+    P = p.double()
+    view = (torch.abs(torch.sum(V[:, :, 0] * P, -1))
+            / torch.clamp(torch.linalg.vector_norm(P, dim=-1), min=1e-9))
+    posed = m & ((ev[:, 1] - ev[:, 0]) > 1e-2 * ev[:, 2]) & (view > 1e-2)
+    dot = torch.sum(nrm * plain, -1)
+    worst = float(dot[posed].min())
+    assert worst >= 1 - KN_DOT_TOL, worst
+    assert bool((nrm[~m] == 0).all()), "a masked-off row has a normal"
+    unit = torch.linalg.vector_norm(nrm[m], dim=-1)
+    assert float(torch.abs(unit - 1).max()) < 1e-5
+    return (float(same.float().mean()), int((m & ~posed).sum()), worst,
+            int((dot[m & ~posed] < 1 - KN_DOT_TOL).sum()))
+
+
+def _kn_row(p, m, k, stride, label):
+    from tpu_icp_slam_torch.kernels import knn_cuda
+    from tpu_icp_slam_torch.mapping import normals
+
+    same, ill, worst, ill_off = _kn_check(p, m, k, stride)
+    n = -(-p.shape[0] // stride)
+    t = _timings(lambda: knn_cuda.knn_normals(p, m, k, stride),
+                 lambda: normals.normals_knn_ref(p, m, k, None, stride),
+                 kn_bound(p.shape[0], n, k))
+    print(f"[KN knn_normals] {card()} | {label}: M={p.shape[0]} N={n} "
+          f"k={k}: picks equal to the plain k-NN on {same:.6f} of the rows "
+          f"(every row whose scores are clear by KN_TAU_REL), normals "
+          f"within {1 - worst:.2e} of the plain fit on the well-posed rows "
+          f"({ill} ill-posed rows, {ill_off} of them beyond {KN_DOT_TOL}) | "
+          f"{_fmt(t)} (plain: the torch k-NN and fit) | library: none (no "
+          f"one PyTorch call computes a k-NN from points)")
+    return {"name": f"knn_normals[{label}]", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/knn_normals.cu",
+            "replaces": "src/tpu_icp_slam/mapping/normals.py:98",
+            "max_abs_err": 1 - worst, **t}
+
+
+def _lattice_map(c, n_on, seed):
+    """c slots, n_on of them on the integer lattice [-20, 20]³ (exact d²
+    from an integer centre, many ties), the rest padding."""
+    from tpu_icp_slam_torch.mapping import voxel_map
+
+    g = torch.Generator().manual_seed(seed)
+    pts = torch.full((c, 3), 1e6)
+    on = torch.randperm(c, generator=g)[:n_on]
+    pts[on] = torch.randint(-20, 21, (n_on, 3), generator=g).float()
+    nrm = torch.zeros(c, 3)
+    nrm[on] = torch.randn(n_on, 3, generator=g)
+    msk = torch.zeros(c, dtype=torch.bool)
+    msk[on] = True
+    return voxel_map.VoxelMap(points=pts.cuda(), normals=nrm.cuda(),
+                              mask=msk.cuda())
+
+
+def _ex_row(vm, center, size, seeded):
+    """EX against extract_local_ref: the four outputs bit-equal on the
+    main path's map (radius 0 and 20 m, another centre), on the map seeded
+    with one scan (fewer points than size), and on a lattice map with exact
+    d² ties (radius 0 and 6.5 m); its timings on the main path's map."""
+    from tpu_icp_slam_torch.kernels import select_cuda
+    from tpu_icp_slam_torch.mapping import voxel_map
+
+    lattice = _lattice_map(vm.points.shape[0], 100_000, 0)
+    other = torch.tensor([5.0, -3.0, 1.0], device="cuda")
+    near = torch.tensor([1.0, -2.0, 0.0], device="cuda")
+    cases = [(vm, center, 0.0), (vm, center, 20.0), (vm, other, 0.0),
+             (seeded, center, 0.0), (lattice, near, 0.0),
+             (lattice, near, 6.5)]
+    for i, (v, c, r) in enumerate(cases):
+        got = select_cuda.local_select(v.points, v.normals, v.mask, c, size,
+                                       r)
+        want = voxel_map.extract_local_ref(v, c, size, r)
+        assert all(bits_equal(a, b) for a, b in zip(got, want)), \
+            (i, r, [bits_equal(a, b) for a, b in zip(got, want)])
+    diff = vm.points - center[None, :]
+    d2 = torch.where(vm.mask, diff[:, 0] * diff[:, 0] + diff[:, 1]
+                     * diff[:, 1] + diff[:, 2] * diff[:, 2],
+                     torch.full_like(vm.points[:, 0], math.inf))
+
+    def run():
+        return select_cuda.local_select(vm.points, vm.normals, vm.mask,
+                                        center, size, 0.0)
+
+    t = _timings(run, lambda: voxel_map.extract_local_ref(vm, center, size),
+                 ex_bound(vm.points.shape[0], size))
+    t["library_ms"] = _device_ms(
+        lambda: torch.topk(d2, size, largest=False), strict=False)
+    print(f"[EX local_select] {card()} | C={vm.points.shape[0]} -> "
+          f"size={size}, map points {int(vm.mask.sum())}: pts, nrm, msk, "
+          f"r_cover bit-equal to extract_local_ref over {len(cases)} cases "
+          f"(the main path's map at radius 0 and 20 m and another centre, "
+          f"the seeded map ({int(seeded.mask.sum())} points), a lattice map "
+          f"with exact d² ties at radius 0 and 6.5 m) | "
+          f"{_fmt(t)} (plain: the two sorts) | library "
+          f"{t['library_ms']:.4f} ms (torch.topk of the same d², the "
+          f"select alone: no map-order pass, no gather)")
+    return {"name": "local_select", "route": "cuda",
+            "source": "src/tpu_icp_slam_torch/csrc/local_select.cu",
+            "replaces": "src/tpu_icp_slam/mapping/voxel_map.py:229",
+            "max_abs_err": 0.0, **t}
+
+
+def _pre_sorts(pipe, state):
+    """Device kernels of one eager `pre` (extract at the prediction) whose
+    names say sort or top-k."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_icp_slam_torch.slam import scan_to_map as s2m
+
+    init = s2m._predict(state, pipe.cfg)
+    s2m._pre(state, init, pipe.cfg, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        s2m._pre(state, init, pipe.cfg, True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    return [k for k in names if any(w in k.lower() for w in ("sort",
+                                                                "topk"))]
+
+
+def phase_map_kernels(pts, msk):
+    """Phase 24: KN and EX, the map stages, against their plain versions
+    at the main path's shapes; no sort of the map's d² in `pre`."""
+    from tpu_icp_slam_torch.kernels import knn_cuda
+    from tpu_icp_slam_torch.kernels.nn_plain import knn_bruteforce
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    cfg = slice_config()
+    full = full_slam_config()
+    k = cfg.pipeline.normal_k
+    assert full.pipeline.normal_k == k
+    p = torch.as_tensor(pts[1], device="cuda")
+    m = torch.as_tensor(msk[1], device="cuda")
+    rows = [_kn_row(p, m, k, cfg.pipeline.normal_ref_stride, "stride 4"),
+            _kn_row(p, m, k, full.pipeline.normal_ref_stride,
+                    "kitti_full_res")]
+    # exact ties: integer lattice points, the reference's lower-index rule
+    g = torch.Generator().manual_seed(1)
+    q = torch.randint(-3, 4, (600, 3), generator=g).float().cuda()
+    for stride in (1, 2):
+        _, idx = knn_cuda.knn_normals(q, torch.ones(600, dtype=torch.bool,
+                                                    device="cuda"), k, stride)
+        want, _ = knn_bruteforce(q, q[::stride].contiguous(), k)
+        assert bits_equal(idx, want), f"KN's lattice ties, stride {stride}"
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    state0 = pipe.init_state(pts[0], msk[0])
+    state, _ = pipe.run_fused(state0, pts[1:], msk[1:])
+    rows.append(_ex_row(state.vmap, state.pose[:3, 3],
+                        cfg.mapping.local_model_size, state0.vmap))
+    sorts = _pre_sorts(pipe, state)
+    print(f"[map kernels] lattice ties: KN's picks bit-equal to the plain "
+          f"k-NN at strides 1 and 2 | an eager pre's sort and top-k "
+          f"kernels: {sorts or 'none'}")
+    assert not sorts, sorts
+    return rows
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -3480,10 +3726,11 @@ def main() -> int:
                           SCAN_POINTS)
     k1_row, src, dst = phase_k1(pts, msk)
     k2_row = phase_k2(src, msk[1])
-    k1, k2s, n_frames, slice_fps = phase_slice(pts, msk, gt)
+    k1, k2s, n_frames, slice_fps, kn, ex = phase_slice(pts, msk, gt)
     phase_cpu_agreement()
     _count(k1_row, k1, n_frames)
     slice_k2s = k2s, n_frames
+    slice_map = {"KN": (kn, n_frames), "EX": (ex, n_frames)}
     probe_row = phase_probe()
     k3_row = phase_k3(pts, msk)
     k5_rows = phase_k5(pts, msk)
@@ -3493,7 +3740,8 @@ def main() -> int:
     _count(k3_row, *phase_steps_bf16(pts, msk, gt))
     k4_row = phase_k4(pts, msk)
     k1b_row = phase_k1_batched(pts, src, dst)
-    k4, k1b, n_frames, full, rf_launches = phase_full_slam()
+    k4, k1b, n_frames, full, rf_launches, kn13, _ = phase_full_slam()
+    full_kn = kn13, n_frames
     _count(k4_row, k4, n_frames)
     _count(k1b_row, k1b, n_frames)
     t0 = time.perf_counter()
@@ -3542,9 +3790,15 @@ def main() -> int:
     _count(k2_row, *degen["scan-to-map"])
     _count(k2_rgbd_row, *degen["rgbd"])
     print(f"[K2S] phase 23 in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    kn_row, kn_full_row, ex_row = phase_map_kernels(pts, msk)
+    _count(kn_row, *slice_map["KN"])
+    _count(kn_full_row, *full_kn)
+    _count(ex_row, *slice_map["EX"])
+    print(f"[map kernels] phase 24 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
             k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows, rf_row,
-            k2s_row, k2s_rgbd_row, pj_row]
+            k2s_row, k2s_rgbd_row, pj_row, kn_row, kn_full_row, ex_row]
     phase_profile(rows)
     phase_launch_calls(pts, msk, full, odometry)
     for row in rows:

@@ -158,6 +158,15 @@ def load() -> ctypes.CDLL:
                 ptr, i32, ptr, ptr, ptr, ptr, f32, f32, i32, i32, f32, ptr,
                 f32, ptr, ptr, ptr, ptr, ptr]
             lib.projective_f32.restype = i32
+            lib.knn_normals_f32.argtypes = [
+                ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+            lib.knn_normals_f32.restype = i32
+            lib.local_select_scratch_words.argtypes = [i32]
+            lib.local_select_scratch_words.restype = ctypes.c_longlong
+            lib.local_select_f32.argtypes = [
+                ptr, ptr, ptr, ptr, i32, i32, i32, ctypes.c_uint, f32, ptr,
+                ptr, ptr, ptr, ptr, ptr]
+            lib.local_select_f32.restype = i32
             _lib = lib
         return _lib
 

@@ -12,9 +12,10 @@ still equals the launches the card ran. On a CPU device fn runs every time.
 
 A graph keeps the device pointers it was captured with: nothing it reads
 or writes may be freed or moved while it lives. The callers own their
-static buffers; the kernels' own scratch is allocated per call, or (K2)
-kept for the life of the process. States are values: `copy_into` loads a
-caller's state into the static buffers and `clone` copies one out.
+static buffers; the kernels' own scratch is allocated per call, or (K2,
+K2S, KN, EX) kept for the life of the process. States are values:
+`copy_into` loads a caller's state into the static buffers and `clone`
+copies one out.
 """
 
 from __future__ import annotations
@@ -63,14 +64,16 @@ def launch_counters() -> list:
     from tpu_icp_slam_torch.kernels.gn_cuda import gn_accum
     from tpu_icp_slam_torch.kernels.gn_step import gn_step
     from tpu_icp_slam_torch.kernels.icp_fused import icp_fused
+    from tpu_icp_slam_torch.kernels.knn_cuda import knn_normals
     from tpu_icp_slam_torch.kernels.nn_bf16 import nn_bf16
     from tpu_icp_slam_torch.kernels.nn_cuda import nn_bruteforce
     from tpu_icp_slam_torch.kernels.nn_rescore import nn_rescore
     from tpu_icp_slam_torch.kernels.projective_cuda import projective_lookup
+    from tpu_icp_slam_torch.kernels.select_cuda import local_select
 
     return [(f, a) for f in (nn_bruteforce, nn_bf16, nn_rescore, gn_accum,
                              gn_step, icp_fused, rigid_from_stats,
-                             projective_lookup)
+                             projective_lookup, knn_normals, local_select)
             for a in vars(f) if "launches" in a]
 
 

@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from tpu_icp_slam_torch.kernels import knn_cuda
 from tpu_icp_slam_torch.kernels.nn_plain import knn_bruteforce
 
 
@@ -80,18 +81,10 @@ def smallest_eigvec_sym3(C: torch.Tensor) -> torch.Tensor:
     return torch.where(ok[..., None], v / torch.clamp(vn, min=1e-30), fallback)
 
 
-def normals_knn(points: torch.Tensor, mask: torch.Tensor, k: int = 16,
-                viewpoint: torch.Tensor | None = None, ref_stride: int = 1,
-                approx: bool = True, oversample: int = 0) -> torch.Tensor:
-    """(N, 3) cloud -> (N, 3) unit normals by local plane fit.
-
-    Padded slots get zero normals; normals face `viewpoint` (default: the
-    origin, the sensor). ref_stride > 1 fits each plane against every
-    ref_stride-th point. `approx`/`oversample` are accepted for config
-    compatibility: the selection is exact top-k, which is what the
-    reference computes off the TPU (see kernels/nn_plain.py).
-    """
-    del approx, oversample
+def normals_knn_ref(points: torch.Tensor, mask: torch.Tensor, k: int = 16,
+                    viewpoint: torch.Tensor | None = None,
+                    ref_stride: int = 1) -> torch.Tensor:
+    """normals_knn in torch ops: KN's plain version, and the CPU path."""
     ref = points if ref_stride <= 1 else points[::ref_stride]
     idx, _ = knn_bruteforce(points, ref, k=k)
     nbrs = ref[idx.long()]  # (N, k, 3)
@@ -103,3 +96,23 @@ def normals_knn(points: torch.Tensor, mask: torch.Tensor, k: int = 16,
     flip = torch.sum(n * (vp[None, :] - points), dim=-1, keepdim=True) < 0
     n = torch.where(flip, -n, n)
     return torch.where(mask[:, None], n, torch.zeros_like(n))
+
+
+def normals_knn(points: torch.Tensor, mask: torch.Tensor, k: int = 16,
+                viewpoint: torch.Tensor | None = None, ref_stride: int = 1,
+                approx: bool = True, oversample: int = 0) -> torch.Tensor:
+    """(N, 3) cloud -> (N, 3) unit normals by local plane fit.
+
+    Padded slots get zero normals; normals face `viewpoint` (default: the
+    origin, the sensor). ref_stride > 1 fits each plane against every
+    ref_stride-th point. `approx`/`oversample` are accepted for config
+    compatibility: the selection is exact top-k, which is what the
+    reference computes off the TPU (see kernels/nn_plain.py). CUDA tensors
+    take KN (kernels/knn_cuda.py, one call, no fallback), CPU tensors the
+    plain version `normals_knn_ref`.
+    """
+    del approx, oversample
+    if points.device.type == "cpu":
+        return normals_knn_ref(points, mask, k, viewpoint, ref_stride)
+    return knn_cuda.knn_normals(points.contiguous(), mask.contiguous(), k,
+                                ref_stride, viewpoint)[0]

@@ -21,6 +21,7 @@ import torch
 
 from tpu_icp_slam_torch.core.pointcloud import PAD_COORD
 from tpu_icp_slam_torch.datasets import png
+from tpu_icp_slam_torch.kernels import select_cuda
 
 # quantized voxel coordinates live in [-2^19, 2^19); invalid slots sort last
 _QMAX = 1 << 19
@@ -224,21 +225,38 @@ def extract_local(vm: VoxelMap, center: torch.Tensor, size: int,
     """Nearest `size` map points to `center`:
     (pts (S, 3), nrm (S, 3), msk (S,), r_cover ()).
 
-    The selection is a stable ascending sort of the distances — the
-    reference's `lax.top_k(-d2)` with its lower-index-first tie rule — and
-    the selected points are then re-sorted into map order (the reference's
-    rescore NN depends on that adjacency). r_cover is the distance to the
-    farthest selected point, or inf while the map holds no more than `size`
-    points (everything known is in the model).
+    The selection is the reference's `lax.top_k(-d2)` with its
+    lower-index-first tie rule, and the kept points are put back into map
+    order (the reference's rescore NN depends on that adjacency). r_cover
+    is the distance to the farthest selected point, or inf while the map
+    holds no more than `size` points (everything known is in the model).
 
     approx=True (mapping.extract_approx) selects exactly as well. The
     reference's `lax.approx_max_k` keeps ~0.95 of the nearest points on a
     TPU and is an exact top-k on every other backend; the port selects
     exactly on both devices, a stated deviation from the TPU's recall.
+
+    CUDA tensors take EX (kernels/select_cuda.py: a radix select and one
+    pass in map order, bit-equal, no fallback), CPU tensors the plain
+    version `extract_local_ref`.
     """
     del approx
+    if vm.points.device.type == "cpu":
+        return extract_local_ref(vm, center, size, radius)
+    return select_cuda.local_select(vm.points.contiguous(),
+                                    vm.normals.contiguous(),
+                                    vm.mask.contiguous(), center, size,
+                                    radius)
+
+
+def extract_local_ref(vm: VoxelMap, center: torch.Tensor, size: int,
+                      radius: float = 0.0):
+    """extract_local in torch ops: EX's plain version, and the CPU path.
+    d² sums the squares in coordinate order, as the reference's sum does
+    on the CPU (torch's CUDA sum of three may pair them otherwise)."""
     diff = vm.points - center[None, :]
-    d2 = torch.sum(diff * diff, dim=-1)
+    d2 = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]
+          + diff[:, 2] * diff[:, 2])
     d2 = torch.where(vm.mask, d2, torch.full_like(d2, float("inf")))
     d2_sel, idx = torch.sort(d2, stable=True)
     d2_sel, idx = d2_sel[:size], idx[:size]

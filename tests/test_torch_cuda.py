@@ -2322,3 +2322,143 @@ def test_projective_kernel_matches_plain(cuda_device, normal_gate):
     assert float(want[2].sum()) > 0.3 * len(pts)
     with pytest.raises(ValueError):
         corr(pts.T.contiguous().T)  # not contiguous
+
+
+def _scan16k():
+    """Phase 4's frame 1: a 16,384-point synthetic Velodyne scan (voxel
+    0.15 m, padded), on the card."""
+    pts, msk, _ = _chip_smoke()._scans(2, 48, 1024, 2 / 110.0, 0.15, 16384)
+    return (torch.as_tensor(pts[1], device="cuda"),
+            torch.as_tensor(msk[1], device="cuda"))
+
+
+@pytest.mark.parametrize("stride", [4, 1])
+def test_knn_normals_kernel_matches_plain(cuda_device, stride):
+    """KN at the presets' shapes (16,384 x 4,096 and 16,384 x 16,384)
+    against the plain k-NN and fit: chip_smoke.py's phase 24 check (picks
+    equal on every row whose scores are clear by KN_TAU_REL and on at least
+    KN_ROWS_EQUAL of the rows, normals within KN_DOT_TOL on the well-posed
+    rows, zero off the mask, bit-reproducible); one launch a call."""
+    from tpu_icp_slam_torch.kernels import knn_cuda
+    from tpu_icp_slam_torch.mapping import normals
+
+    p, m = _scan16k()
+    cs = _chip_smoke()
+    same, _, worst, _ = cs._kn_check(p, m, 8, stride)
+    assert same >= cs.KN_ROWS_EQUAL and worst >= 1 - cs.KN_DOT_TOL
+    before = knn_cuda.knn_normals.launches
+    got = normals.normals_knn(p, m, k=8, ref_stride=stride)
+    assert knn_cuda.knn_normals.launches == before + 1
+    assert torch.equal(got, knn_cuda.knn_normals(p, m, 8, stride)[0])
+
+
+@pytest.mark.parametrize("k", [5, 8, 16, 20])
+@pytest.mark.parametrize("stride", [1, 2, 3])
+def test_knn_normals_kernel_ties_go_to_the_lower_index(cuda_device, k,
+                                                        stride):
+    """On 700 integer lattice points (exact scores, many ties) KN's picks
+    are the plain version's (the reference's rule) bit for bit, for list
+    sizes 8, 16 and 32 in use and target ranges cut anywhere."""
+    from tpu_icp_slam_torch.kernels import knn_cuda
+    from tpu_icp_slam_torch.kernels.nn_plain import knn_bruteforce
+
+    rng = np.random.default_rng(k + 10 * stride)
+    q = torch.as_tensor(rng.integers(-3, 4, (700, 3)).astype(np.float32),
+                        device=cuda_device)
+    on = torch.ones(700, dtype=torch.bool, device=cuda_device)
+    nrm, idx = knn_cuda.knn_normals(q, on, k, stride)
+    want, _ = knn_bruteforce(q, q[::stride].contiguous(), k)
+    assert torch.equal(idx, want)
+    unit = torch.linalg.vector_norm(nrm, dim=-1)
+    assert float(torch.abs(unit - 1).max()) < 1e-5
+
+
+def _select_case(case, device):
+    """(map, centre, size, radius) of a local_select case at C = 131,072
+    (the presets' map) unless the case says otherwise."""
+    from tpu_icp_slam_torch.mapping import voxel_map
+
+    rng = np.random.default_rng(7)
+    c, size = 131072, 16384
+    if case.startswith("lattice"):
+        vm = _chip_smoke()._lattice_map(c, 100_000, 3)
+        centre = torch.tensor([2.0, -1.0, 3.0], device=device)
+        return vm, centre, size, 6.5 if case == "lattice-radius" else 0.0
+    n_on = {"random": 90_000, "random-radius": 90_000, "fewer": 10_000,
+            "exactly": size, "all": 5000}[case]
+    if case == "all":
+        c = size = 5000
+    pts = rng.uniform(-60, 60, (c, 3)).astype(np.float32)
+    msk = np.zeros(c, bool)
+    msk[rng.permutation(c)[:n_on]] = True
+    pts[~msk] = 1e6
+    nrm = rng.standard_normal((c, 3)).astype(np.float32)
+    vm = voxel_map.VoxelMap(points=torch.as_tensor(pts, device=device),
+                            normals=torch.as_tensor(nrm, device=device),
+                            mask=torch.as_tensor(msk, device=device))
+    centre = torch.tensor([3.5, -7.25, 0.5], device=device)
+    return vm, centre, size, 25.0 if case == "random-radius" else 0.0
+
+
+@pytest.mark.parametrize("case", ["random", "random-radius", "lattice",
+                                  "lattice-radius", "fewer", "exactly",
+                                  "all"])
+def test_local_select_kernel_bit_equal_to_plain(cuda_device, case):
+    """EX against extract_local_ref: pts, nrm, msk and r_cover bit-equal
+    at the presets' C = 131,072 -> 16,384 (a full map with and without a
+    radius, a lattice map with exact d² ties, fewer points than size,
+    exactly size) and at size = C; one launch a call, repeatable."""
+    from tpu_icp_slam_torch.kernels import select_cuda
+    from tpu_icp_slam_torch.mapping import voxel_map
+
+    vm, centre, size, radius = _select_case(case, cuda_device)
+    before = select_cuda.local_select.launches
+    got = voxel_map.extract_local(vm, centre, size, radius=radius)
+    again = voxel_map.extract_local(vm, centre, size, radius=radius)
+    assert select_cuda.local_select.launches == before + 2
+    want = voxel_map.extract_local_ref(vm, centre, size, radius)
+    for a, b, c in zip(got, again, want):
+        assert _chip_smoke().bits_equal(a, b) and \
+            _chip_smoke().bits_equal(a, c)
+
+
+def test_map_kernels_on_the_main_path(cuda_device):
+    """On CUDA the frame's map stages run KN and EX inside the pre and
+    insert graphs: EX once a frame, KN at the seed frame and at each map
+    insert; the poses are those of the eager _step on the card."""
+    from tpu_icp_slam_torch.kernels import knn_cuda, select_cuda
+    from tpu_icp_slam_torch.slam import frame_graphs
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline, _step
+
+    cs = _chip_smoke()
+    cfg = cs.slice_config()
+    pts, msk, _ = cs._scans(8, 48, 1024, 8 / 110.0, 0.15, 16384)
+    pipe = ScanToMapPipeline(cfg, device="cuda")
+    before = (knn_cuda.knn_normals.launches,
+              select_cuda.local_select.launches)
+    state0 = pipe.init_state(pts[0], msk[0])
+    _, infos = pipe.run_fused(state0, pts[1:], msk[1:])
+    inserts = int(infos["map_inserted"].sum())
+    assert (knn_cuda.knn_normals.launches - before[0],
+            select_cuda.local_select.launches - before[1]) == (
+        1 + inserts, len(pts) - 1)
+    _, eager = frame_graphs.run_eager(
+        _step, state0, zip(*pipe._as_tensors(pts[1:], msk[1:])), cfg=cfg)
+    assert torch.equal(infos["pose"], eager["pose"])
+
+
+def test_map_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
+    from tpu_icp_slam_torch.kernels import knn_cuda, select_cuda
+
+    p = torch.randn(500, 3, device=cuda_device)
+    on = torch.ones(500, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        knn_cuda.knn_normals(p, on, 33)  # past the 32-slot list
+    with pytest.raises(ValueError):
+        knn_cuda.knn_normals(p, on.cpu(), 8)
+    with pytest.raises(ValueError):
+        knn_cuda.knn_normals(p.cpu(), on.cpu(), 8)  # CPU: the plain version
+    with pytest.raises(ValueError):
+        select_cuda.local_select(p, p, on, p[0], 501)  # size > C
+    with pytest.raises(ValueError):
+        select_cuda.local_select(p.T.contiguous().T, p, on, p[0], 100)
