@@ -15,9 +15,10 @@ builds of the kernels K1, K3, K4 and K5.
 With --sass, the kernels are built anew with ptxas's register, shared-memory
 and spill report, the library is disassembled with cuobjdump, and for the
 packed scan (K3's and K4's, one per source file that compiles it), K5 at
-both precisions and K1 the innermost loop that holds the work (the mma, or
-the FMNMX of a pair) is counted: static instructions, and lane-instructions
-per score or pair (SASS_LOOPS).
+both precisions, K1 and KN's select the innermost loop that holds the work
+(the mma, the FMNMX of a pair, or the FMUL that starts KN's score of a
+pair) is counted: static instructions, and lane-instructions per
+score or pair (SASS_LOOPS).
 
 With --old-csrc, only the kernels are compared: DIR holds an earlier
 csrc/ with the C entry points of commit ad1ed22 (nn_bruteforce_f32,
@@ -550,6 +551,7 @@ SASS_LOOPS = {
     "16icp_fused_kernelILb1E": ("HMMA", 128),
     "16icp_fused_kernelILb0E": ("FMNMX", 32),
     "15nn_split_kernel": ("FMNMX", 32),
+    "17knn_select_kernel": ("FMUL", 32),
 }
 _SASS_LINE = re.compile(
     r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
@@ -627,13 +629,14 @@ def sass_report():
 def trip_worker(src_dir, rounds):
     """One process of --trip-ab: the package from src_dir; prints one JSON
     line {"src", "trips", "trip_ms": {precision: [ms a trip, ...]},
-    "launches_per_trip": {precision: {kernel: n}}}."""
+    "launches_per_trip": {precision: {"wrapper.counter": n}}}, from the
+    tree's own launch counters (kernels.graphs.launch_counters)."""
     sys.path.insert(0, str(Path(src_dir).resolve()))
     import dataclasses
 
     import tpu_icp_slam_torch
     from tpu_icp_slam_torch.dist import ShardedAligner, make_mesh
-    from tpu_icp_slam_torch.kernels import _build
+    from tpu_icp_slam_torch.kernels import _build, graphs
 
     assert Path(tpu_icp_slam_torch.__file__).resolve().is_relative_to(
         Path(src_dir).resolve()), tpu_icp_slam_torch.__file__
@@ -649,7 +652,10 @@ def trip_worker(src_dir, rounds):
         aligner = ShardedAligner(mesh, dataclasses.replace(
             icp, nn_precision=prec))
         trips = int(aligner(*arrays).iters.max())  # warm-up
-        chip_smoke._zero_counts()
+        # the tree's own counters: chip_smoke's name this tree's kernels
+        counters = graphs.launch_counters()
+        for f, a in counters:
+            setattr(f, a, 0)
         times = []
         for _ in range(rounds):
             torch.cuda.synchronize()
@@ -659,7 +665,8 @@ def trip_worker(src_dir, rounds):
         out["trips"][prec] = trips
         out["trip_ms"][prec] = times
         out["launches_per_trip"][prec] = {
-            k: n / (rounds * trips) for k, n in chip_smoke._counts().items()}
+            f"{f.__name__}.{a}": getattr(f, a) / (rounds * trips)
+            for f, a in counters if getattr(f, a)}
     print(json.dumps(out))
 
 
@@ -741,6 +748,7 @@ def _profile_summary(fn, top=10):
     return {
         "wall_ms": wall_ms, "device_ms": device_ms,
         "busy": device_ms / wall_ms, "idle": 1.0 - device_ms / wall_ms,
+        "kernels": sum(a.count for a in dev),
         "launches": sum(a.count for a in avgs if a.key.startswith(
             ("cudaLaunch", "cuLaunch", "cudaGraphLaunch"))),
         "top_host": [(a.key[:70], a.count, a.self_cpu_time_total / 1e3)
@@ -911,7 +919,10 @@ def loop_profile(root, rounds):
         prof = res["profile"]
         print(f"    profiled wall {prof['wall_ms']:.3f} ms, device "
               f"{prof['device_ms']:.3f} ms, busy {prof['busy']:.4f}, idle "
-              f"{prof['idle']:.4f}, launches {prof['launches']}")
+              f"{prof['idle']:.4f}, launches {prof['launches']}, device "
+              f"kernels {prof['kernels']}"
+              + (f" ({prof['kernels'] / res['trips']:.1f} a trip)"
+                 if "trips" in res else ""))
         for kind in ("top_host", "top_device"):
             for key, count, ms in prof[kind]:
                 print(f"    {kind} {key:<70} {count:7d} {ms:10.3f} ms")
@@ -1176,9 +1187,10 @@ def _stage_split(prof, n_frames):
 # (family, substrings of a device event's name), first match wins: what
 # the trip's and the frame's device time is spent on
 _FAMILIES = (
-    ("KN", ("knn_select", "knn_fit")),
+    ("KN", ("knn_select", "knn_probe", "knn_fit")),
     ("EX", ("ex_keys", "ex_refine", "ex_count", "ex_write")),
-    ("K2S", ("gn_step",)), ("K2", ("gn_accum",)),
+    ("K2S", ("gn_step",)), ("K2P", ("p2p_sums", "p2p_cov")),
+    ("K2", ("gn_accum",)),
     ("NN (K1/K3/K4, voxel)", ("nn_", "packed_scan", "voxel")),
     ("RF", ("rigid_fit",)),
     ("cuSOLVER/cuBLAS solve", ("potrf", "potf2", "trsm", "trsv", "getrf",

@@ -61,8 +61,8 @@ nonzero and the final line is not printed:
      front end's ICP iterations, K2 = K3 = K5 = 0, and every K1 launch a
      batched
      verification launch, as many as the batched iterations verification
-     ran, as many RF launches; then one verification of a kept closure
-     under sync debug mode: host syncs a batched iteration.
+     ran, as many K2P launches and no RF; then one verification of a kept
+     closure under sync debug mode: host syncs a batched iteration.
  14. cli and state: the port's command line in this process with the
      default device, everything under build/chip_cli/. (1) Phase 4's log
      written as a KITTI sequence (datasets/kitti.write_sequence) and `cli
@@ -78,7 +78,8 @@ nonzero and the final line is not printed:
      as phase 13's run, poses within rtol 1e-5 / atol 1e-6. (5) `cli align
      --n 4096` recovers the transform, one K1 launch per ICP iteration. (6)
      `cli run --dataset sim3d --frames 20` with SlamConfig() (scan-to-scan,
-     point-to-point): rc 0, one K1 launch per ICP iteration.
+     point-to-point): rc 0, one K1 and one K2P launch per ICP iteration,
+     no RF.
  15. config 2 (2D lidar SLAM), everything under build/chip_cli2d/. (1) K1
      at D = 2 against its plain version, idx and d2 bit for bit: M = N =
      4,096 (SlamConfig()'s scan capacity, sim2d frames 1 on 0), 16,384 x
@@ -88,12 +89,13 @@ nonzero and the final line is not printed:
      configs/lidar2d_scan_to_map.json`: rc 0, finite poses, tpu_ate <
      0.25 m, >= 1 accepted closure, K1 launches at D = 3 equal to the front
      end's ICP iterations, batched K1 launches at D = 2 equal to the
-     verification iterations, K2 = K3 = K4 = K5 = 0, RF launches = front-
-     end plus verification iterations; Slam2D.run's frames/s; host syncs
+     verification iterations, K2 = K3 = K4 = K5 = 0, K2P launches = front-
+     end plus verification iterations and no RF; Slam2D.run's frames/s;
+     host syncs
      an ICP iteration of one front-end align (at most one) and a batched
      iteration of one verification. (3) `cli run --dataset sim2d --frames
-     30` with SlamConfig(): rc 0, map.png a PNG, one K1 launch at D = 2 per
-     ICP iteration; frames/s. (4)
+     30` with SlamConfig(): rc 0, map.png a PNG, one K1 launch at D = 2
+     and one K2P launch per ICP iteration; frames/s. (4)
      the same log written as a CARMEN .clf file (carmen.write_clf) and read
      back within the writer's precision, through `cli run`. (5) a
      Slam2D streaming run checkpointing every 20 frames, resumed, held to
@@ -164,13 +166,15 @@ nonzero and the final line is not printed:
      B = 1, 16 and 32, D = 2 and 3, on well-conditioned, reflecting, rank
      D-1, near-equal, zero and (D = 3) collinear covariances, a proper
      rotation on every case, non-finite in non-finite out; umeyama_masked
-     at B = 16 x 16,384 with no sync under sync debug mode "error"; then
+     at B = 16 x 16,384 with no sync under sync debug mode "error"; RF's
+     launches where it still runs, the sharded align at point_to_point
+     (one rank, phase 17's frame pairs: one a trip); then
      align_batched at phase 13's shape (frame 6 against frames 0 and 3,
      eight yaws each: B = 16, 16,384 points, the backend's coarse
      settings): every trip's carried state bit-equal to the trip function
      driven eagerly on the card, one host sync a trip (the condition read;
      none after a trip that reaches max_iters), batched K1
-     and RF one launch a trip with the graph's replays counted, the memory
+     and K2P one launch a trip with the graph's replays counted, the memory
      one graph holds, and ms a trip eager and graphed.
  21. The frame graphs (ScanToMapPipeline.run_fused on CUDA replays
      slam/scan_to_map.FrameGraphs, a CUDA graph a stage of the frame)
@@ -198,7 +202,7 @@ nonzero and the final line is not printed:
      each against the eager _step loop on the same inputs on the card:
      every info and every state field (the grid's log-odds included)
      bit-equal, two runs from one state equal, call 1's returned state
-     unchanged after later runs, K1 (2-D), K2S and RF launches equal with
+     unchanged after later runs, K1 (2-D), K2S and K2P launches equal with
      the replays counted, host syncs a frame the ICP's condition reads
      (trip replays + 1, one fewer when max_iters stops the loop), and a
      loop of step (the same graphs, a frame a call) bit-equal to run_fused.
@@ -206,7 +210,7 @@ nonzero and the final line is not printed:
      the graphs hold.
  23. K2S (csrc/gn_step.cu: the point-to-plane iteration after the
      correspondence, one launch a trip on the 3D point-to-plane paths)
-     against its plain version (kernels/gn_step.trip_ref: the torch step
+     against its plain version (icp/loop.trip_ref: the torch step
      around K2, on the card) on phase 4's trip inputs (frame 1 against the
      local model of the seeded map, K1's correspondence at identity) under
      slice_config()'s and configs/kitti_full_res.json's ICP, and on phase
@@ -243,6 +247,22 @@ nonzero and the final line is not printed:
      bit-equal. An eager pre runs no sort or top-k kernel. Their launches
      a frame come from phase 4 (KN at stride 4, EX) and phase 13 (KN at
      kitti_full_res.json); EX's library_ms is torch.topk of the same d².
+ 25. K2P (csrc/p2p_step.cu: the point-to-point iteration after the
+     correspondence, two launches a trip on every point-to-point path,
+     unbatched and batched) against its plain version (icp/loop.trip_ref on
+     the card: the torch step around umeyama_masked and RF) on phase
+     15(3)'s 2D scan-to-scan trip (SE(2), 4,096 points), phase 4's frame 2
+     against frame 1 (SE(3), 16,384 points, the verification's fine
+     settings) and phase 20's verification shape (B = 16, 16,384²), over
+     the option sets (the preset, Anderson, a trust region, both, a
+     min_inliers hold, a frozen state; no Anderson at the verification's
+     yaws, whose poses near a rotation of pi make AA's twists
+     ill-conditioned in float32) at trips 0 and 1: T within
+     K2P_T_TOL, rmse within K2P_RMSE_TOL, inliers and iterations equal,
+     converged equal but within K2S_TOL_BAND of tol, frozen elements
+     bit-unchanged, two launches bit-equal; device, call and plain ms and
+     the bound. Launches a frame from phase 15(3) (2D), phase 15(2)'s
+     front end (Slam2D's z = 0 lift, 3D) and phase 13 (batched).
  19. profile: torch.profiler over each kernel's back-to-back calls (its
      row's kernel_ms) and over K3's, K4's and K5's wrappers (launches and
      host time a call; K3 and K4, batched or not, must make their four
@@ -271,7 +291,9 @@ computes the other functions, RF's is torch.linalg.svd alone on the same
 (B, 3, 3), which the port never calls on the card; share, bound_ms / ms. RF's bound counts
 its float64 operations over the H100's FP64 peak. The batched rows (phase
 18) count their launches on phase 17's sharded align and give
-launches_per_trip. K2S's rows and PJ's count theirs on phase 4 and phase
+launches_per_trip, as RF's row, whose launches are the sharded
+point-to-point align's (phase 20) since K2P took its place on the main
+path. K2S's rows and PJ's count theirs on phase 4 and phase
 16's cli run; K2's unbatched rows, which the main path no longer launches,
 on phase 23's degen_eps runs; KN's and EX's on phases 4 and 13, and EX's
 library_ms is torch.topk(d², size) alone, the select without the
@@ -486,8 +508,9 @@ def _cold_ms(fn, n=20, reps=5, strict=True):
 
 # The port's own CUDA kernels (csrc/*.cu), as the profiler names them.
 OWN_KERNELS = ("nn_split_kernel", "nn_fold_kernel", "gn_accum_kernel",
-               "gn_step_kernel", "projective_kernel", "knn_select_kernel",
-               "knn_fit_kernel", "ex_keys_kernel", "ex_refine_kernel",
+               "gn_step_kernel", "p2p_sums_kernel", "p2p_cov_kernel",
+               "projective_kernel", "knn_probe_kernel", "knn_select_kernel",
+               "ex_keys_kernel", "ex_refine_kernel",
                "ex_count_kernel", "ex_write_kernel",
                "nn_centre_kernel", "nn_pack_kernel", "packed_scan_kernel",
                "nn_rescore_kernel", "icp_fused_kernel", "coop_probe_kernel",
@@ -849,12 +872,13 @@ def phase_cpu_agreement():
 def _counters():
     from tpu_icp_slam_torch.kernels import (
         gn_cuda, gn_step, icp_fused, knn_cuda, nn_bf16, nn_cuda, nn_rescore,
-        projective_cuda, select_cuda,
+        p2p_step, projective_cuda, select_cuda,
     )
 
     return {"K1": nn_cuda.nn_bruteforce, "K2": gn_cuda.gn_accum,
             "K3": nn_bf16.nn_bf16, "K4": nn_rescore.nn_rescore,
             "K5": icp_fused.icp_fused, "K2S": gn_step.gn_step,
+            "K2P": p2p_step.p2p_step,
             "PJ": projective_cuda.projective_lookup,
             "KN": knn_cuda.knn_normals, "EX": select_cuda.local_select}
 
@@ -1163,7 +1187,8 @@ def phase_fused_slice(pts, msk, gt):
             slice_config(loop_backend="fused", nn_precision=prec), pts, msk,
             gt, f"fused slice {prec}")
         assert c == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": n_frames,
-                     "K2S": 0, "PJ": 0, "KN": c["KN"], "EX": n_frames}, \
+                     "K2S": 0, "K2P": 0, "PJ": 0, "KN": c["KN"],
+                     "EX": n_frames}, \
             (prec, c)
         counts[prec] = c["K5"], n_frames
     _run_slice(slice_config(), pts[:6], msk[:6], gt,
@@ -1342,6 +1367,7 @@ def phase_full_slam():
     c = _counts()
     batched = nn_cuda.nn_bruteforce.batched_launches
     rf = _rf().launches
+    k2p = c["K2P"]
     iters = int(slam.frontend_iters.sum())
     n_frames = len(pts) - 1
     fe_s = sum(x[2] for x in slam.chunk_stats)
@@ -1371,8 +1397,9 @@ def phase_full_slam():
     assert c["K2"] == c["K3"] == c["K5"] == 0, c
     # one extract a frame; KN at the seed frame and at each map insert
     assert c["EX"] == n_frames and c["KN"] > 1, (c, n_frames)
-    assert c["K1"] == batched == rf == slam.detector.verify_iters > 0, \
-        (c["K1"], batched, rf, slam.detector.verify_iters)
+    assert c["K1"] == batched == k2p == slam.detector.verify_iters > 0, \
+        (c["K1"], batched, k2p, slam.detector.verify_iters)
+    assert rf == 0, rf  # K2P fits inside the step
     _verify_syncs(slam.detector, pts, msk, slam.kf_frames,
                   (slam.closures_kept or slam.closures)[0], "full slam")
     syncs, want = _frame_syncs(cfg, pts, msk)
@@ -1380,7 +1407,7 @@ def phase_full_slam():
           f"mode, frames 1-5; the frame graphs' count {want:.3f}; launch "
           f"calls a frame in the profile phase)")
     assert syncs == want, (syncs, want)
-    return (c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam), rf,
+    return (c["K4"], c["K1"], n_frames, (cfg, pts, msk, poses, slam), k2p,
             c["KN"], c["EX"])
 
 
@@ -1552,8 +1579,8 @@ def phase_cli(full):
           f"{s2s['ate_rmse']:.5f} m, ICP iterations {ev['icp_iters']} | "
           f"launches {c} | {dt:.3f} s")
     assert rc == 0 and s2s["mode"] == "fused", s2s
-    assert c["K1"] == ev["icp_iters"] > 0, (c, ev)
-    assert c["K2"] == c["K2S"] == 0, (c, ev)
+    assert c["K1"] == c["K2P"] == ev["icp_iters"] > 0, (c, ev)
+    assert c["K2"] == c["K2S"] == _rf().launches == 0, (c, ev)
 
 
 # ---- config 2: 2D lidar SLAM ------------------------------------------------
@@ -1724,7 +1751,8 @@ def phase_config2():
     assert k1_2d == batched == slam.detector.verify_iters > 0, \
         (k1_2d, batched, slam.detector.verify_iters)
     assert c["K2"] == c["K3"] == c["K4"] == c["K5"] == 0, c
-    assert rf == fe_iters + batched, (rf, fe_iters, batched)
+    assert c["K2P"] == fe_iters + batched and rf == 0, \
+        (c["K2P"], rf, fe_iters, batched)
     cfg = from_json(open(CONFIG2).read())
     pts, msk = runner.pad_scans(runner.load_dataset(
         "sim2d_loop", SIM2D_FRAMES).scans, cfg.pipeline.scan_capacity)
@@ -1752,7 +1780,8 @@ def phase_config2():
           f"ATE {s2s['ate_rmse']:.5f} m | launches {c}, K1 on 2-D points "
           f"{run_k1_2d}")
     assert rc == 0 and s2s["mode"] == "fused", s2s
-    assert c["K1"] == run_k1_2d == fused["icp_iters"] > 0, (c, fused)
+    assert c["K1"] == run_k1_2d == c["K2P"] == fused["icp_iters"] > 0, \
+        (c, fused)
     assert c["K2"] == c["K3"] == c["K4"] == c["K5"] == 0, c
     with open(os.path.join(out, "map.png"), "rb") as fh:
         assert fh.read(8) == b"\x89PNG\r\n\x1a\n", "map.png is no PNG"
@@ -1807,7 +1836,8 @@ def phase_config2():
         (lc.i, lc.j) for lc in slam.closures]
     np.testing.assert_allclose(res, poses, rtol=1e-5, atol=1e-6)
     return {"eval_batched": batched, "eval_frames": SIM2D_FRAMES - 1,
-            "run_k1": run_k1_2d, "run_frames": 29}
+            "eval_k2p_front": fe_iters, "run_k1": run_k1_2d,
+            "run_frames": 29}
 
 
 # ---- config 3: RGB-D projective odometry, and the mapping options ---------
@@ -2653,10 +2683,31 @@ def _umeyama64(cov, mu_s, mu_d):
                                mu_s.astype(np.float64))
 
 
-def phase_rf():
+def _rf_sharded(pts, msk, gt):
+    """RF where it still runs: the sharded align's point-to-point rows
+    (dist/sharded_icp._align_shard, whose moments cross an all-reduce
+    before the fit; one rank here, the reduction the identity) on phase
+    17's four frame pairs. Returns (RF launches, trips): one a trip."""
+    from tpu_icp_slam_torch.dist import sharded_icp
+
+    icp, (src, smsk, dst, nrm, T0) = _sharded_problems(pts, msk, gt)
+    icp = dataclasses.replace(icp, method="point_to_point", max_iters=8)
+    _zero_counts()
+    res = sharded_icp._align_shard(*_on_card(src, smsk, dst, nrm, T0),
+                                   cfg=icp, reduce=lambda t: t)
+    trips = int(res.iters.max())
+    rf = _rf().launches
+    print(f"[RF] the sharded align at point_to_point, B = 4 (phase 17's "
+          f"frame pairs, one rank): {rf} RF launches over {trips} trips")
+    assert rf == trips > 0 and _counts()["K2P"] == 0, (rf, trips)
+    return rf, trips
+
+
+def phase_rf(pts, msk, gt):
     """RF against its plain version (torch's SVD form on the card) and a
     float64 numpy Umeyama at B = 1, 16 and 32, D = 2 and 3; a non-finite
-    input; no sync in umeyama_masked; RF's row, timed at phase 13's
+    input; no sync in umeyama_masked; its launches where it still runs
+    (the sharded point-to-point align); RF's row, timed at phase 13's
     verification shape (B = 16, D = 3)."""
     from tpu_icp_slam_torch.icp import point_to_point as p2p
 
@@ -2722,6 +2773,7 @@ def phase_rf():
     assert torch.allclose(Tm[:, :3, 3], torch.full_like(Tm[:, :3, 3], 0.5),
                           atol=1e-4), Tm[:, :3, 3]
 
+    launches = _rf_sharded(pts, msk, gt)
     cov, mu_s, mu_d = (torch.as_tensor(a, device=dev) for a in _rf_cases(
         3, 16, np.random.default_rng(22))["random"][0])
     t = _timings(lambda: p2p.rigid_from_stats(cov, mu_s, mu_d),
@@ -2739,7 +2791,9 @@ def phase_rf():
     return {"name": "rigid_fit", "route": "cuda",
             "source": "src/tpu_icp_slam_torch/csrc/rigid_fit.cu",
             "replaces": "src/tpu_icp_slam/icp/point_to_point.py:33",
-            "max_abs_err": err_plain, "gap_float64": gap64, **t}
+            "max_abs_err": err_plain, "gap_float64": gap64,
+            "launches": launches[0], "launches_per_frame": None,
+            "launches_per_trip": launches[0] / launches[1], **t}
 
 
 def _verification_inputs(pts, msk):
@@ -2765,13 +2819,13 @@ def _verification_inputs(pts, msk):
 def phase_graphed_verification(pts, msk):
     """align_batched's trip as a CUDA graph at phase 13's shape: every
     trip's state bit-equal to the trip function driven eagerly on the
-    card; one host sync a trip; batched K1 and RF one launch a trip,
+    card; one host sync a trip; batched K1 and K2P one launch a trip,
     replays included; the memory one graph holds; ms a trip eager and
     graphed (host clock, fenced)."""
     from tpu_icp_slam_torch.icp import loop
 
     icp, src, dst, dmask, inits = _verification_inputs(pts, msk)
-    trip = loop._batched_trip(loop._batched_body(icp, src, dst, dmask,
+    trip = loop._batched_trip(loop._batched_step(icp, src, dst, dmask,
                                                  inits, None))
     eager = trip(loop._init_state(inits), 0)
     torch.cuda.synchronize()
@@ -2797,16 +2851,17 @@ def phase_graphed_verification(pts, msk):
         return loop.align_batched(src, dst, dmask, inits, icp)
 
     def eager_run():
-        return loop._run_trips(icp, trip, loop._init_state(inits))
+        return loop._drive_batched(icp, loop._batched_step(
+            icp, src, dst, dmask, inits, None), inits)
 
     graphed()  # the cached graph of this key
     _zero_counts()
     syncs = _host_syncs(graphed)
-    k1, rf = _counters()["K1"].batched_launches, _rf().launches
+    k1, k2p = _counters()["K1"].batched_launches, _counts()["K2P"]
     # the condition is read before every trip after the first and once
     # more to stop, unless max_iters stopped the loop
     assert syncs == trips - (trips == icp.max_iters) and \
-        k1 == rf == trips, (syncs, k1, rf, trips)
+        k1 == k2p == trips and _rf().launches == 0, (syncs, k1, k2p, trips)
     times = {}
     for name, fn in (("eager", eager_run), ("graphed", graphed),
                      ("graphed", graphed), ("eager", eager_run)):
@@ -2819,7 +2874,7 @@ def phase_graphed_verification(pts, msk):
     print(f"[graphed verification] B = 16, {SCAN_POINTS}² points, "
           f"{trips} trips: every trip's state bit-equal to the eager trip "
           f"function's; {syncs} host syncs ({syncs / trips:.3f} a trip); "
-          f"K1 batched {k1}, RF {rf} launches, replays included; one graph "
+          f"K1 batched {k1}, K2P {k2p} launches, replays included; one graph "
           f"holds {held_mib:.1f} MiB | ms a trip, eager "
           f"{', '.join(f'{v:.4f}' for v in times['eager'])}, graphed "
           f"{', '.join(f'{v:.4f}' for v in times['graphed'])}")
@@ -3223,7 +3278,7 @@ def _k2s_trip(icp, src, mask_f, corr, it, variant=None):
         return cur, q, n, gate, d2
 
     if it == 1:
-        k2s.trip_ref(icp, mask_f, *inputs(state), state, 0, *anchors)
+        loop.trip_ref(icp, mask_f, *inputs(state), state, 0, *anchors)
     if variant == "frozen":
         state[3].fill_(True)
     prev = float(state[1])
@@ -3232,7 +3287,7 @@ def _k2s_trip(icp, src, mask_f, corr, it, variant=None):
     k2s.gn_step(icp, mask_f, *args, got, it, *anchors)
     H, g = (t.clone() for t in k2s.last_hg(src.device))
     k2s.gn_step(icp, mask_f, *args, again, it, *anchors)
-    k2s.trip_ref(icp, mask_f, *args, want, it, *anchors)
+    loop.trip_ref(icp, mask_f, *args, want, it, *anchors)
     return got, want, args, (H, g), again, anchors, prev
 
 
@@ -3258,6 +3313,7 @@ def _k2s_gaps(got, want):
 def _k2s_row(label, base, src, mask_f, corr, m):
     """K2S against its plain version over _k2s_options(base) at trips 0 and
     1 on one problem; its H and g against K2's; its timings."""
+    from tpu_icp_slam_torch.icp import loop
     from tpu_icp_slam_torch.kernels import gn_cuda
     from tpu_icp_slam_torch.kernels import gn_step as k2s
 
@@ -3282,7 +3338,7 @@ def _k2s_row(label, base, src, mask_f, corr, m):
                 bad = []
             assert not bad, f"K2S {label} {name} trip {it}: {bad}"
             cur, q, n, gate, d2 = args
-            w = k2s.huber(icp, gate * mask_f, d2)
+            w = loop.huber(icp, gate * mask_f, d2)
             H2, g2 = gn_cuda.gn_accum(cur, q, n, w)
             assert bits_equal(H, H2) and bits_equal(g, g2), \
                 f"K2S {label} {name} trip {it}: H, g differ from K2's"
@@ -3301,7 +3357,7 @@ def _k2s_row(label, base, src, mask_f, corr, m):
     got, want, args, _, _, anchors, _ = _k2s_trip(icp, src, mask_f, corr,
                                                   1)
     t = _timings(lambda: k2s.gn_step(icp, mask_f, *args, got, 1, *anchors),
-                 lambda: k2s.trip_ref(icp, mask_f, *args, want, 1,
+                 lambda: loop.trip_ref(icp, mask_f, *args, want, 1,
                                       *anchors),
                  bound=k2s_bound(m), plain_n=20)
     t["_wrapper"] = (lambda: k2s.gn_step(icp, mask_f, *args, got, 1,
@@ -3685,6 +3741,200 @@ def phase_map_kernels(pts, msk):
     return rows
 
 
+# ---- phase 25: K2P, the point-to-point iteration -------------------------
+
+# K2P's result against its plain version (loop.trip_ref on the card: the
+# torch step around umeyama_masked and RF) from the same state and inputs:
+# T within K2P_T_TOL and rmse within K2P_RMSE_TOL, absolute (the sums run
+# in another order, and the rigid fit's float64 rotation is RF's where the
+# plain version's is RF's of torch's covariance); inliers and iterations
+# equal; converged equal but where |prev - rmse| lies within K2S_TOL_BAND
+# of tol. Measured by this phase on an H100: T at most 1.8e-6, rmse 2.4e-7.
+K2P_T_TOL = 2e-5
+K2P_RMSE_TOL = 2e-6
+
+
+def k2p_bound(batch, m, d):
+    """K2P's least time: its bytes (cur and q, D floats each a row, gate
+    and d2 a row each, the shared mask; the state, T0 and T0⁻¹ of each
+    element under 256 bytes) against ~(6D + 12) FP32 operations a row
+    (the Huber weight, the first pass's 2D + 3 sums and the second's D²
+    centred terms)."""
+    return _bound((6.0 * d + 12.0) * batch * m,
+                  (8.0 * d + 8.0) * batch * m + 4.0 * m + 256.0 * batch)
+
+
+def _k2p_options(base, anderson=True):
+    """Phase 25's option sets on an ICPConfig: name -> (cfg, variant).
+    anderson=False leaves out AA(1): its twists of absolute poses are
+    ill-conditioned near a rotation of pi (so3_log's arccos: at phase 20's
+    verification yaws the kernel and the plain step part far beyond
+    K2P_T_TOL), and verification never runs it."""
+    rep = dataclasses.replace
+    sets = {"preset": (base, None),
+            "anderson": (rep(base, anderson=True), None),
+            "trust region": (rep(base, max_total_trans=0.05,
+                                 max_total_rot=0.02), None),
+            "anderson, trust region": (rep(base, anderson=True,
+                                           max_total_trans=0.05,
+                                           max_total_rot=0.02), None),
+            "min_inliers hold": (rep(base, min_inliers=10 ** 7), None),
+            "frozen": (base, "frozen")}
+    return {k: v for k, v in sets.items()
+            if anderson or not v[0].anderson}
+
+
+def _k2p_problems(pts, msk):
+    """(label, ICPConfig, source points, source float mask, step inputs
+    from a state: state -> (cur, q, gate, d2), T0) of phase 25: the 2D
+    scan-to-scan trip of phase 15(3) (sim2d frame 1 against frame 0,
+    SlamConfig()), phase 4's frame 2 against frame 1 in 3D (16,384 points,
+    the verification's fine settings), and phase 13's verification shape
+    (B = 16, 16,384², the coarse settings)."""
+    from tpu_icp_slam_torch.backend.loop_closure import LoopDetector
+    from tpu_icp_slam_torch.core.pointcloud import PointCloud
+    from tpu_icp_slam_torch.icp import loop
+
+    cfg2, P, M = _s2s2d_log()
+    icp, src, dst, dmask, inits = _verification_inputs(pts, msk)
+    fine = LoopDetector(full_slam_config().backend,
+                        device=torch.device("cuda")).icp_fine
+    out = []
+    for label, cfg, s, sm, t, tm in (
+            ("2D, B=1, M=4096", cfg2.icp, P[1], M[1], P[0], M[0]),
+            ("3D, B=1, M=16384", fine, *_on_card(pts[2], msk[2], pts[1],
+                                                 msk[1]))):
+        corr = loop._nn_correspondence(cfg, PointCloud(points=t, mask=tm))
+
+        def inputs(state, s=s, corr=corr):
+            cur = loop._moved(s, state[0])
+            q, _, gate, d2 = corr(cur)
+            return cur, q, gate, d2
+
+        out.append((label, cfg, s, sm.float(), inputs,
+                    torch.eye(s.shape[1] + 1, device="cuda")))
+    corr = loop._batched_correspondence(icp, dst, dmask, inits.shape[0])
+
+    def batched_inputs(state):
+        cur = loop._moved(src.points, state[0])
+        return (cur, *corr(cur))
+
+    out.append(("3D, B=16, 16384x16384", icp, src.points,
+                src.mask.float(), batched_inputs, inits))
+    return out
+
+
+def _k2p_trip(icp, mask_f, inputs, T0, it, variant=None):
+    """One trip of K2P and of its plain version from the same state on the
+    card (trip 0 from loop._init_state, or trip `it` after plain trips):
+    (kernel state, plain state, a second launch's state, inputs, the rmse
+    before the trip)."""
+    from tpu_icp_slam_torch.icp import loop
+    from tpu_icp_slam_torch.kernels import p2p_step
+
+    T0_inv, _ = loop._anchor(icp, T0, False)
+    state = tuple(t.clone() for t in loop._init_state(T0))
+    for i in range(it):
+        cur, q, gate, d2 = inputs(state)
+        loop.trip_ref(icp, mask_f, cur, q, None, gate, d2, state, i, T0,
+                      T0_inv, None)
+    if variant == "frozen":
+        state[3].fill_(True)
+    prev = state[1].clone()
+    cur, q, gate, d2 = inputs(state)
+    got, want, again = (tuple(t.clone() for t in state) for _ in range(3))
+    p2p_step.p2p_step(icp, mask_f, cur, q, gate, d2, got, it, T0, T0_inv)
+    p2p_step.p2p_step(icp, mask_f, cur, q, gate, d2, again, it, T0, T0_inv)
+    loop.trip_ref(icp, mask_f, cur, q, None, gate, d2, want, it, T0, T0_inv,
+                  None)
+    return got, want, again, (cur, q, gate, d2, T0_inv), prev
+
+
+def _k2p_gaps(icp, got, want, prev):
+    """(T gap, rmse gap, the fields that disagree) of a K2P state against
+    its plain version's; converged may differ where |prev - rmse| lies
+    within K2S_TOL_BAND of tol."""
+    T_gap = float((got[0] - want[0]).abs().max())
+    rmse_gap = float((got[1] - want[1]).abs().max())
+    bad = [name for name, i in (("n_inliers", 2), ("iters", 6))
+           if not bits_equal(got[i], want[i])]
+    differ = got[3] != want[3]
+    if bool(differ.any()):
+        edge = torch.minimum((prev - got[1]).abs() - icp.tol,
+                             (prev - want[1]).abs() - icp.tol).abs()
+        if not bool((edge[differ] <= K2S_TOL_BAND).all()):
+            bad.append("converged")
+    if T_gap > K2P_T_TOL:
+        bad.append("T")
+    if rmse_gap > K2P_RMSE_TOL:
+        bad.append("rmse")
+    return T_gap, rmse_gap, bad
+
+
+def phase_k2p(pts, msk):
+    """Phase 25: K2P against its plain version at the point-to-point
+    paths' shapes over the option sets, trips 0 and 1; frozen elements
+    bit-unchanged; two launches bit-equal; its rows' timings."""
+    from tpu_icp_slam_torch.icp import loop
+    from tpu_icp_slam_torch.kernels import p2p_step
+
+    rows = []
+    for label, base, src, mask_f, inputs, T0 in _k2p_problems(pts, msk):
+        worst = {"T": 0.0, "rmse": 0.0}
+        parts = []
+        options = _k2p_options(base, anderson=T0.dim() == 2)
+        for name, (icp, variant) in options.items():
+            for it in (0, 1):
+                got, want, again, args, prev = _k2p_trip(
+                    icp, mask_f, inputs, T0, it, variant)
+                assert all(bits_equal(a, b) for a, b in zip(got, again)), \
+                    f"K2P {label} {name}: not bit-reproducible"
+                if variant == "frozen":
+                    assert all(bits_equal(a, b) for a, b in zip(got, want)), \
+                        f"K2P {label}: a frozen state changed"
+                    parts.append(f"{name} t{it} unchanged")
+                    continue
+                T_gap, rmse_gap, bad = _k2p_gaps(icp, got, want, prev)
+                assert not bad, (f"K2P {label} {name} trip {it}: {bad} "
+                                 f"(T {T_gap:.3e}, rmse {rmse_gap:.3e})")
+                worst["T"] = max(worst["T"], T_gap)
+                worst["rmse"] = max(worst["rmse"], rmse_gap)
+                parts.append(f"{name} t{it} T {T_gap:.2e} rmse "
+                             f"{rmse_gap:.2e} inl {got[2].tolist()} conv "
+                             f"{got[3].tolist()}")
+                if name == "min_inliers hold":
+                    assert bits_equal(got[0], want[0]), "K2P: hold moved T"
+        # timings: a configuration that never converges, so that every
+        # call does the whole step
+        icp = dataclasses.replace(base, tol=0.0, tol_update=0.0,
+                                  max_iters=2 ** 30)
+        _, _, _, (cur, q, gate, d2, T0_inv), _ = _k2p_trip(
+            icp, mask_f, inputs, T0, 1)
+        state = tuple(t.clone() for t in loop._init_state(T0))
+        batch = T0.shape[0] if T0.dim() == 3 else 1
+        # this problem's tensors bound now: the profile phase calls these
+        # after the loop has moved on
+        args = (icp, mask_f, cur, q, gate, d2, state, T0, T0_inv)
+        t = _timings(
+            lambda a=args: p2p_step.p2p_step(*a[:7], 1, *a[7:]),
+            lambda a=args: loop.trip_ref(*a[:4], None, *a[4:7], 1, *a[7:],
+                                         None),
+            k2p_bound(batch, cur.shape[-2], cur.shape[-1]))
+        print(f"[K2P p2p_step] {card()} | {label}: against the plain step "
+              f"(loop.trip_ref on the card) over {len(parts)} trips, worst "
+              f"T {worst['T']:.3e} (K2P_T_TOL {K2P_T_TOL}), rmse "
+              f"{worst['rmse']:.3e} (K2P_RMSE_TOL {K2P_RMSE_TOL}), inliers "
+              f"and iterations equal, frozen unchanged, bit-reproducible | "
+              f"{_fmt(t)} (plain: the torch step, umeyama_masked and RF) | "
+              f"library: none | {'; '.join(parts)}")
+        rows.append({"name": f"p2p_step[{label}]", "route": "cuda",
+                     "source": "src/tpu_icp_slam_torch/csrc/p2p_step.cu",
+                     "replaces": "src/tpu_icp_slam/icp/loop.py:202",
+                     "max_abs_err": worst["T"], "rmse_err": worst["rmse"],
+                     **t})
+    return rows
+
+
 def phase_profile(rows):
     """Last: torch.profiler over each kernel's back-to-back calls gives its
     row's kernel_ms and kernel_parts (the port's own kernels alone), and
@@ -3740,8 +3990,9 @@ def main() -> int:
     _count(k3_row, *phase_steps_bf16(pts, msk, gt))
     k4_row = phase_k4(pts, msk)
     k1b_row = phase_k1_batched(pts, src, dst)
-    k4, k1b, n_frames, full, rf_launches, kn13, _ = phase_full_slam()
+    k4, k1b, n_frames, full, k2p13, kn13, _ = phase_full_slam()
     full_kn = kn13, n_frames
+    full_k2p = k2p13, n_frames
     _count(k4_row, k4, n_frames)
     _count(k1b_row, k1b, n_frames)
     t0 = time.perf_counter()
@@ -3763,8 +4014,7 @@ def main() -> int:
     print(f"[config 5] phase 17 in {time.perf_counter() - t0:.2f} s")
     batched_rows = phase_batched(pts, msk)
     t0 = time.perf_counter()
-    rf_row = phase_rf()
-    _count(rf_row, rf_launches, n_frames)
+    rf_row = phase_rf(pts, msk, gt)
     phase_graphed_verification(pts, msk)
     print(f"[RF and graphs] phase 20 in {time.perf_counter() - t0:.2f} s")
     # launches a sharded trip, from phase 17's run at each row's precision
@@ -3796,9 +4046,16 @@ def main() -> int:
     _count(kn_full_row, *full_kn)
     _count(ex_row, *slice_map["EX"])
     print(f"[map kernels] phase 24 in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k2p_2d_row, k2p_3d_row, k2p_b_row = phase_k2p(pts, msk)
+    _count(k2p_2d_row, c2["run_k1"], c2["run_frames"])
+    _count(k2p_3d_row, c2["eval_k2p_front"], c2["eval_frames"])
+    _count(k2p_b_row, *full_k2p)
+    print(f"[K2P] phase 25 in {time.perf_counter() - t0:.2f} s")
     rows = [k1_row, k2_row, k3_row, k4_row, *k5_rows, probe_row, k1b_row,
             k1_2d_row, k1_2db_row, k2_rgbd_row, *batched_rows, rf_row,
-            k2s_row, k2s_rgbd_row, pj_row, kn_row, kn_full_row, ex_row]
+            k2s_row, k2s_rgbd_row, pj_row, kn_row, kn_full_row, ex_row,
+            k2p_2d_row, k2p_3d_row, k2p_b_row]
     phase_profile(rows)
     phase_launch_calls(pts, msk, full, odometry)
     for row in rows:

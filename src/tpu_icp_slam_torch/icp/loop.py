@@ -19,17 +19,18 @@ back; on CUDA every trip after the first is one replay of a CUDA graph
 `StaticAlign` gives the unbatched loop the same form over static buffers,
 for the frame graphs (slam/scan_to_map.FrameGraphs, slam/rgbd.
 RGBDFrameGraphs, slam/pipeline.OdomFrameGraphs). `icp.anderson` (AA(1)
-on twists) runs in each loop. The point-to-point step's rigid fit is RF on
-CUDA (no host read either).
+on twists) runs in each loop.
 
-The unbatched loops (the host loop, the unrolled form and StaticAlign's
-trips) run one in-place step, `_step`, on the carried state. For the 3D
-point-to-plane iteration (gn_backend "auto" or "pallas", degen_eps 0:
-`kernels.gn_step.routes`) it is the reference's compiled step: after the
-correspondence, one K2S launch on CUDA (`kernels.gn_step.gn_step`) does
-the rest of the iteration and writes the state. Every other
-configuration, and every one on the CPU, runs the plain version
-(`gn_step.trip_ref`), which align_batched's body runs too.
+Every loop runs one in-place step on the carried state (`_step`, and
+`_batched_step` for align_batched): the correspondence, then the rest of
+the reference's compiled iteration. Its plain version is `gn_step_ref`
+(the step after the correspondence, in torch) with the loops' freeze,
+`trip_ref`. On CUDA two kernels replace it: K2S (`kernels.gn_step`) for a
+3D point-to-plane iteration through K2's route with degen_eps 0
+(`gn_step.routes`), one launch; K2P (`kernels.p2p_step`) for every
+point-to-point (Umeyama) iteration, unbatched or batched, 2D or 3D, two
+launches. Every other configuration, and every one on the CPU, runs
+`trip_ref`.
 """
 
 from __future__ import annotations
@@ -43,15 +44,12 @@ from typing import Callable, Optional
 import torch
 
 from tpu_icp_slam_torch.config import ICPConfig
+from tpu_icp_slam_torch.core import se2, se3
 from tpu_icp_slam_torch.core.pointcloud import PointCloud
-from tpu_icp_slam_torch.kernels import graphs, voxel_nn
-from tpu_icp_slam_torch.kernels.gn_step import (
-    freeze,
-    gn_step,
-    gn_step_ref,
-    routes,
-    trip_ref,
-)
+from tpu_icp_slam_torch.icp.point_to_plane import gauss_newton_step
+from tpu_icp_slam_torch.icp.point_to_point import umeyama_masked
+from tpu_icp_slam_torch.kernels import graphs, p2p_step, voxel_nn
+from tpu_icp_slam_torch.kernels.gn_step import gn_step, routes
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
 
 
@@ -117,9 +115,13 @@ def _nn_correspondence(cfg: ICPConfig, dst: PointCloud,
                 tile_n=cfg.nn_tile_n, precision=cfg.nn_precision)
         # rescore may hand a padded source row a padded target row >= N;
         # the reference's gather clamps such an index, and so does this
-        idx = torch.clamp(idx.long(), max=last)
-        q = dst.points[idx]
-        n = dst.normals[idx] if dst.normals is not None else None
+        # (int32 indices gather as they are: no int64 copy)
+        idx = torch.clamp(idx, max=last)
+        q = torch.index_select(dst.points, 0, idx)
+        # the normals only where the step reads them (point-to-plane)
+        n = (torch.index_select(dst.normals, 0, idx)
+             if dst.normals is not None and cfg.method == "point_to_plane"
+             else None)
         # difference-form distances for the gates and the rmse, as in the
         # reference (its NN returns the cancellation-prone factored form)
         diff = cur_pts - q
@@ -141,6 +143,149 @@ def _moved(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """points (M, D) moved by T (..., D+1, D+1) -> (..., M, D)."""
     d = points.shape[-1]
     return points @ T[..., :d, :d].transpose(-1, -2) + T[..., None, :d, d]
+
+
+def lie(d: int):
+    """The group module of d-dimensional rigid motions."""
+    if d not in (2, 3):
+        raise ValueError(f"unsupported point dimension {d}")
+    return se3 if d == 3 else se2
+
+
+def huber(cfg: ICPConfig, w: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
+    if cfg.huber_delta > 0.0:
+        dist = torch.sqrt(torch.clamp(d2, min=1e-20))
+        w = w * torch.clamp(cfg.huber_delta / dist, max=1.0)
+    return w
+
+
+def project_total(cfg: ICPConfig, T_new: torch.Tensor, T0: torch.Tensor,
+                  T0_inv: torch.Tensor) -> torch.Tensor:
+    """Trust region: project the total correction log(T_new T0⁻¹) back onto
+    the ball around T0 (batched over leading dims)."""
+    d = T_new.shape[-1] - 1
+    group = lie(d)
+    xi_tot = group.log(T_new @ T0_inv)
+    s = torch.ones(xi_tot.shape[:-1], dtype=T_new.dtype, device=T_new.device)
+    if cfg.max_total_trans > 0.0:
+        tn = torch.linalg.vector_norm(xi_tot[..., :d], dim=-1)
+        s = torch.minimum(s, cfg.max_total_trans / torch.clamp(tn, min=1e-12))
+    if cfg.max_total_rot > 0.0:
+        rn = torch.linalg.vector_norm(xi_tot[..., d:], dim=-1)
+        s = torch.minimum(s, cfg.max_total_rot / torch.clamp(rn, min=1e-12))
+    return torch.where(s[..., None, None] < 1.0,
+                       group.exp(s[..., None] * xi_tot) @ T0, T_new)
+
+
+def step_converged(cfg: ICPConfig, prev_rmse, rmse, dT, eye_d):
+    d = dT.shape[-1] - 1
+    converged = torch.abs(prev_rmse - rmse) < cfg.tol
+    if cfg.tol_update > 0.0:
+        step_mag = torch.linalg.vector_norm(dT[..., :d, d], dim=-1) + \
+            torch.linalg.matrix_norm(dT[..., :d, :d] - eye_d)
+        converged = converged | (step_mag < cfg.tol_update)
+    return converged
+
+
+def freeze(stop: torch.Tensor, new: tuple, old: tuple) -> tuple:
+    """new, but old where `stop` holds (stop batched over the leading
+    dims)."""
+    out = []
+    for n, o in zip(new, old):
+        s = stop.reshape(stop.shape + (1,) * (o.dim() - stop.dim()))
+        out.append(torch.where(s, o, n))
+    return tuple(out)
+
+
+def gn_step_ref(cfg: ICPConfig, src_mask_f: torch.Tensor, cur: torch.Tensor,
+                q: torch.Tensor, n: Optional[torch.Tensor],
+                gate: torch.Tensor, d2: torch.Tensor, T: torch.Tensor,
+                prev_rmse, it, f_prev, g_prev, T0: torch.Tensor,
+                T0_inv: Optional[torch.Tensor],
+                prior_scale: Optional[torch.Tensor],
+                eye: Optional[torch.Tensor] = None) -> tuple:
+    """One ICP iteration after the correspondence, batched over the leading
+    dims of T: (cur, q, n, gate, d2) from corr_fn at the source moved by T
+    -> (T_new, rmse, n_inliers, converged, f, g). `it` (an int, or a tensor
+    of the batch's shape) only arms Anderson's first-iteration safeguard.
+    `eye`, the (D+1, D+1) identity, may be made once by a caller that
+    steps many times (a captured trip then makes no fill for it)."""
+    d = cur.shape[-1]
+    group = lie(d)
+    if eye is None:
+        eye = torch.eye(d + 1, dtype=cur.dtype, device=cur.device)
+    min_inl = max(cfg.min_inliers, d + 1)
+    w = huber(cfg, gate * src_mask_f, d2)
+    n_inl = torch.sum(w > 0, dim=-1, dtype=torch.int32)
+    if cfg.method == "point_to_plane":
+        if n is None:
+            raise ValueError("point_to_plane requires target normals")
+        prior_w = xi_prior = None
+        if prior_scale is not None:
+            # motion prior anchored at T0, λ relative to the frame's own
+            # point evidence (see the reference's loop.py)
+            prior_w = torch.clamp(torch.sum(w), min=1e-6) * prior_scale
+            xi_prior = group.log(T @ T0_inv)
+        dT = gauss_newton_step(
+            cur, q, n, w, damping=cfg.damping,
+            max_step_trans=cfg.max_step_trans,
+            max_step_rot=cfg.max_step_rot, backend=cfg.gn_backend,
+            degen_eps=cfg.degen_eps, prior_w=prior_w, xi_prior=xi_prior)
+    else:
+        dT = umeyama_masked(cur, q, w)
+    if cfg.step_scale != 1.0:
+        dT = group.exp(cfg.step_scale * group.log(dT))
+    # too few inliers: hold the pose (the motion-model init survives)
+    dT = torch.where((n_inl >= min_inl)[..., None, None], dT, eye)
+    T_new = dT @ T
+    if cfg.anderson:
+        # AA(1) on the fixed-point map T -> dT T in twist coordinates:
+        # x = log T, g = log(dT T), f = g - x, x+ = g - γ (g - g_prev)
+        # with γ = fᵀ(f - f_prev) / |f - f_prev|² clipped to [-1, 1];
+        # the plain step on the first iteration or when |f| grew
+        x = group.log(T)
+        g = group.log(T_new)
+        f = g - x
+        df = f - f_prev
+        denom = torch.sum(df * df, dim=-1)
+        gamma = torch.where(
+            denom > 1e-20,
+            torch.sum(f * df, dim=-1) / torch.clamp(denom, min=1e-20),
+            torch.zeros_like(denom))
+        gamma = torch.clamp(gamma, -1.0, 1.0)
+        x_aa = g - gamma[..., None] * (g - g_prev)
+        use_aa = (torch.linalg.vector_norm(f, dim=-1)
+                  <= torch.linalg.vector_norm(f_prev, dim=-1)) & (it > 0)
+        T_new = torch.where(use_aa[..., None, None], group.exp(x_aa), T_new)
+        f_prev, g_prev = f, g
+    if cfg.max_total_trans > 0.0 or cfg.max_total_rot > 0.0:
+        T_new = project_total(cfg, T_new, T0, T0_inv)
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)
+    rmse = torch.sqrt(torch.sum(w * d2, dim=-1) / wsum)
+    converged = step_converged(cfg, prev_rmse, rmse, dT, eye[:d, :d])
+    return T_new, rmse, n_inl, converged, f_prev, g_prev
+
+
+def trip_ref(cfg: ICPConfig, src_mask_f: torch.Tensor, cur: torch.Tensor,
+             q: torch.Tensor, n: Optional[torch.Tensor], gate: torch.Tensor,
+             d2: torch.Tensor, state: tuple, it: Optional[int],
+             T0: torch.Tensor, T0_inv: Optional[torch.Tensor],
+             prior_scale: Optional[torch.Tensor],
+             unrolled: bool = False,
+             eye: Optional[torch.Tensor] = None) -> None:
+    """The plain trip, on any device and for every configuration, batched
+    over the leading dims of the state: `gn_step_ref` and the loops'
+    freeze, written into `state` in place (the arguments are
+    kernels.gn_step.gn_step's, and gn_step_ref's `eye`). It is the plain
+    version of K2S and K2P, and the trip wherever neither applies."""
+    T, prev_rmse, _, converged, f_prev, g_prev, iters = state
+    new = gn_step_ref(cfg, src_mask_f, cur, q, n, gate, d2, T, prev_rmse,
+                      iters if it is None else it, f_prev, g_prev, T0,
+                      T0_inv, prior_scale, eye)
+    stop = converged | (iters >= cfg.max_iters) if unrolled else converged
+    for buf, v in zip(state, (*freeze(stop, new, state[:6]),
+                              iters + (~stop).to(torch.int32))):
+        buf.copy_(v)
 
 
 def _body(cfg: ICPConfig, src: PointCloud, corr_fn: Callable, T0, T0_inv,
@@ -171,16 +316,22 @@ def _step(cfg: ICPConfig, src: PointCloud, corr_fn: Callable, T0, T0_inv,
     freezes it (or, unrolled, as _drive's unrolled form does), and counts
     the iteration. Where K2S computes the iteration (`gn_step.routes`: 3D
     point-to-plane through K2's route, degen_eps 0) that is one launch
-    after the correspondence on CUDA; everywhere else, and on the CPU, the
-    plain `trip_ref`."""
+    after the correspondence on CUDA, and where K2P does
+    (`p2p_step.routes`: point-to-point) two; everywhere else, and on the
+    CPU, the plain `trip_ref`."""
     dtype = src.points.dtype
     src_mask_f = src.mask.to(dtype)
     k2s = routes(cfg, src.dim)
+    k2p = p2p_step.routes(cfg, src.dim)
     eye = torch.eye(src.dim + 1, dtype=dtype, device=src.points.device)
 
     def step(state: tuple, it: Optional[int], unrolled: bool = False):
         cur = _moved(src.points, state[0])
         q, n, gate, d2 = corr_fn(cur)
+        if k2p:
+            p2p_step.p2p_step(cfg, src_mask_f, cur, q, gate, d2, state, it,
+                              T0, T0_inv, unrolled=unrolled)
+            return
         if not k2s:
             trip_ref(cfg, src_mask_f, cur, q, n, gate, d2, state, it, T0,
                      T0_inv, prior_scale, unrolled=unrolled, eye=eye)
@@ -209,31 +360,19 @@ def _init_state(T0: torch.Tensor) -> tuple:
             torch.zeros(bs, dtype=torch.int32, device=dev))
 
 
-def _batched_trip(body: Callable) -> Callable:
-    """One iteration of a batch as trip(state, it) -> state over
-    _init_state's tuple: the elements that have converged keep their state,
-    the others step and count the iteration. `it` only arms Anderson's
+def _batched_trip(step: Callable) -> Callable:
+    """One iteration of a batch as a function, trip(state, it) -> state
+    over _init_state's tuple: `step` (_batched_step's) run in place on a
+    copy. The elements that have converged keep their state, the others
+    step and count the iteration. `it` only arms Anderson's
     first-iteration safeguard: 0 on the first trip, a positive int after.
-    The trip reads nothing back to the host: on CUDA it is what
-    align_batched captures as a graph."""
+    The trip reads nothing back to the host."""
     def trip(state: tuple, it: int) -> tuple:
-        T, prev_rmse, _, converged, f_prev, g_prev, iters = state
-        new = body(T, prev_rmse, it, f_prev, g_prev)
-        return (*freeze(converged, new, state[:6]),
-                iters + (~converged).to(torch.int32))
+        new = tuple(t.clone() for t in state)
+        step(new, it)
+        return new
 
     return trip
-
-
-def _run_trips(cfg: ICPConfig, trip: Callable, state: tuple) -> tuple:
-    """trip from state under the reference's while_loop condition, read
-    on the host before every trip after the first: go on while it <
-    max_iters and some element has not converged."""
-    it = 0
-    while it < cfg.max_iters and not (it > 0 and bool(state[3].all())):
-        state = trip(state, it)
-        it += 1
-    return state
 
 
 def _drive(cfg: ICPConfig, step: Callable, T0: torch.Tensor) -> ICPResult:
@@ -256,24 +395,22 @@ def _drive(cfg: ICPConfig, step: Callable, T0: torch.Tensor) -> ICPResult:
                      converged=converged)
 
 
-def _drive_batched(cfg: ICPConfig, body: Callable,
+def _drive_batched(cfg: ICPConfig, step: Callable,
                    T0: torch.Tensor) -> ICPResult:
-    """Run a batched `body` from T0 under the reference's stopping rule,
-    until every element has stopped, each stopped element frozen: the host
-    loop or, with unroll_iters > 0, the fixed-trip frozen form."""
-    state = _init_state(T0)
+    """Run a batched in-place `step` (_batched_step's) from T0 under the
+    reference's stopping rule, until every element has stopped, each
+    stopped element frozen: the host loop or, with unroll_iters > 0, the
+    fixed-trip frozen form."""
+    state = tuple(t.clone() for t in _init_state(T0))
     if cfg.unroll_iters > 0:
-        T, prev_rmse, n_inl, converged, f_prev, g_prev, iters = state
         for _ in range(cfg.unroll_iters):
-            stop = converged | (iters >= cfg.max_iters)
-            T, prev_rmse, n_inl, converged, f_prev, g_prev = freeze(
-                stop, body(T, prev_rmse, iters, f_prev, g_prev),
-                (T, prev_rmse, n_inl, converged, f_prev, g_prev))
-            iters = iters + (~stop).to(torch.int32)
-        return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
-                         converged=converged)
-    T, prev_rmse, n_inl, converged, _, _, iters = _run_trips(
-        cfg, _batched_trip(body), state)
+            step(state, None, unrolled=True)
+    else:
+        it = 0
+        while it < cfg.max_iters and not (it > 0 and bool(state[3].all())):
+            step(state, it)
+            it += 1
+    T, prev_rmse, n_inl, converged, _, _, iters = state
     return ICPResult(T=T, rmse=prev_rmse, iters=iters, n_inliers=n_inl,
                      converged=converged)
 
@@ -402,15 +539,13 @@ class StaticAlign:
                          converged=conv)
 
 
-def _batched_body(cfg: ICPConfig, src: PointCloud, dst_points: torch.Tensor,
-                  dst_mask: torch.Tensor, T0: torch.Tensor,
-                  T0_inv: Optional[torch.Tensor]) -> Callable:
-    """align_batched's body over these tensors: element b of T0 (B, D+1,
-    D+1) aligns src onto target b // G of dst_points (B/G, N, D). The NN
-    runs once a trip for the whole batch (K1's batched form on CUDA, at
-    D = 2 or 3)."""
-    d = src.dim
-    batch, n = T0.shape[0], dst_points.shape[1]
+def _batched_correspondence(cfg: ICPConfig, dst_points: torch.Tensor,
+                            dst_mask: torch.Tensor, batch: int) -> Callable:
+    """corr(cur (B, M, D)) -> (q (B, M, D), gate, d2 (B, M)): element b's
+    NN into target b // G of dst_points (B/G, N, D), once a trip for the
+    whole batch (K1's batched form on CUDA, at D = 2 or 3), and the
+    distance gate."""
+    d, n = dst_points.shape[2], dst_points.shape[1]
     group = batch // dst_points.shape[0]
     flat_dst = dst_points.reshape(-1, d)
     # row of element b's target in flat_dst, clamped like the reference's
@@ -434,9 +569,30 @@ def _batched_body(cfg: ICPConfig, src: PointCloud, dst_points: torch.Tensor,
         q = flat_dst[base + torch.clamp(idx.long(), max=n - 1)]
         diff = cur - q
         d2 = torch.sum(diff * diff, dim=-1)
-        return q, None, _gate(cfg, cur, d2), d2
+        return q, _gate(cfg, cur, d2), d2
 
-    return _body(cfg, src, corr, T0, T0_inv, None)
+    return corr
+
+
+def _batched_step(cfg: ICPConfig, src: PointCloud, dst_points: torch.Tensor,
+                  dst_mask: torch.Tensor, T0: torch.Tensor,
+                  T0_inv: Optional[torch.Tensor]) -> Callable:
+    """align_batched's iteration in place over these tensors,
+    step(state, it, unrolled=False) on _init_state's batched tuple: element
+    b of T0 (B, D+1, D+1) aligns src onto target b // G of dst_points
+    (B/G, N, D). The correspondence (`_batched_correspondence`), then the
+    rest of the iteration in K2P's batched form (two launches on CUDA, its
+    plain version `trip_ref` on the CPU)."""
+    src_mask_f = src.mask.to(src.points.dtype)
+    corr = _batched_correspondence(cfg, dst_points, dst_mask, T0.shape[0])
+
+    def step(state: tuple, it: Optional[int], unrolled: bool = False):
+        cur = _moved(src.points, state[0])
+        q, gate, d2 = corr(cur)
+        p2p_step.p2p_step(cfg, src_mask_f, cur, q, gate, d2, state, it, T0,
+                          T0_inv, unrolled=unrolled)
+
+    return step
 
 
 class _TripGraph:
@@ -451,27 +607,23 @@ class _TripGraph:
         def buf(*shape, dtype=dtype):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        # the mask as float weights: _body casts src.mask once, when it is
-        # built, and a float mask is its own cast, so the trip reads this
-        # buffer and not a copy of its first contents
+        # the mask as float weights: _batched_step casts src.mask once,
+        # when it is built, and a float mask is its own cast, so the trip
+        # reads this buffer and not a copy of its first contents
         self.src = PointCloud(points=buf(m, d), mask=buf(m))
         self.dst = buf(batch // group, n, d)
         self.T0 = buf(batch, d + 1, d + 1)
         trust = cfg.max_total_trans > 0.0 or cfg.max_total_rot > 0.0
         self.T0_inv = buf(batch, d + 1, d + 1) if trust else None
         self.state = tuple(t.clone() for t in _init_state(self.T0))
-        self.trip = _batched_trip(_batched_body(
-            cfg, self.src, self.dst, None, self.T0, self.T0_inv))
-        self._later = graphs.Graphed(
-            lambda: self._commit(self.trip(self.state, 1)), device)
+        self._step = _batched_step(cfg, self.src, self.dst, None, self.T0,
+                                   self.T0_inv)
+        self._later = graphs.Graphed(lambda: self._step(self.state, 1),
+                                     device)
 
     @property
     def graph(self) -> Optional[torch.cuda.CUDAGraph]:
         return self._later.graph
-
-    def _commit(self, new: tuple) -> None:
-        for s, v in zip(self.state, new):
-            s.copy_(v)
 
     def start(self, src: PointCloud, dst_points: torch.Tensor,
               T0: torch.Tensor, T0_inv: Optional[torch.Tensor]) -> None:
@@ -481,8 +633,9 @@ class _TripGraph:
         self.T0.copy_(T0)
         if self.T0_inv is not None:
             self.T0_inv.copy_(T0_inv)
-        self._commit(_init_state(self.T0))
-        self._commit(self.trip(self.state, 0))
+        for s, v in zip(self.state, _init_state(self.T0)):
+            s.copy_(v)
+        self._step(self.state, 0)
 
     def step(self) -> None:
         self._later()
@@ -511,8 +664,11 @@ def align_batched(src: PointCloud, dst_points: torch.Tensor,
     (converged or max_iters), and a stopped element is frozen with
     `torch.where`, so each element's result equals its own unbatched
     `align`. The NN runs once per iteration for the whole batch (K1's
-    batched form on CUDA, at D = 2 or 3) and the rigid fit is one RF launch;
-    "any still running" is read back once per iteration, the reference's
+    batched form on CUDA, at D = 2 or 3), and on CUDA the rest of the
+    iteration (weights, means, the centred covariance, the rigid fit, the
+    step, the freeze) is K2P's batched form, two launches, in place on the
+    carried state; "any still running" is read back once per iteration, the
+    reference's
     while_loop condition. On CUDA every trip after the first is one replay
     of a CUDA graph (`_TripGraph`), so that read is the trip's only host
     sync; nn_backend="voxel" (one hash-grid query per row) and
@@ -527,8 +683,8 @@ def align_batched(src: PointCloud, dst_points: torch.Tensor,
     T0_inv, _ = _anchor(cfg, T0, prior=False)
     if (T0.device.type != "cuda" or cfg.nn_backend == "voxel"
             or cfg.unroll_iters > 0 or cfg.max_iters < 1):
-        body = _batched_body(cfg, src, dst_points, dst_mask, T0, T0_inv)
-        return _drive_batched(cfg, body, T0)
+        step = _batched_step(cfg, src, dst_points, dst_mask, T0, T0_inv)
+        return _drive_batched(cfg, step, T0)
     batch, (targets, n, d) = T0.shape[0], dst_points.shape
     graph = _trip_graph(cfg, batch, batch // targets, src.capacity, n, d,
                         T0.dtype, T0.device)

@@ -153,13 +153,17 @@ def load() -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
                 i32, ptr, ptr, ptr, ptr]
             lib.gn_step_f32.restype = i32
+            lib.p2p_step_f32.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr,
+                i32, ptr, ptr, ptr, ptr]
+            lib.p2p_step_f32.restype = i32
             f32 = ctypes.c_float
             lib.projective_f32.argtypes = [
                 ptr, i32, ptr, ptr, ptr, ptr, f32, f32, i32, i32, f32, ptr,
                 f32, ptr, ptr, ptr, ptr, ptr]
             lib.projective_f32.restype = i32
             lib.knn_normals_f32.argtypes = [
-                ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+                ptr, ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
             lib.knn_normals_f32.restype = i32
             lib.local_select_scratch_words.argtypes = [i32]
             lib.local_select_scratch_words.restype = ctypes.c_longlong

@@ -1,23 +1,15 @@
-"""K2S: one point-to-plane ICP iteration after the correspondence — CUDA
-kernel and plain version.
-
-`gn_step_ref` is the step of icp/loop.py::_body from the correspondence
-onward, in torch: the Huber weights and the inlier count, the motion
-prior, the Gauss-Newton step (K2 and `solve_increment`, or the plain
-assembly, or the point-to-point rigid fit), over-relaxation, the
-min_inliers hold, AA(1), the total-correction trust region, the rmse and
-the convergence test. It is what the loop runs on the CPU, in every
-configuration, and on CUDA wherever K2S does not apply; `trip_ref` adds
-the loops' freeze and writes the carried state in place, as K2S does.
+"""K2S: one point-to-plane ICP iteration after the correspondence — the
+CUDA launch.
 
 `gn_step` launches csrc/gn_step.cu for a 3D point-to-plane iteration with
 gn_backend "auto" or "pallas" (`routes`; the reference runs that step
 through K2, gn_pallas.py): the whole step in one launch, with H and g
 summed as K2 sums them, writing the carried state (loop._init_state's
-seven fields) in place, frozen as loop's trips freeze it. On CPU tensors
-it runs `gn_step_ref` and the same freeze, so a loop over it is the eager
-loop bit for bit. On CUDA a build or launch failure raises: nothing falls
-back to the plain version.
+seven fields) in place, frozen as loop's trips freeze it. Its plain
+version is the loop's own step, `icp.loop.trip_ref` (the torch step
+around K2, `icp.loop.gn_step_ref`, and the freeze): CPU tensors take it,
+so a loop over `gn_step` is the eager loop bit for bit. On CUDA a build or
+launch failure raises: nothing falls back to the plain version.
 
 A launch's scratch (a (30,) partial a block and the ticket that elects
 the block that sums them) is allocated per device and reused: calls on one
@@ -34,154 +26,9 @@ from typing import Optional
 import torch
 
 from tpu_icp_slam_torch.config import ICPConfig
-from tpu_icp_slam_torch.core import se2, se3
-from tpu_icp_slam_torch.icp.point_to_plane import gauss_newton_step
-from tpu_icp_slam_torch.icp.point_to_point import umeyama_masked
 from tpu_icp_slam_torch.kernels import _build
 
 _SUMS = 30  # K2's 27, Σw, Σw·d², the inlier count
-
-
-def lie(d: int):
-    """The group module of d-dimensional rigid motions."""
-    if d not in (2, 3):
-        raise ValueError(f"unsupported point dimension {d}")
-    return se3 if d == 3 else se2
-
-
-def huber(cfg: ICPConfig, w: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
-    if cfg.huber_delta > 0.0:
-        dist = torch.sqrt(torch.clamp(d2, min=1e-20))
-        w = w * torch.clamp(cfg.huber_delta / dist, max=1.0)
-    return w
-
-
-def project_total(cfg: ICPConfig, T_new: torch.Tensor, T0: torch.Tensor,
-                  T0_inv: torch.Tensor) -> torch.Tensor:
-    """Trust region: project the total correction log(T_new T0⁻¹) back onto
-    the ball around T0 (batched over leading dims)."""
-    d = T_new.shape[-1] - 1
-    group = lie(d)
-    xi_tot = group.log(T_new @ T0_inv)
-    s = torch.ones(xi_tot.shape[:-1], dtype=T_new.dtype, device=T_new.device)
-    if cfg.max_total_trans > 0.0:
-        tn = torch.linalg.vector_norm(xi_tot[..., :d], dim=-1)
-        s = torch.minimum(s, cfg.max_total_trans / torch.clamp(tn, min=1e-12))
-    if cfg.max_total_rot > 0.0:
-        rn = torch.linalg.vector_norm(xi_tot[..., d:], dim=-1)
-        s = torch.minimum(s, cfg.max_total_rot / torch.clamp(rn, min=1e-12))
-    return torch.where(s[..., None, None] < 1.0,
-                       group.exp(s[..., None] * xi_tot) @ T0, T_new)
-
-
-def step_converged(cfg: ICPConfig, prev_rmse, rmse, dT, eye_d):
-    d = dT.shape[-1] - 1
-    converged = torch.abs(prev_rmse - rmse) < cfg.tol
-    if cfg.tol_update > 0.0:
-        step_mag = torch.linalg.vector_norm(dT[..., :d, d], dim=-1) + \
-            torch.linalg.matrix_norm(dT[..., :d, :d] - eye_d)
-        converged = converged | (step_mag < cfg.tol_update)
-    return converged
-
-
-def freeze(stop: torch.Tensor, new: tuple, old: tuple) -> tuple:
-    """new, but old where `stop` holds (stop batched over the leading
-    dims)."""
-    out = []
-    for n, o in zip(new, old):
-        s = stop.reshape(stop.shape + (1,) * (o.dim() - stop.dim()))
-        out.append(torch.where(s, o, n))
-    return tuple(out)
-
-
-def gn_step_ref(cfg: ICPConfig, src_mask_f: torch.Tensor, cur: torch.Tensor,
-                q: torch.Tensor, n: Optional[torch.Tensor],
-                gate: torch.Tensor, d2: torch.Tensor, T: torch.Tensor,
-                prev_rmse, it, f_prev, g_prev, T0: torch.Tensor,
-                T0_inv: Optional[torch.Tensor],
-                prior_scale: Optional[torch.Tensor],
-                eye: Optional[torch.Tensor] = None) -> tuple:
-    """One ICP iteration after the correspondence, batched over the leading
-    dims of T: (cur, q, n, gate, d2) from corr_fn at the source moved by T
-    -> (T_new, rmse, n_inliers, converged, f, g). `it` (an int, or a tensor
-    of the batch's shape) only arms Anderson's first-iteration safeguard.
-    `eye`, the (D+1, D+1) identity, may be made once by a caller that
-    steps many times (a captured trip then makes no fill for it)."""
-    d = cur.shape[-1]
-    group = lie(d)
-    if eye is None:
-        eye = torch.eye(d + 1, dtype=cur.dtype, device=cur.device)
-    min_inl = max(cfg.min_inliers, d + 1)
-    w = huber(cfg, gate * src_mask_f, d2)
-    n_inl = torch.sum(w > 0, dim=-1, dtype=torch.int32)
-    if cfg.method == "point_to_plane":
-        if n is None:
-            raise ValueError("point_to_plane requires target normals")
-        prior_w = xi_prior = None
-        if prior_scale is not None:
-            # motion prior anchored at T0, λ relative to the frame's own
-            # point evidence (see the reference's loop.py)
-            prior_w = torch.clamp(torch.sum(w), min=1e-6) * prior_scale
-            xi_prior = group.log(T @ T0_inv)
-        dT = gauss_newton_step(
-            cur, q, n, w, damping=cfg.damping,
-            max_step_trans=cfg.max_step_trans,
-            max_step_rot=cfg.max_step_rot, backend=cfg.gn_backend,
-            degen_eps=cfg.degen_eps, prior_w=prior_w, xi_prior=xi_prior)
-    else:
-        dT = umeyama_masked(cur, q, w)
-    if cfg.step_scale != 1.0:
-        dT = group.exp(cfg.step_scale * group.log(dT))
-    # too few inliers: hold the pose (the motion-model init survives)
-    dT = torch.where((n_inl >= min_inl)[..., None, None], dT, eye)
-    T_new = dT @ T
-    if cfg.anderson:
-        # AA(1) on the fixed-point map T -> dT T in twist coordinates:
-        # x = log T, g = log(dT T), f = g - x, x+ = g - γ (g - g_prev)
-        # with γ = fᵀ(f - f_prev) / |f - f_prev|² clipped to [-1, 1];
-        # the plain step on the first iteration or when |f| grew
-        x = group.log(T)
-        g = group.log(T_new)
-        f = g - x
-        df = f - f_prev
-        denom = torch.sum(df * df, dim=-1)
-        gamma = torch.where(
-            denom > 1e-20,
-            torch.sum(f * df, dim=-1) / torch.clamp(denom, min=1e-20),
-            torch.zeros_like(denom))
-        gamma = torch.clamp(gamma, -1.0, 1.0)
-        x_aa = g - gamma[..., None] * (g - g_prev)
-        use_aa = (torch.linalg.vector_norm(f, dim=-1)
-                  <= torch.linalg.vector_norm(f_prev, dim=-1)) & (it > 0)
-        T_new = torch.where(use_aa[..., None, None], group.exp(x_aa), T_new)
-        f_prev, g_prev = f, g
-    if cfg.max_total_trans > 0.0 or cfg.max_total_rot > 0.0:
-        T_new = project_total(cfg, T_new, T0, T0_inv)
-    wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)
-    rmse = torch.sqrt(torch.sum(w * d2, dim=-1) / wsum)
-    converged = step_converged(cfg, prev_rmse, rmse, dT, eye[:d, :d])
-    return T_new, rmse, n_inl, converged, f_prev, g_prev
-
-
-def trip_ref(cfg: ICPConfig, src_mask_f: torch.Tensor, cur: torch.Tensor,
-             q: torch.Tensor, n: Optional[torch.Tensor], gate: torch.Tensor,
-             d2: torch.Tensor, state: tuple, it: Optional[int],
-             T0: torch.Tensor, T0_inv: Optional[torch.Tensor],
-             prior_scale: Optional[torch.Tensor],
-             unrolled: bool = False,
-             eye: Optional[torch.Tensor] = None) -> None:
-    """`gn_step`'s plain version on any device and for every configuration
-    (the loop's unbatched trip wherever K2S does not compute it):
-    `gn_step_ref` and the loops' freeze, written into `state` in place (the
-    arguments are gn_step's, and gn_step_ref's `eye`)."""
-    T, prev_rmse, _, converged, f_prev, g_prev, iters = state
-    new = gn_step_ref(cfg, src_mask_f, cur, q, n, gate, d2, T, prev_rmse,
-                      iters if it is None else it, f_prev, g_prev, T0,
-                      T0_inv, prior_scale, eye)
-    stop = converged | (iters >= cfg.max_iters) if unrolled else converged
-    for buf, v in zip(state, (*freeze(stop, new, state[:6]),
-                              iters + (~stop).to(torch.int32))):
-        buf.copy_(v)
 
 
 def routes(cfg: ICPConfig, d: int) -> bool:
@@ -254,6 +101,8 @@ def gn_step(cfg: ICPConfig, src_mask_f: torch.Tensor, cur: torch.Tensor,
     None (the unrolled loop) reads it from iters. CPU tensors take the
     plain version."""
     if all(t.device.type == "cpu" for t in (cur, q, n, gate, d2, state[0])):
+        from tpu_icp_slam_torch.icp.loop import trip_ref
+
         trip_ref(cfg, src_mask_f, cur, q, n, gate, d2, state, it, T0, T0_inv,
                  prior_scale, unrolled)
         return

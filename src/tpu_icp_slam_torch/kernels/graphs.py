@@ -68,12 +68,14 @@ def launch_counters() -> list:
     from tpu_icp_slam_torch.kernels.nn_bf16 import nn_bf16
     from tpu_icp_slam_torch.kernels.nn_cuda import nn_bruteforce
     from tpu_icp_slam_torch.kernels.nn_rescore import nn_rescore
+    from tpu_icp_slam_torch.kernels.p2p_step import p2p_step
     from tpu_icp_slam_torch.kernels.projective_cuda import projective_lookup
     from tpu_icp_slam_torch.kernels.select_cuda import local_select
 
     return [(f, a) for f in (nn_bruteforce, nn_bf16, nn_rescore, gn_accum,
-                             gn_step, icp_fused, rigid_from_stats,
-                             projective_lookup, knn_normals, local_select)
+                             gn_step, p2p_step, icp_fused,
+                             rigid_from_stats, projective_lookup,
+                             knn_normals, local_select)
             for a in vars(f) if "launches" in a]
 
 

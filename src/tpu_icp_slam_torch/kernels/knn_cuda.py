@@ -11,54 +11,33 @@ are mapping/normals.py's (`normals_knn_ref` over kernels/nn_plain.py):
 idx equals the plain version's wherever the CPU's and cuBLAS's float32
 products agree, and the normals are the same fit summed in the same order.
 
-A launch's scratch (the (n_split, M, k) partial lists of the target
-ranges) is allocated per device and reused: calls on one stream never
+Its scratch (the targets packed as (x, y, z, |b|²) and each row's
+threshold) is allocated per device and reused: calls on one stream never
 overlap, and the port runs on one stream. A CUDA graph that captured a
-launch keeps writing through its pointers, so a buffer outgrown by a
-larger call is kept, never freed.
+launch keeps its pointers, so a buffer outgrown by a larger call is kept,
+never freed.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from tpu_icp_slam_torch.kernels import _build
 
 MAX_K = 32
-_MIN_SPLIT = 256  # fewest targets a range is cut to
 
-_scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_scratch: dict[torch.device, torch.Tensor] = {}
 _outgrown: list = []  # scratch a captured graph may still use: never freed
 
 
-def rows_per_block(k: int) -> int:
-    """Rows a block of csrc/knn_normals.cu's select kernel owns (kThreads
-    times R of the launch it picks for k)."""
-    return 256 if k <= 8 else 128
-
-
-@functools.lru_cache(maxsize=64)
-def n_split(m: int, n: int, k: int, sms: int) -> int:
-    """Target ranges of the select grid: enough for four blocks an SM,
-    none shorter than _MIN_SPLIT targets (or n) and none empty."""
-    row_blocks = -(-m // rows_per_block(k))
-    s = min(max(1, -(-4 * sms // row_blocks)), max(1, n // _MIN_SPLIT))
-    return -(-n // -(-n // s))
-
-
-def _device_scratch(device: torch.device, entries: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(part_d float32, part_i int32) of a CUDA device with at least
-    `entries` each, made on first use and remade larger when a call needs
-    more."""
+def _device_scratch(device: torch.device, words: int) -> torch.Tensor:
+    """A float32 scratch of at least `words` on a CUDA device, made on
+    first use and remade larger when a call needs more."""
     have = _scratch.get(device)
-    if have is None or have[0].numel() < entries:
+    if have is None or have.numel() < words:
         if have is not None:
             _outgrown.append(have)
-        have = (torch.empty(entries, dtype=torch.float32, device=device),
-                torch.empty(entries, dtype=torch.int32, device=device))
+        have = torch.empty(words, dtype=torch.float32, device=device)
         _scratch[device] = have
     return have
 
@@ -85,14 +64,13 @@ def knn_normals(points: torch.Tensor, mask: torch.Tensor, k: int,
             or not viewpoint.is_contiguous()):
         raise ValueError("knn_normals: viewpoint must be a contiguous "
                          "float32 (3,) on points' device")
-    s = n_split(m, n, k, _build.sm_count(points.device.index))
-    part_d, part_i = _device_scratch(points.device, s * m * k)
+    scratch = _device_scratch(points.device, 4 * n + m)
     normals = torch.empty((m, 3), dtype=torch.float32, device=points.device)
     idx = torch.empty((m, k), dtype=torch.int32, device=points.device)
     err = _build.load().knn_normals_f32(
-        points.data_ptr(), mask.data_ptr(), m, stride, k, s,
+        points.data_ptr(), mask.data_ptr(), m, stride, k,
         None if viewpoint is None else viewpoint.data_ptr(),
-        part_d.data_ptr(), part_i.data_ptr(), normals.data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + 16 * n, normals.data_ptr(),
         idx.data_ptr(), torch.cuda.current_stream(points.device).cuda_stream)
     _build.check(err, "knn_normals_f32")
     knn_normals.launches += 1

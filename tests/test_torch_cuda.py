@@ -1867,18 +1867,19 @@ def test_graphed_align_batched_equals_eager_trips(cuda_device, d, batch,
                                                   groups, m):
     """The verification trip as a CUDA graph: every trip's carried state
     bit-equal to the trip function driven eagerly on the card (batched K1
-    folds in index order, RF is one thread an element: deterministic);
+    folds in index order, K2P's sums in a fixed order: deterministic);
     align_batched's result that state; one host sync a trip once its
     graph exists (the condition read; none after a trip that reaches
-    max_iters); K1's batched and RF's launches one a trip, replays
-    included."""
+    max_iters); K1's batched and K2P's launches one a trip, replays
+    included, and no RF launch."""
     import warnings
 
     from tpu_icp_slam_torch.icp import loop
     from tpu_icp_slam_torch.icp import point_to_point as p2p
+    from tpu_icp_slam_torch.kernels import p2p_step
 
     src, dst, msk, inits = _verify_problem(cuda_device, d, batch, groups, m)
-    trip = loop._batched_trip(loop._batched_body(VERIFY_CFG, src, dst, msk,
+    trip = loop._batched_trip(loop._batched_step(VERIFY_CFG, src, dst, msk,
                                                  inits, None))
     eager = trip(loop._init_state(inits), 0)
     graph = loop._TripGraph(VERIFY_CFG, batch, batch // groups, m, m, d,
@@ -1898,7 +1899,9 @@ def test_graphed_align_batched_equals_eager_trips(cuda_device, d, batch,
 
     k1 = nn_cuda.nn_bruteforce
     loop.align_batched(src, dst, msk, inits, VERIFY_CFG)  # makes its graph
-    before = (k1.batched_launches, p2p.rigid_from_stats.launches)
+    k2p = p2p_step.p2p_step
+    before = (k1.batched_launches, k2p.launches,
+              p2p.rigid_from_stats.launches)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -1911,8 +1914,8 @@ def test_graphed_align_batched_equals_eager_trips(cuda_device, d, batch,
     # the condition is read before every trip after the first and once
     # more to stop, unless max_iters stopped the loop
     assert syncs == trips - (trips == VERIFY_CFG.max_iters), (syncs, trips)
-    assert (k1.batched_launches - before[0],
-            p2p.rigid_from_stats.launches - before[1]) == (trips, trips)
+    assert (k1.batched_launches - before[0], k2p.launches - before[1],
+            p2p.rigid_from_stats.launches - before[2]) == (trips, trips, 0)
     for got, want in zip((res.T, res.rmse, res.n_inliers, res.converged,
                           res.iters), (eager[0], eager[1], eager[2],
                                        eager[3], eager[6])):
@@ -2200,6 +2203,8 @@ def test_gn_step_kernel_matches_plain(cuda_device, m):
     n_inliers and iters equal, converged equal but within K2S_TOL_BAND of
     tol; bit-reproducible across two launches; H and g bit-equal to K2's
     on the same weights."""
+    from tpu_icp_slam_torch.icp import loop
+
     cs, options = _k2s_option_sets()
     src, mask, corr = _k2s_problem(m, seed=m % 97, device=cuda_device)
     for name, (icp, variant) in options.items():
@@ -2219,7 +2224,7 @@ def test_gn_step_kernel_matches_plain(cuda_device, m):
             else:
                 assert not bad, (name, it, bad)
             cur, q, n, gate, d2 = args
-            w = gn_step.huber(icp, gate * mask, d2)
+            w = loop.huber(icp, gate * mask, d2)
             H2, g2 = gn_cuda.gn_accum(cur, q, n, w)
             assert cs.bits_equal(H, H2) and cs.bits_equal(g, g2), (name, it)
             if variant == "non-PD":
@@ -2462,3 +2467,157 @@ def test_map_kernel_wrappers_raise_instead_of_falling_back(cuda_device):
         select_cuda.local_select(p, p, on, p[0], 501)  # size > C
     with pytest.raises(ValueError):
         select_cuda.local_select(p.T.contiguous().T, p, on, p[0], 100)
+
+
+# ---- K2P: the point-to-point iteration after the correspondence ----------
+
+
+def _k2p_problem(d, m, batch, device):
+    """A point-to-point trip's inputs on the card: a room (walls, in 3D a
+    floor) of m points, the last eighth padding, and the source the room
+    under a small motion with noise, one copy an element of a batch of
+    `batch` (None: unbatched) at yaws apart; (mask as float, inputs(state)
+    -> (cur, q, gate, d2), T0, corr for align_with_correspondence)."""
+    from tpu_icp_slam_torch.icp import loop
+
+    rng = np.random.default_rng(60 + d)
+    axis = rng.integers(0, d, m)
+    q = rng.uniform(-10.0, 10.0, (m, d))
+    q[np.arange(m), axis] = rng.choice([-10.0, 10.0], m)
+    c, s = np.cos(0.03), np.sin(0.03)
+    R = np.eye(d)
+    R[:2, :2] = [[c, -s], [s, c]]
+    src = (q - [0.2, -0.1, 0.05][:d]) @ R + 0.01 * rng.standard_normal((m, d))
+    src[-m // 8:] = 1.0e6
+    mask_f = torch.ones(m, device=device)
+    mask_f[-m // 8:] = 0.0
+    src_t = torch.as_tensor(src, dtype=torch.float32, device=device)
+    q_t = torch.as_tensor(q, dtype=torch.float32, device=device)
+    lead = () if batch is None else (batch,)
+    T0 = torch.eye(d + 1, device=device).expand(*lead, -1, -1).contiguous()
+    if batch is not None:
+        yaw = torch.linspace(-0.05, 0.05, batch, device=device)
+        T0[:, 0, 0] = T0[:, 1, 1] = torch.cos(yaw)
+        T0[:, 0, 1], T0[:, 1, 0] = -torch.sin(yaw), torch.sin(yaw)
+
+    def corr(cur):
+        qq = q_t.expand_as(cur).contiguous()
+        diff = cur - qq
+        d2 = torch.sum(diff * diff, dim=-1)
+        return qq, None, (d2 <= 1.0).float(), d2
+
+    def inputs(state):
+        cur = loop._moved(src_t, state[0])
+        qq, _, gate, d2 = corr(cur)
+        return cur, qq, gate, d2
+
+    return mask_f, inputs, T0, (src_t, corr)
+
+
+@pytest.mark.parametrize("d,m,batch", [(2, 4096, None), (3, 16384, None),
+                                       (3, 16384, 16), (2, 4096, 8)])
+def test_p2p_step_kernel_matches_plain(cuda_device, d, m, batch):
+    """K2P against its plain version (loop.trip_ref on the card) from the
+    same state and inputs, trips 0 and 1, over chip_smoke's option sets
+    (the verification's coarse settings; Anderson, a trust region, both, a
+    min_inliers hold and a frozen state): T within chip_smoke.K2P_T_TOL,
+    rmse within K2P_RMSE_TOL, inliers and iterations equal, converged
+    equal but at tol's edge; frozen elements bit-unchanged;
+    bit-reproducible across two launches."""
+    cs = _chip_smoke()
+    mask_f, inputs, T0, _ = _k2p_problem(d, m, batch, cuda_device)
+    for name, (icp, variant) in cs._k2p_options(VERIFY_CFG).items():
+        for it in (0, 1):
+            got, want, again, _, prev = cs._k2p_trip(icp, mask_f, inputs,
+                                                     T0, it, variant)
+            for a, b in zip(got, again):
+                assert cs.bits_equal(a, b), (name, it)
+            if variant == "frozen":
+                for a, b in zip(got, want):
+                    assert cs.bits_equal(a, b), (name, it)
+                continue
+            T_gap, rmse_gap, bad = cs._k2p_gaps(icp, got, want, prev)
+            assert not bad, (name, it, bad, T_gap, rmse_gap)
+
+
+def test_p2p_step_in_the_loops(cuda_device, monkeypatch):
+    """The loops on the card run one K2P call a trip and never the torch
+    Umeyama body (loop.umeyama_masked raises if called) or RF:
+    align_with_correspondence's eager loop and its unrolled form, and
+    align_batched, each against the CPU's run of the same loop (the plain
+    version): iterations, inliers and convergence equal, T within
+    K2P_T_TOL a trip (align_batched: on its converged elements)."""
+    from tpu_icp_slam_torch.core.pointcloud import PointCloud
+    from tpu_icp_slam_torch.icp import loop
+    from tpu_icp_slam_torch.icp import point_to_point as p2p
+    from tpu_icp_slam_torch.kernels import p2p_step
+
+    cs = _chip_smoke()
+    icp = dataclasses.replace(VERIFY_CFG, max_iters=6, tol=0.0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        if str(dev) != "cpu":
+            def refuse(*a, **k):
+                raise AssertionError("umeyama_masked ran on the card")
+
+            monkeypatch.setattr(loop, "umeyama_masked", refuse)
+        mask_f, _, _, (src, corr) = _k2p_problem(3, 4096, None, dev)
+        cloud = PointCloud(points=src, mask=mask_f > 0)
+
+        for unroll in (0, 8):
+            cfg = dataclasses.replace(icp, unroll_iters=unroll)
+            k0 = (p2p_step.p2p_step.launches, p2p.rigid_from_stats.launches)
+            res = loop.align_with_correspondence(cloud, corr, None, cfg)
+            out[(str(dev), unroll)] = res, (
+                p2p_step.p2p_step.launches - k0[0],
+                p2p.rigid_from_stats.launches - k0[1])
+        src_b, dst_b, msk_b, inits = _verify_problem(dev, 3, 16, 2, 4096)
+        k0 = p2p_step.p2p_step.launches
+        res = loop.align_batched(src_b, dst_b, msk_b, inits, VERIFY_CFG)
+        out[(str(dev), "batched")] = res, p2p_step.p2p_step.launches - k0
+    for unroll in (0, 8):
+        (rc, kc), (rg, kg) = out[("cpu", unroll)], out[("cuda", unroll)]
+        iters = int(torch.as_tensor(rg.iters))
+        assert iters == int(torch.as_tensor(rc.iters)) == icp.max_iters
+        assert kc == (0, 0)
+        assert kg == ((iters, 0) if unroll == 0 else (unroll, 0))
+        assert float(torch.max(torch.abs(rg.T.cpu() - rc.T))) \
+            <= cs.K2P_T_TOL * iters
+        assert int(rg.n_inliers) == int(rc.n_inliers)
+    (rc, kc), (rg, kg) = out[("cpu", "batched")], out[("cuda", "batched")]
+    assert kc == 0 and kg == int(rg.iters.max()) > 1
+    assert torch.equal(rg.iters.cpu(), rc.iters)
+    assert torch.equal(rg.n_inliers.cpu(), rc.n_inliers)
+    assert torch.equal(rg.converged.cpu(), rc.converged)
+    # an element that runs to max_iters without converging walks along a
+    # flat direction, where the two devices' sums part (7.6e-3 after 50
+    # trips on an H100); the converged ones are held
+    conv = rc.converged
+    gap = torch.abs(rg.T.cpu() - rc.T)[conv]
+    assert bool(conv.any()) and float(gap.max()) \
+        <= cs.K2P_T_TOL * int(rg.iters.max())
+
+
+def test_p2p_step_refusals(cuda_device):
+    """K2P takes float32 on one CUDA device and the point-to-point step
+    only: anything else raises, never falls back."""
+    from tpu_icp_slam_torch.icp import loop
+    from tpu_icp_slam_torch.kernels import p2p_step
+
+    mask_f, inputs, T0, _ = _k2p_problem(3, 1024, None, cuda_device)
+    state = tuple(t.clone() for t in loop._init_state(T0))
+    cur, q, gate, d2 = inputs(state)
+    with pytest.raises(ValueError, match="point-to-point"):
+        p2p_step.p2p_step(dataclasses.replace(VERIFY_CFG,
+                                              method="point_to_plane"),
+                          mask_f, cur, q, gate, d2, state, 0, T0, None)
+    with pytest.raises(ValueError, match="float32"):
+        p2p_step.p2p_step(VERIFY_CFG, mask_f, cur.double(), q, gate, d2,
+                          state, 0, T0, None)
+    with pytest.raises(ValueError, match="gate"):
+        p2p_step.p2p_step(VERIFY_CFG, mask_f, cur, q, gate[:-1], d2, state,
+                          0, T0, None)
+    trust = dataclasses.replace(VERIFY_CFG, max_total_trans=1.0)
+    with pytest.raises(ValueError, match="T0_inv"):
+        p2p_step.p2p_step(trust, mask_f, cur, q, gate, d2, state, 0, T0,
+                          None)

@@ -209,7 +209,7 @@ def _body_loop(cfg, body, T0):
         T, prev_rmse, n_inl, converged, f_prev, g_prev, iters = state
         for _ in range(cfg.unroll_iters):
             stop = converged | (iters >= cfg.max_iters)
-            T, prev_rmse, n_inl, converged, f_prev, g_prev = k2s.freeze(
+            T, prev_rmse, n_inl, converged, f_prev, g_prev = tloop.freeze(
                 stop, body(T, prev_rmse, iters, f_prev, g_prev),
                 (T, prev_rmse, n_inl, converged, f_prev, g_prev))
             iters = iters + (~stop).to(torch.int32)
@@ -297,8 +297,8 @@ def test_gn_step_ref_is_the_body_tail():
     want = tloop._body(cfg, cloud, corr, T0, T0_inv, prior_scale)(
         T, prev, 0, f, g)
     cur = tloop._moved(cloud.points, T)
-    got = k2s.gn_step_ref(cfg, cloud.mask.float(), cur, *corr(cur), T, prev,
-                          0, f, g, T0, T0_inv, prior_scale)
+    got = tloop.gn_step_ref(cfg, cloud.mask.float(), cur, *corr(cur), T,
+                            prev, 0, f, g, T0, T0_inv, prior_scale)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert k2s.routes(cfg, 3)

@@ -152,7 +152,7 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(tmp_path, monkeypatch):
     assert {s.name for s in _build.sources()} == {
         "nn_bruteforce.cu", "gn_accum.cu", "nn_bf16.cu", "icp_fused.cu",
         "coop_probe.cu", "nn_shortlist.cu", "rigid_fit.cu", "gn_step.cu",
-        "projective.cu", "knn_normals.cu", "local_select.cu"}
+        "projective.cu", "knn_normals.cu", "local_select.cu", "p2p_step.cu"}
     src = tmp_path / "csrc"
     src.mkdir()
     (src / "k.cu").write_text("// a\n")

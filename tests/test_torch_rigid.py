@@ -209,7 +209,7 @@ def test_batched_trip_matches_vmapped_reference(d):
     group = inits.shape[0] // targets.shape[0]
     src = tpc.PointCloud(points=_t(srcp.points), mask=_t(srcp.mask))
     T0 = _t(inits)
-    trip = tloop._batched_trip(tloop._batched_body(
+    trip = tloop._batched_trip(tloop._batched_step(
         TRIP_CFG, src, _t(targets), torch.ones(targets.shape[:2], dtype=bool),
         T0, None))
     state = trip(tloop._init_state(T0), 0)  # trip 0: Anderson's first arm
@@ -255,7 +255,7 @@ def test_trip_graph_buffers_follow_each_call():
         if runner is None or d == 2:
             runner = tloop._TripGraph(TRIP_CFG, 8, 4, 320, 320, d,
                                       torch.float32, torch.device("cpu"))
-        trip = tloop._batched_trip(tloop._batched_body(
+        trip = tloop._batched_trip(tloop._batched_step(
             TRIP_CFG, src, _t(targets),
             torch.ones(targets.shape[:2], dtype=bool), T0, None))
         want = trip(tloop._init_state(T0), 0)
@@ -264,4 +264,4 @@ def test_trip_graph_buffers_follow_each_call():
             for a, b in zip(runner.state, want):
                 assert torch.equal(a, b)
             want = trip(want, 1)
-            runner._commit(runner.trip(runner.state, 1))
+            runner.step()
