@@ -1,0 +1,4 @@
+"""host_syncs_per_frame.slam: host_syncs_per_frame in the full-SLAM cells,
+where it moves frames_per_s.slam."""
+
+from slambench.metrics.host_syncs_per_frame import read  # noqa: F401

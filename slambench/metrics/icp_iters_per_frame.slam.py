@@ -1,0 +1,4 @@
+"""icp_iters_per_frame.slam: icp_iters_per_frame in the full-SLAM cells, where
+it moves frames_per_s.slam."""
+
+from slambench.metrics.icp_iters_per_frame import read  # noqa: F401

@@ -1,0 +1,4 @@
+"""launch_calls_per_frame.slam: launch_calls_per_frame in the full-SLAM cells,
+where it moves frames_per_s.slam."""
+
+from slambench.metrics.launch_calls_per_frame import read  # noqa: F401

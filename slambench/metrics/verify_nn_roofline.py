@@ -1,0 +1,9 @@
+"""verify_nn_roofline (device trace): the least time of the verify_nn family's
+work in the profiled block (slambench/roofline.py) over the summed device
+time of its kernels (slambench/kernels/verify_nn*.json), in %."""
+
+from slambench.roofline import share
+
+
+def read(ctx):
+    return share(ctx, "verify_nn")
