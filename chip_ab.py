@@ -5,6 +5,7 @@ builds of the kernels K1, K3, K4 and K5.
     python3 chip_ab.py [--rounds 5]
     python3 chip_ab.py --old-csrc DIR
     python3 chip_ab.py --profiler-effect
+    python3 chip_ab.py --span-split [--rounds 5]
     python3 chip_ab.py --sass
     python3 chip_ab.py --trip-ab OLD_ROOT
     python3 chip_ab.py --loop-profile ROOT
@@ -57,6 +58,15 @@ With --profiler-effect, the fused "highest" and steps "highest" cells run
 --rounds times each, then one torch.profiler run traces one frame-loop of
 each, then they run --rounds times again in the same process: frames/s
 before and after the process has used the profiler.
+
+With --span-split, the steps "highest" cell runs as a replay (run_fused)
+and online (step, the pose copied to the host after each frame), each
+--rounds times plain (ms a frame, host clock), then --rounds times under
+a CPU-only torch.profiler and --rounds times under a CPU and CUDA one: ms
+a frame, the program's spans a frame (obs/profile.span) and the host us a
+frame in each span name, step's own time (step less its frame) apart. The
+CPU-only run leaves out CUDA activity tracing, whose cost per launch (the
+more, the more nodes a graph has) the benchmark's traced idle carries.
 
 The cells are chip_smoke.slice_config() on chip_smoke.py's 30-frame
 KITTI-scale log (29 timed frames), at icp.loop_backend "steps" and "fused"
@@ -144,6 +154,7 @@ without CUDA.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import re
@@ -540,6 +551,68 @@ def profiler_effect(pts, msk, rounds):
               f"run {[f'{v:.3f}' for v in after[name]]} (median "
               f"{statistics.median(after[name]):.3f})")
     return {"before": before, "after": after}
+
+
+def span_split(pts, msk, rounds):
+    """--span-split: the program's spans in a replay and an online run of
+    the steps "highest" cell, plain and under two profilers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_icp_slam_torch.obs.profile import PREFIX
+    from tpu_icp_slam_torch.slam.scan_to_map import ScanToMapPipeline
+
+    pipe = ScanToMapPipeline(chip_smoke.slice_config(
+        loop_backend="steps", nn_precision="highest"), device="cuda")
+    state0 = pipe.init_state(pts[0], msk[0])
+    n = len(pts) - 1
+
+    def replay():
+        pipe.run_fused(state0, pts[1:], msk[1:])
+
+    def online():
+        state = state0
+        for f in range(1, n + 1):
+            state, info = pipe.step(state, pts[f], msk[f])
+            info["pose"].cpu()
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (rounds * n)
+
+    cpu = [ProfilerActivity.CPU]
+    out = {}
+    for drive, run in (("replay", replay), ("online", online)):
+        run()  # call 1: the captures
+        res = {"plain_ms_per_frame": timed(run)}
+        for label, acts in (("cpu", cpu),
+                            ("cpu_cuda", cpu + [ProfilerActivity.CUDA])):
+            with profile(activities=acts) as prof:
+                ms = timed(run)
+            us, count = collections.Counter(), 0
+            for e in prof.profiler.kineto_results.events():
+                if e.name().startswith(PREFIX):
+                    us[e.name()[len(PREFIX):]] += e.duration_ns() / 1e3
+                    count += 1
+            per = {k: v / (rounds * n) for k, v in sorted(us.items())}
+            if "step" in per:
+                per["step_self"] = per["step"] - per["frame"]
+            res[label] = {"ms_per_frame": ms,
+                          "spans_per_frame": count / (rounds * n),
+                          "us_per_frame": per}
+        print(f"[span split] {drive} {chip_smoke.card()}: ms a frame plain "
+              f"{res['plain_ms_per_frame']:.4f}, CPU profiler "
+              f"{res['cpu']['ms_per_frame']:.4f}, CPU+CUDA profiler "
+              f"{res['cpu_cuda']['ms_per_frame']:.4f}")
+        for name in res["cpu_cuda"]["us_per_frame"]:
+            print(f"    {name:<14} us a frame: CPU profiler "
+                  f"{res['cpu']['us_per_frame'].get(name, 0.0):9.2f}, "
+                  f"CPU+CUDA {res['cpu_cuda']['us_per_frame'][name]:9.2f}")
+        out[drive] = res
+    return out
 
 
 # The hot loops --sass reads: a piece of the kernel's mangled name -> (the
@@ -1077,10 +1150,14 @@ def _stage_ranges():
     scan_to_map._step (the eager frame) or FrameGraphs.frame (the graphed
     one, where this tree has it), "icp" around the ICP (the steps loop,
     K5 or the trip replays), "insert" around the map update. Nothing of the
-    package is edited: the names are replaced in its modules."""
+    package is edited: the names are replaced in its modules. A tree whose
+    frames emit their own spans (obs/profile.py's icp_slam.frame and
+    icp_slam.graph.insert, which _stage_split reads as "frame" and
+    "insert") has only its ICP wrapped."""
     from torch.profiler import record_function
 
     from tpu_icp_slam_torch.mapping import voxel_map
+    from tpu_icp_slam_torch.obs import profile
     from tpu_icp_slam_torch.slam import pipeline, rgbd
     from tpu_icp_slam_torch.slam import scan_to_map as s2m
 
@@ -1105,8 +1182,10 @@ def _stage_ranges():
                       (pipeline, "OdomFrameGraphs")):
         graphs = getattr(mod, name, None)
         if graphs is not None:
-            targets += [(graphs, "frame", "frame"), (graphs, "_icp", "icp"),
-                        (graphs, "_update_map", "insert")]
+            targets.append((graphs, "_icp", "icp"))
+            if not hasattr(profile, "span"):
+                targets += [(graphs, "frame", "frame"),
+                            (graphs, "_update_map", "insert")]
     for owner, attr, label in targets:
         if hasattr(owner, attr):
             setattr(owner, attr, ranged(label, getattr(owner, attr)))
@@ -1114,6 +1193,8 @@ def _stage_ranges():
 
 _LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")
 STAGE_RANGES = ("frame", "icp", "insert")
+# the program's own spans that stand for a stage range
+PROGRAM_SPANS = {"icp_slam.frame": "frame", "icp_slam.graph.insert": "insert"}
 
 
 def _stage_split(prof, n_frames):
@@ -1127,8 +1208,9 @@ def _stage_split(prof, n_frames):
     events = prof.profiler.kineto_results.events()
     spans = {name: [] for name in STAGE_RANGES}
     for e in events:
-        if e.device_type() == DeviceType.CPU and e.name() in spans:
-            spans[e.name()].append((e.start_ns(), e.end_ns()))
+        name = PROGRAM_SPANS.get(e.name(), e.name())
+        if e.device_type() == DeviceType.CPU and name in spans:
+            spans[name].append((e.start_ns(), e.end_ns()))
     cuts = []  # (start, end, stage)
     for f0, f1 in sorted(spans["frame"]):
         icp = [s for s in spans["icp"] if f0 <= s[0] and s[1] <= f1]
@@ -1446,6 +1528,9 @@ def main() -> int:
                          "csrc/")
     ap.add_argument("--profiler-effect", action="store_true",
                     help="frames/s before and after one profiler run")
+    ap.add_argument("--span-split", action="store_true",
+                    help="the program's spans in a replay and an online "
+                         "run, plain and under two profilers")
     ap.add_argument("--sass", action="store_true",
                     help="ptxas report and the hot loops' SASS instructions")
     ap.add_argument("--trip-ab", default=None, metavar="OLD_ROOT",
@@ -1526,6 +1611,10 @@ def main() -> int:
     if args.profiler_effect:
         print(json.dumps({"profiler_effect": profiler_effect(
             pts, msk, args.rounds)}))
+        print(json.dumps({"done": True}))
+        return 0
+    if args.span_split:
+        print(json.dumps({"span_split": span_split(pts, msk, args.rounds)}))
         print(json.dumps({"done": True}))
         return 0
     n_frames = len(pts) - 1

@@ -30,6 +30,7 @@ import torch
 from tpu_icp_slam_torch.config import BackendConfig, ICPConfig
 from tpu_icp_slam_torch.core.pointcloud import PointCloud
 from tpu_icp_slam_torch.icp.loop import ICPResult, align_batched
+from tpu_icp_slam_torch.obs.profile import span
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -321,7 +322,8 @@ class LoopDetector:
                      max_devs=None) -> list:
         """Geometrically verify all candidates of a keyframe: coarse-to-fine
         ICP over (candidates × yaw hypotheses), verify_chunk candidates per
-        batch; the best-rmse lock that passes the gates wins.
+        batch (each batch the span verify.batch); the best-rmse lock that
+        passes the gates wins.
 
         Gates per candidate: rmse ≤ verify_max_rmse, inliers ≥ 30% of the
         query and, with T_preds (C, D+1, D+1), the measured translation
@@ -351,15 +353,16 @@ class LoopDetector:
         rm_l, in_l, t_l = [], [], []
         for c0 in range(0, len(cands), chunk):
             c1 = min(c0 + chunk, len(cands))
-            fine, n_iter = _batched_verify(
-                qp, qm, mp_all[c0:c1].contiguous(), mm_all[c0:c1], qd,
-                self._descs_dev[midx[c0:c1]], cfg_coarse=self.icp_coarse,
-                cfg_fine=self.icp_fine, sectors=s_sec,
-                n_yaws=getattr(self.cfg, "verify_yaws", 8))
-            self.verify_iters += int(n_iter)
-            rm_l.append(fine.rmse.cpu().numpy().astype(np.float64))
-            in_l.append(fine.n_inliers.cpu().numpy())
-            t_l.append(fine.T.cpu().numpy().astype(np.float64))
+            with span("verify.batch"):
+                fine, n_iter = _batched_verify(
+                    qp, qm, mp_all[c0:c1].contiguous(), mm_all[c0:c1], qd,
+                    self._descs_dev[midx[c0:c1]], cfg_coarse=self.icp_coarse,
+                    cfg_fine=self.icp_fine, sectors=s_sec,
+                    n_yaws=getattr(self.cfg, "verify_yaws", 8))
+                self.verify_iters += int(n_iter)
+                rm_l.append(fine.rmse.cpu().numpy().astype(np.float64))
+                in_l.append(fine.n_inliers.cpu().numpy())
+                t_l.append(fine.T.cpu().numpy().astype(np.float64))
         rmses = np.concatenate(rm_l)  # (C, Y)
         inls = np.concatenate(in_l)  # (C, Y)
         Ts = np.concatenate(t_l)  # (C, Y, D+1, D+1)

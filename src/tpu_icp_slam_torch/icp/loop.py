@@ -15,7 +15,8 @@ poses and targets (loop-closure verification): one loop over the batch,
 every element stepping until all have stopped, each stopped element frozen,
 so that each element's result is its own `align`'s. Its trip reads nothing
 back; on CUDA every trip after the first is one replay of a CUDA graph
-(`_TripGraph`), and the condition read is the trip's one host sync.
+(`_TripGraph`, its replays the span graph.verify_trip, obs/profile.py),
+and the condition read is the trip's one host sync.
 `StaticAlign` gives the unbatched loop the same form over static buffers,
 for the frame graphs (slam/scan_to_map.FrameGraphs, slam/rgbd.
 RGBDFrameGraphs, slam/pipeline.OdomFrameGraphs). `icp.anderson` (AA(1)
@@ -51,6 +52,7 @@ from tpu_icp_slam_torch.icp.point_to_point import umeyama_masked
 from tpu_icp_slam_torch.kernels import graphs, p2p_step, voxel_nn
 from tpu_icp_slam_torch.kernels.gn_step import gn_step, routes
 from tpu_icp_slam_torch.kernels.nn import nearest_neighbor
+from tpu_icp_slam_torch.obs.profile import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -482,12 +484,13 @@ class StaticAlign:
     resets the state and runs trip 0 (it = 0, Anderson's first-iteration
     arm); `later()` runs one trip with it > 0. Neither reads the host:
     they are what a CUDA graph captures. `go_on(trips)` is the reference's
-    while_loop condition, read once a trip, as align_batched reads it; a
-    trip is the eager loop's `_step` in place, so the result equals the
-    eager loop's bit for bit. `unroll_iters > 0` runs its fixed trips
-    inside `first()`. A caller that runs the ICP otherwise (K5,
-    or the eager loop for `eager_loop`'s configurations) passes corr_fn
-    None and keeps its result in `state` through `set_result`."""
+    while_loop condition, read once a trip (the span read.trip), as
+    align_batched reads it; a trip is the eager loop's `_step` in place,
+    so the result equals the eager loop's bit for bit. `unroll_iters > 0`
+    runs its fixed trips inside `first()`. A caller that runs the ICP
+    otherwise (K5, or the eager loop for `eager_loop`'s configurations)
+    passes corr_fn None and keeps its result in `state` through
+    `set_result`."""
 
     def __init__(self, cfg: ICPConfig, src: PointCloud, corr_fn: Callable):
         self.cfg = cfg
@@ -522,7 +525,10 @@ class StaticAlign:
         self.step(self.state, 1)
 
     def go_on(self, trips: int) -> bool:
-        return trips < self.cfg.max_iters and not bool(self.state[3])
+        if trips >= self.cfg.max_iters:
+            return False
+        with span("read.trip"):
+            return not bool(self.state[3])
 
     def set_result(self, res: ICPResult) -> None:
         """An ICPResult into the state's T, rmse, n_inliers, converged and
@@ -619,7 +625,7 @@ class _TripGraph:
         self._step = _batched_step(cfg, self.src, self.dst, None, self.T0,
                                    self.T0_inv)
         self._later = graphs.Graphed(lambda: self._step(self.state, 1),
-                                     device)
+                                     device, "verify_trip")
 
     @property
     def graph(self) -> Optional[torch.cuda.CUDAGraph]:

@@ -2,7 +2,7 @@
 reference's `jit`, where launch overhead dominates a loop of small
 kernels).
 
-`Graphed(fn, device, pool)` replays fn() as a CUDA graph. fn reads and
+`Graphed(fn, device, name, pool)` replays fn() as a CUDA graph. fn reads and
 writes static buffers only and reads nothing back to the host. Its first
 call runs fn eagerly on a side stream (a real run, and the warm-up torch
 asks for before a capture), then captures fn without running it; every
@@ -25,6 +25,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+
+from tpu_icp_slam_torch.obs.profile import span
 
 
 def copy_into(dst, src) -> None:
@@ -83,24 +85,28 @@ class Graphed:
     """fn() as a CUDA graph on `device`, captured on the second call's
     behalf by the first (see the module docstring); `pool` shares one
     memory pool among the graphs of one owner, which replays them one at a
-    time on one stream."""
+    time on one stream. Each replay (each run on a CPU device) is the span
+    graph.<name>."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
-                 pool=None):
+                 name: str, pool=None):
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool
+        self.name = f"graph.{name}"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: dict = {}
 
     def __call__(self) -> None:
         if self.device.type != "cuda":
-            self.fn()
+            with span(self.name):
+                self.fn()
             return
         if self.graph is not None:
-            self.graph.replay()
-            for (f, a), k in self.launches.items():
-                setattr(f, a, getattr(f, a) + k)
+            with span(self.name):
+                self.graph.replay()
+                for (f, a), k in self.launches.items():
+                    setattr(f, a, getattr(f, a) + k)
             return
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)

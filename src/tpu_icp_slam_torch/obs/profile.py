@@ -1,15 +1,21 @@
-"""Profiler integration (port of tpu_icp_slam/obs/profile.py).
+"""The program's named spans (the port's counterpart of the reference's
+obs/profile.py `annotate`/`scope`).
 
-- `trace(log_dir)`: context manager around `torch.profiler` (CPU, and the
-  card when there is one), written as log_dir/trace.json, a Chrome/Perfetto
-  trace; the same code as `obs.timers.trace`.
-- `annotate(name)`: a named span (`torch.profiler.record_function`) that
-  shows inside the trace, so pipeline stages read as named ranges.
-- `scope(name)`: the same span, usable as a decorator or a context manager
-  (the reference's `jax.named_scope` names compiled code; torch has no
-  compiled graph to name, so a span is the counterpart).
+`span(name)` is a context manager that records one range,
+`icp_slam.<name>`, in a running `torch.profiler` (`obs.timers.trace`, or
+any other). It is a function-scope record (torch's private
+`_RecordFunctionFast`, checked with torch 2.11 and 2.13), not a user
+annotation: the profiler keeps it on the host's timeline, on the same
+clock as the device operations of its run, and does not mirror it onto
+the device's. With no profiler running it is a shared `nullcontext`, so
+spans need no switch and cost about a bare `with`. A span is chosen when
+it opens: one opened before a profiler started records nothing, which
+also keeps torch from refusing to close a record it never began (an
+internal assert). A span goes around a replay or a host read, never
+inside a function a CUDA graph captures.
 
-Stated deviation: an exception raised inside the block propagates. The
+The reference's `trace` is the port's `obs.timers.trace`. Stated
+deviation: an exception raised inside a span or a trace propagates. The
 reference catches every exception around its profiler and yields again,
 which would also swallow the block's own errors and break the generator
 protocol.
@@ -17,14 +23,18 @@ protocol.
 
 from __future__ import annotations
 
-import torch
+from contextlib import nullcontext
 
-from tpu_icp_slam_torch.obs.timers import trace  # noqa: F401
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+PREFIX = "icp_slam."
+_OFF = nullcontext()
 
 
-def annotate(name: str):
-    """A named profiler span (a context manager, or a decorator)."""
-    return torch.profiler.record_function(name)
-
-
-scope = annotate
+def span(name: str):
+    """A range named icp_slam.<name> in a running profiler (a context
+    manager); with none running, a context that does nothing."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(PREFIX + name)
+    return _OFF

@@ -28,6 +28,7 @@ from tpu_icp_slam_torch.icp.loop import (
     eager_loop,
 )
 from tpu_icp_slam_torch.kernels.graphs import Graphed, cached, clone, copy_into
+from tpu_icp_slam_torch.obs.profile import span
 
 
 def motion_init(state, cfg: SlamConfig) -> torch.Tensor:
@@ -99,7 +100,9 @@ class FrameGraphs:
 
     then `_after_post` (scan-to-map's map insert). Host syncs a frame: the
     condition reads, one a trip (none after a trip that reaches
-    max_iters), and the subclass's own reads.
+    max_iters), and the subclass's own reads. Spans (obs/profile.py):
+    frame around each frame, step around `step`, graph.<stage> around
+    each replay, read.<stage> around each host read.
 
     What stays eager, by a check on the config: the ICP of
     `icp.loop.eager_loop`'s configurations (degen_eps > 0), which
@@ -135,14 +138,15 @@ class FrameGraphs:
                                 dtype=torch.float32, device=self.device)
         self.pool = (torch.cuda.graph_pool_handle()
                      if self.device.type == "cuda" else None)
-        self._pre_g = {v: self.graph(lambda v=v: self._pre_body(v))
+        self._pre_g = {v: self.graph(lambda v=v: self._pre_body(v), "pre")
                        for v in self.PRE_VARIANTS}
-        self._trip_g = self.graph(self.align.later)
-        self._post_g = self.graph(self._post_body)
+        self._trip_g = self.graph(self.align.later, "trip")
+        self._post_g = self.graph(self._post_body, "post")
 
-    def graph(self, fn: Callable[[], None]) -> Graphed:
-        """fn as one of this frame's graphs (the shared pool)."""
-        return Graphed(fn, self.device, self.pool)
+    def graph(self, fn: Callable[[], None], name: str) -> Graphed:
+        """fn as one of this frame's graphs (the shared pool), its
+        replays the span graph.<name>."""
+        return Graphed(fn, self.device, name, self.pool)
 
     # ---- the subclass's stages ----
 
@@ -202,15 +206,16 @@ class FrameGraphs:
         return clone(self.state)
 
     def frame(self, *inputs) -> torch.Tensor:
-        """One frame from the loaded state; returns its info row (a
-        clone)."""
-        self._inputs(*inputs)
-        self._pre_g[self._pre_variant()]()
-        if not self.icp_in_pre:
-            self._icp()
-            self._post_g()
-        self._after_post()
-        return self.info.clone()
+        """One frame from the loaded state, the span frame; returns its
+        info row (a clone)."""
+        with span("frame"):
+            self._inputs(*inputs)
+            self._pre_g[self._pre_variant()]()
+            if not self.icp_in_pre:
+                self._icp()
+                self._post_g()
+            self._after_post()
+            return self.info.clone()
 
     def _unrow(self, rows: torch.Tensor) -> dict:
         return info_unrow(rows, self.n, self.INFO, self.INFO_INT)
@@ -224,10 +229,12 @@ class FrameGraphs:
         return self.snapshot(), self._unrow(rows)
 
     def step(self, state, *inputs):
-        """One frame from `state`: (the new state, its info)."""
-        self.load(state)
-        row = self.frame(*inputs)
-        return self.snapshot(), self._unrow(row)
+        """One frame from `state`, the span step: (the new state, its
+        info)."""
+        with span("step"):
+            self.load(state)
+            row = self.frame(*inputs)
+            return self.snapshot(), self._unrow(row)
 
 
 GRAPH_CACHE = 8  # frame graphs kept a class, least recently used dropped first

@@ -48,6 +48,7 @@ from tpu_icp_slam_torch.kernels import voxel_nn
 from tpu_icp_slam_torch.kernels.icp_fused import fused_args, icp_fused
 from tpu_icp_slam_torch.mapping import voxel_map
 from tpu_icp_slam_torch.mapping.normals import normals_knn
+from tpu_icp_slam_torch.obs.profile import span
 from tpu_icp_slam_torch.slam import frame_graphs
 
 
@@ -444,8 +445,8 @@ class FrameGraphs(frame_graphs.FrameGraphs):
                          None if fused else _coverage_corr(ic, self.pre,
                                                            self.grid),
                          dev, fused=fused)
-        self._need_g = self.graph(self._need_body)
-        self._insert_g = self.graph(self._insert_body)
+        self._need_g = self.graph(self._need_body, "need")
+        self._insert_g = self.graph(self._insert_body, "insert")
 
     def _need_body(self) -> None:
         self.pre.init.copy_(_predict(self.state, self.cfg))
@@ -459,7 +460,8 @@ class FrameGraphs(frame_graphs.FrameGraphs):
         if not self.hysteresis:
             return True
         self._need_g()
-        return bool(self.need)
+        with span("read.need"):
+            return bool(self.need)
 
     def _pre_body(self, extract: bool) -> None:
         self.align.src.mask.copy_(self.mask)
@@ -493,10 +495,7 @@ class FrameGraphs(frame_graphs.FrameGraphs):
         self.info[-1].copy_(voxel_map.count(vm).to(torch.float32))
 
     def _after_post(self) -> None:
-        if bool(self.post.is_map_insert):
-            self._update_map()
-
-    def _update_map(self) -> None:
-        """The insert graph, in a method of its own so that a profiler
-        range can wrap the stage (chip_ab.py --frame-profile)."""
-        self._insert_g()
+        with span("read.insert"):
+            insert = bool(self.post.is_map_insert)
+        if insert:
+            self._insert_g()

@@ -31,6 +31,7 @@ import torch
 from tpu_icp_slam_torch.config import SlamConfig
 from tpu_icp_slam_torch.backend import pose_graph as pg
 from tpu_icp_slam_torch.backend.loop_closure import LoopClosure, LoopDetector
+from tpu_icp_slam_torch.obs.profile import span
 from tpu_icp_slam_torch.slam.checkpoint import (
     restore_slam_session,
     save_slam_checkpoint,
@@ -223,7 +224,17 @@ class Slam3D:
                             n_loop_closures=len(closures))
         if not (cfg.backend.enabled and closures):
             return poses, report
+        with span("backend.graph"):
+            return self._pose_graph(poses, kf_poses, kf_frames, anchor_kf,
+                                    closures, strain, report)
 
+    def _pose_graph(self, poses, kf_poses, kf_frames, anchor_kf, closures,
+                    strain, report):
+        """The backend after the front end: the closure selection (PCM,
+        the residual gate), the pose graph's solve and every frame's
+        correction relative to its anchor keyframe, the span backend.graph:
+        (poses, report)."""
+        cfg = self.cfg
         # ---- pose graph over keyframes: odometry chain + loop factors ----
         kf_poses = np.stack(kf_poses)
         dev = self.device

@@ -1871,8 +1871,10 @@ def test_graphed_align_batched_equals_eager_trips(cuda_device, d, batch,
     align_batched's result that state; one host sync a trip once its
     graph exists (the condition read; none after a trip that reaches
     max_iters); K1's batched and K2P's launches one a trip, replays
-    included, and no RF launch."""
+    included, and no RF launch; each replay one span graph.verify_trip."""
     import warnings
+
+    from torch.profiler import ProfilerActivity, profile
 
     from tpu_icp_slam_torch.icp import loop
     from tpu_icp_slam_torch.icp import point_to_point as p2p
@@ -1920,6 +1922,11 @@ def test_graphed_align_batched_equals_eager_trips(cuda_device, d, batch,
                           res.iters), (eager[0], eager[1], eager[2],
                                        eager[3], eager[6])):
         assert torch.equal(got, want)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loop.align_batched(src, dst, msk, inits, VERIFY_CFG)
+    replays = [e for e in prof.profiler.kineto_results.events()
+               if e.name() == "icp_slam.graph.verify_trip"]
+    assert len(replays) == trips - 1
 
 
 def _frame_graph_case(cuda_device, **icp):
@@ -2042,7 +2049,7 @@ def test_frame_graphs_survive_k2_scratch_growth(cuda_device):
     H_want, g_want = (t.clone() for t in gn_cuda.gn_accum(p, q, n, w))
     out = []
     k2 = graphs.Graphed(lambda: out.append(gn_cuda.gn_accum(p, q, n, w)),
-                        cuda_device)
+                        cuda_device, "k2")
     k2()  # runs and captures K2 over the scratch as it is
     pipe = s2m.ScanToMapPipeline(cfg, device=cuda_device)
     state0 = pipe.init_state(pts[0], msk[0])

@@ -17,7 +17,7 @@ import torch
 
 from tpu_icp_slam.obs import bench as jbench
 from tpu_icp_slam_torch import cli
-from tpu_icp_slam_torch.obs import bench, profile
+from tpu_icp_slam_torch.obs import bench, profile, timers
 
 FRAMES = {1: 3, 2: 4, 3: 3, 4: 2, 5: 3}
 
@@ -60,23 +60,67 @@ def test_measurement_stamp_resolves_this_repository(monkeypatch):
 
 
 def test_profile_trace_annotate_scope(tmp_path):
-    @profile.scope("decorated")
-    def work(x):
-        return (x @ x).sum()
+    """The reference's annotate/scope are the port's one span: a range
+    icp_slam.<name> in the trace file, nested as opened."""
+    with timers.trace(str(tmp_path)):
+        with profile.span("stage_a"):
+            with profile.span("inner"):
+                (torch.ones(8, 8) @ torch.ones(8, 8)).sum()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    got = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("name", "").startswith(profile.PREFIX)}
+    assert set(got) == {"icp_slam.stage_a", "icp_slam.inner"}
+    (a0, a1), (b0, b1) = got["icp_slam.stage_a"], got["icp_slam.inner"]
+    assert a0 <= b0 <= b1 <= a1
 
-    with profile.trace(str(tmp_path)):
-        with profile.annotate("stage_a"):
-            work(torch.ones(8, 8))
-    text = (tmp_path / "trace.json").read_text()
-    assert "stage_a" in text and "decorated" in text
+
+def test_span_records_only_under_a_profiler():
+    """With no profiler a span records nothing; under one, every program
+    span is a function-scope event, not a user annotation (which the
+    profiler would mirror onto the device's timeline)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with profile.span("before"):
+        torch.ones(4).sum()
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profile.span("inside"):
+            torch.ones(4).sum()
+    with profile.span("after"):
+        torch.ones(4).sum()
+    ours = [e for e in prof.profiler.kineto_results.events()
+            if e.name().startswith(profile.PREFIX)]
+    assert [e.name() for e in ours] == ["icp_slam.inside"]
+    assert not any(e.is_user_annotation() for e in ours)
+
+
+def test_profiler_started_inside_an_open_span():
+    """A span opened before a profiler started records nothing and closes
+    cleanly inside it (torch's record would refuse to close, an internal
+    assert); one opened under the profiler and closed after it stopped is
+    kept."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    outer = profile.span("opened_before")
+    outer.__enter__()
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(4).sum()
+        outer.__exit__(None, None, None)
+        inner = profile.span("closed_after")
+        inner.__enter__()
+    inner.__exit__(None, None, None)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(profile.PREFIX)]
+    assert names == ["icp_slam.closed_after"]
 
 
 def test_profile_does_not_swallow_errors(tmp_path):
     """Stated deviation: the reference's helpers catch every exception and
     yield again; the port's let the block's error through."""
     with pytest.raises(ValueError, match="inside"):
-        with profile.trace(str(tmp_path)):
-            with profile.annotate("a"):
+        with timers.trace(str(tmp_path)):
+            with profile.span("a"):
                 raise ValueError("inside")
 
 

@@ -11,12 +11,14 @@ vs factored-form scores, observed 1.6e-6 m; the pose graph then runs in
 float64 on both sides).
 """
 
+import collections
 import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from test_scan_to_map import _s2m_cfg
 from test_torch_slice import _assert_slice_agrees, _log, _rot_gap, _run_both
@@ -81,8 +83,16 @@ def test_slam3d_matches_reference(reference, mode, chunk):
     pts, msk, ref = reference
     ref_poses, ref_rep = ref[mode]
     slam = Slam3D(_slam_cfg(), device="cpu")
-    poses, rep = slam.run(pts, msk, mode=mode, chunk_frames=chunk)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        poses, rep = slam.run(pts, msk, mode=mode, chunk_frames=chunk)
     assert ref_rep.n_loop_closures >= 1  # the log closes in the reference
+    # the program's spans: verification's batches, and the pose graph once
+    # a run that keeps closures
+    spans = collections.Counter(
+        e.name() for e in prof.profiler.kineto_results.events()
+        if e.name().startswith("icp_slam."))
+    assert spans["icp_slam.backend.graph"] == 1 and slam.closures_kept
+    assert spans["icp_slam.verify.batch"] >= 1
     for f in ("n_frames", "n_keyframes", "n_loop_candidates",
               "n_loop_closures", "n_loops_rejected", "n_suspect_closures"):
         assert getattr(rep, f) == getattr(ref_rep, f), f
