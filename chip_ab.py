@@ -110,9 +110,12 @@ and idle shares, launches, and the ops with the most host and device time.
 With --loop-ab OLD_ROOT, phase 15(2)'s Slam2D.run (frames/s), the
 verify_batch above (ms a batched iteration, host clock) and phase 13's
 Slam3D.run on its 180-frame loop (backend seconds, frames/s, verification
-iterations, closures, ATE) run --rounds times each after a warm-up, in four
-processes: OLD_ROOT's package, this tree's, this tree's again, OLD_ROOT's
-again; then the medians of each tree. The loop log is made once and kept
+iterations, closures, ATE, a hash of the poses and of the verified
+closures' T_ij, and where the package keeps them the batched 3-D scan's
+counts) run --rounds times each after a warm-up, in four processes:
+OLD_ROOT's package, this tree's, this tree's again, OLD_ROOT's again; then
+the medians of each tree, and whether every run's poses and closures are
+bit-equal. The loop log is made once and kept
 in build/chip_ab_loop_scans.npz.
 
 With --frame-profile ROOT, ROOT's package runs each cell of FRAME_CELLS
@@ -156,6 +159,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import hashlib
 import json
 import re
 import statistics
@@ -624,6 +628,7 @@ SASS_LOOPS = {
     "16icp_fused_kernelILb1E": ("HMMA", 128),
     "16icp_fused_kernelILb0E": ("FMNMX", 32),
     "15nn_split_kernel": ("FMNMX", 32),
+    "24nn_split_kernel_factored": ("FMNMX", 32),
     "17knn_select_kernel": ("FMUL", 32),
 }
 _SASS_LINE = re.compile(
@@ -654,14 +659,17 @@ def _sass_functions(text):
 
 
 def _hot_loop(ins, op):
-    """The innermost loop (a backward branch's span) that holds `op`:
-    (first address, last address, the opcodes in it), or None."""
+    """The loop (a backward branch's span) densest in `op`, so that neither
+    a loop around it nor a small loop elsewhere that holds one (a shuffle
+    reduction's FMNMX) is taken for the scan: (first address, last
+    address, the opcodes in it), or None."""
     best = None
     for addr, o, tgt in ins:
         if o != "BRA" or tgt is None or tgt > addr:
             continue
         body = [x for a, x, _ in ins if tgt <= a <= addr]
-        if op in body and (best is None or len(body) < len(best[2])):
+        if op in body and (best is None or body.count(op) * len(best[2])
+                           > best[2].count(op) * len(body)):
             best = (tgt, addr, body)
     return best
 
@@ -904,16 +912,32 @@ def _slam3d_run(pts, msk, gt):
     verification iterations, closures, ATE."""
     from tpu_icp_slam_torch.slam.slam3d import Slam3D
 
+    from tpu_icp_slam_torch.kernels import nn_cuda
+
     slam = Slam3D(chip_smoke.full_slam_config(), device="cuda")
+    reset = getattr(nn_cuda, "reset_scan_counts", None)
+    if reset:
+        reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     poses, rep = slam.run(pts, msk, mode="fused")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return {"fps": (len(pts) - 1) / dt, "backend_s": slam.backend_s,
-            "verify_iters": slam.detector.verify_iters,
-            "closures": rep.n_loop_closures,
-            "ate": float(chip_smoke._ate(poses, gt))}
+    verified = hashlib.sha256()
+    for c in slam.closures:
+        verified.update(np.asarray([c.i, c.j], np.int64).tobytes())
+        verified.update(np.asarray(c.T_ij, np.float64).tobytes())
+    out = {"fps": (len(pts) - 1) / dt, "backend_s": slam.backend_s,
+           "verify_iters": slam.detector.verify_iters,
+           "closures": rep.n_loop_closures,
+           "ate": float(chip_smoke._ate(poses, gt)),
+           # bit for bit: the poses, and the verified closures' T_ij
+           "poses_sha": hashlib.sha256(np.ascontiguousarray(
+               poses, np.float64).tobytes()).hexdigest()[:16],
+           "closures_sha": verified.hexdigest()[:16]}
+    if reset:
+        out["scan_counts"] = nn_cuda.scan_counts()
+    return out
 
 
 LOOP_MODES = ("profile-slam2d", "profile-verify", "ab")
@@ -1503,8 +1527,16 @@ def loop_ab(old_root, rounds):
               f"{_join([r['fps'] for r in s3], 3)}, verify iters "
               f"{[r['verify_iters'] for r in s3]}, closures "
               f"{[r['closures'] for r in s3]}, ATE "
-              f"{_join([r['ate'] for r in s3], 5)}")
+              f"{_join([r['ate'] for r in s3], 5)}, poses "
+              f"{sorted({r['poses_sha'] for r in s3})}, closures "
+              f"{sorted({r['closures_sha'] for r in s3})}"
+              + (f", scan counts {s3[-1]['scan_counts']}"
+                 if "scan_counts" in s3[-1] else ""))
         results.append({"tree": label, **res})
+    shas = {(s["poses_sha"], s["closures_sha"]) for r in results
+            for s in r["slam3d"]}
+    print(f"[loop] poses and verified closures bit-equal across trees and "
+          f"rounds: {len(shas) == 1}")
     for label in ("old", "new"):
         runs = [r for r in results if r["tree"] == label]
         med = {

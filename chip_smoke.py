@@ -53,7 +53,9 @@ nonzero and the final line is not printed:
      target (packed_mma_argmin), whose largest score error is a measured tau.
  12. K1's batched form (loop-closure verification) vs its plain version at
      B = 16 (two targets, eight yaws each), M = N = 16,384, and B = 1 bit
-     for bit equal to phase 2's unbatched call.
+     for bit equal to phase 2's unbatched call; its factored scan bit for
+     bit equal to the difference form's (nn_cuda.difference_scan), the
+     rescanned runs a row and fallback rows, and both scans' times.
  13. The slice of full SLAM: Slam3D.run(mode="fused") with
      configs/kitti_full_res.json at nn_precision="rescore" (front end, loop
      closure, pose graph) on a 180-frame loop log at full width; finite
@@ -1324,13 +1326,27 @@ def phase_k1_batched(pts, src1, dst1):
     assert torch.equal(one[0][0], ref1[0]) and torch.equal(one[1][0],
                                                            ref1[1]), \
         "batched K1 at B = 1 differs from the unbatched call"
+    # the factored scan against the difference form's, bit for bit
+    old = nn_cuda.difference_scan(src, dst)
+    assert torch.equal(idx_k, old[0]) and torch.equal(
+        d2_k.view(torch.int32), old[1].view(torch.int32)), \
+        "batched K1's factored scan differs from the difference form's"
+    nn_cuda.reset_scan_counts()
+    nn_cuda.nn_bruteforce(src, dst)
+    c = nn_cuda.scan_counts()
     t = _timings(lambda: nn_cuda.nn_bruteforce(src, dst),
                  lambda: nn_cuda.nn_bruteforce_ref(src, dst), plain_n=1,
                  bound=k1_bound(src.shape[0], 8, src.shape[1],
                                 dst.shape[1]))
+    t["difference_ms"] = _device_ms(lambda: nn_cuda.difference_scan(src, dst))
     print(f"[K1 batched] B={src.shape[0]} (G=8) M=N={src.shape[1]} idx agree "
           f"{agree:.6f} max |d2 - plain| {err:.3e}; B=1 equal to phase 2's "
-          f"call bit for bit | {_fmt(t)}")
+          f"call bit for bit; equal to the difference form's scan bit for "
+          f"bit | rescanned runs a filtered row {c['runs_rescanned'] / (
+              c['rows'] - c['fallback_rows'] - c['shared_rows']):.4f}, "
+          f"fallback rows {c['fallback_rows']}, shared rows "
+          f"{c['shared_rows']} of {c['rows']} | {_fmt(t)}"
+          f"; the difference form's scan {t['difference_ms']:.4f} ms")
     return {"name": "nn_bruteforce[batched]", "route": "cuda",
             "source": "src/tpu_icp_slam_torch/csrc/nn_bruteforce.cu",
             "replaces": "src/tpu_icp_slam/kernels/nn_pallas.py:111",

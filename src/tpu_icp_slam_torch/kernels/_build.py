@@ -118,6 +118,12 @@ def load() -> ctypes.CDLL:
             lib.nn_bruteforce_f32.restype = i32
             lib.nn_bruteforce_blocks_per_sm.argtypes = [i32, ptr]
             lib.nn_bruteforce_blocks_per_sm.restype = i32
+            lib.nn_bruteforce_factored_f32.argtypes = [
+                ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
+                ptr]
+            lib.nn_bruteforce_factored_f32.restype = i32
+            lib.nn_bruteforce_factored_blocks_per_sm.argtypes = [ptr]
+            lib.nn_bruteforce_factored_blocks_per_sm.restype = i32
             lib.nn_rescore_f32.argtypes = [
                 ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr,
                 ptr, ptr, ptr, ptr, ptr]

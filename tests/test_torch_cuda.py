@@ -810,6 +810,263 @@ def test_nn_kernel_is_its_score_chain_bit_for_bit(cuda_device, m, n):
     assert torch.equal(_bits(d2), _bits(rd2))
 
 
+
+# ---- the batched 3-D scan (factored filter, certified selection) ----------
+
+PLANTED = ("dup_run_edge", "dup_tile_edge", "dup_split_edge", "equidistant",
+           "one_ulp", "shift_plus_500", "shift_minus_500", "sentinels",
+           "far_rows", "dup_overflow")
+PLANTED_SPLITS = 2  # the plain version's splits of the target axis
+
+
+def _k1_score_np(a, b):
+    """K1's chain on float32 numpy points (rows of a against rows of b):
+    _fma_emulated_nn's, element by element."""
+    d = a - b
+    s = (d[..., 0] * d[..., 0]).astype(np.float32)
+    s = (d[..., 1].astype(np.float64) ** 2 + s).astype(np.float32)
+    return (d[..., 2].astype(np.float64) ** 2 + s).astype(np.float32)
+
+
+def planted_nn_case(name, m=700, n=3000):
+    """A planted near-tie case of the batched 3-D search: src (4, m, 3) and
+    dst (2, n, 3) float32 (G = 2), sources drawn around the targets, then:
+    duplicate targets on either side of a run (32), tile (256) or split
+    edge of the plain version's PLANTED_SPLITS splits, each the nearest
+    point of 200 sources; two targets at exactly the same score from a
+    source ("equidistant"); two targets one ulp apart in K1's score
+    ("one_ulp"); clouds 500 m off the origin, where the filter's bound is
+    wide ("shift_*"); sentinel (1e6) targets at run, tile and split starts
+    and at the end, and sentinel sources (the last rows, and one more:
+    they share the last row's pick); far sources unlike the last row, so
+    that their block scores every pair in the difference form
+    ("far_rows"); one target sixteen times over in
+    the first eight runs (of any split the card's grid cuts), so that a row
+    keeps more runs than its slots hold ("dup_overflow")."""
+    from tpu_icp_slam_torch.kernels.nn_cuda import split_length
+
+    rng = np.random.default_rng(PLANTED.index(name) + 11)
+    half = 3.0 if name.startswith("shift") else 30.0
+    dst = rng.uniform(-half, half, (2, n, 3)).astype(np.float32)
+    pick = rng.integers(0, n, (4, m))
+    src = (dst[np.arange(4)[:, None] // 2, pick]
+           + rng.normal(0, 0.3, (4, m, 3))).astype(np.float32)
+    length = split_length(n, PLANTED_SPLITS)
+    if name.startswith("dup_") and name != "dup_overflow":
+        lo = {"dup_run_edge": length + 3 * 32 - 1,
+              "dup_tile_edge": length + 255,
+              "dup_split_edge": length - 1}[name]
+        for t in range(2):
+            p = rng.uniform(-20, 20, 3).astype(np.float32)
+            dst[t, lo] = dst[t, lo + 1] = p
+            src[2 * t:2 * t + 2, :200] = p + rng.uniform(-0.3, 0.3,
+                                                        (2, 200, 3))
+    elif name == "dup_overflow":
+        spots = 3 + 16 * np.arange(16)  # two in each of the first 8 runs
+        for t in range(2):
+            dst[t, spots] = dst[t, spots[0]]
+            src[2 * t:2 * t + 2, :200] = dst[t, spots[0]] + rng.uniform(
+                -0.3, 0.3, (2, 200, 3))
+    elif name == "equidistant":
+        for t in range(2):
+            spots = rng.permutation(n)[:200].reshape(100, 2)
+            for i, j in enumerate(spots):
+                a = np.round(rng.uniform(-25, 25, 3) * 64) / 64
+                v = np.round(rng.uniform(-0.1, 0.1, 3) * 64) / 64
+                src[2 * t:2 * t + 2, i] = a
+                dst[t, j[0]], dst[t, j[1]] = a + v, a - v
+    elif name == "one_ulp":
+        for t in range(2):
+            spots = np.sort(rng.permutation(n)[:200].reshape(100, 2), axis=1)
+            for i, j in enumerate(spots):
+                a = rng.uniform(-25, 25, 3).astype(np.float32)
+                v = rng.uniform(-0.05, 0.05, 3)
+                b1 = (a + v).astype(np.float32)
+                want = np.nextafter(_k1_score_np(a, b1), np.float32(np.inf))
+                # the same offset turned every way: one lands an ulp above
+                u = rng.normal(size=(4000, 3))
+                u *= np.linalg.norm(v) / np.linalg.norm(u, axis=1)[:, None]
+                cands = (a + u).astype(np.float32)
+                hit = np.nonzero(_k1_score_np(a, cands) == want)[0]
+                if not len(hit):
+                    continue
+                b2 = cands[hit[0]]
+                src[2 * t:2 * t + 2, i] = a
+                # the later index holds the lower score half of the time
+                dst[t, j[0]], dst[t, j[1]] = (b1, b2) if i % 2 else (b2, b1)
+    elif name.startswith("shift"):
+        off = np.float32(500.0 if name == "shift_plus_500" else -500.0)
+        src += off
+        dst += off
+    elif name == "sentinels":
+        for start in (0, length):
+            for edge in (0, 32, 256):
+                dst[:, start + edge:start + edge + 8] = 1.0e6
+        dst[:, -300:] = 1.0e6
+        src[:, -90:] = 1.0e6
+        src[:, 5] = 1.0e6
+    elif name == "far_rows":
+        src[:, 5] = [2.0e5, 1.0e5, -3.0e5]
+        src[:, 9] = [-1.0e6, 0.5, 2.0]
+    return src.astype(np.float32), dst.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", PLANTED)
+def test_factored_scan_bit_for_bit_on_planted_ties(cuda_device, name):
+    """The batched 3-D scan against the difference form's scan (today's
+    batched K1, `difference_scan`) on every planted case: idx and d2 bit
+    for bit, and both against K1's score chain."""
+    src, dst = (torch.from_numpy(a).to(cuda_device)
+                for a in planted_nn_case(name))
+    nn_cuda.reset_scan_counts()
+    idx, d2 = nn_cuda.nn_bruteforce(src, dst)
+    ref = nn_cuda.difference_scan(src, dst)
+    assert torch.equal(idx, ref[0]), int((idx != ref[0]).sum())
+    assert torch.equal(_bits(d2), _bits(ref[1]))
+    counts = nn_cuda.scan_counts()
+    assert counts["rows"] == 4 * src.shape[1] * _splits_of(src, dst)
+    if name == "dup_overflow":
+        assert counts["fallback_rows"] > 0  # the whole-split rescans ran
+    if name == "far_rows":  # one block, in the difference form
+        assert counts["fallback_rows"] == counts["rows"]
+        assert counts["shared_rows"] == 0
+    if name == "sentinels":  # the 91 sentinel rows share the last pick
+        assert counts["shared_rows"] == 91 * counts["rows"] // src.shape[1]
+    for b in range(4):
+        e_idx, e_d2 = _fma_emulated_nn(src[b], dst[b // 2])
+        assert torch.equal(idx[b], e_idx) and torch.equal(_bits(d2[b]),
+                                                          _bits(e_d2))
+
+
+def _splits_of(src, dst):
+    from tpu_icp_slam_torch.kernels import _build
+
+    index = src.device.index
+    return nn_cuda.n_split(src.shape[1], dst.shape[1], src.shape[0],
+                           _build.sm_count(index),
+                           nn_cuda.blocks_per_sm(index, 3, True))
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (1, 300), (1025, 255), (3000, 257),
+                                 (2049, 1000), (130, 4099), (16385, 77),
+                                 (7, 16387)])
+def test_factored_scan_ragged_bit_for_bit(cuda_device, m, n):
+    """Ragged M and N (off the block's 1,024 rows, the 256-target tile and
+    the 32-target run; one target; one row), B = 4, G = 2, sentinel
+    targets at the end: the difference form's scan bit for bit."""
+    rng = np.random.default_rng(m * 7 + n)
+    src = torch.from_numpy(rng.uniform(-40, 40, (4, m, 3)).astype(
+        np.float32)).to(cuda_device)
+    dst = torch.from_numpy(rng.uniform(-40, 40, (2, n, 3)).astype(
+        np.float32)).to(cuda_device)
+    if n > 9:
+        dst[:, -(n // 9):] = 1.0e6
+    idx, d2 = nn_cuda.nn_bruteforce(src, dst)
+    ref = nn_cuda.difference_scan(src, dst)
+    assert torch.equal(idx, ref[0]) and torch.equal(_bits(d2), _bits(ref[1]))
+
+
+
+@pytest.mark.parametrize("case", ["nan_row", "huge_row", "inf_target",
+                                  "nan_target"])
+def test_factored_scan_out_of_range_inputs(cuda_device, case):
+    """A NaN or 1e30 source row, or an inf or NaN target (a norm beyond the
+    bound's range), sends its block or split to the difference form: bit
+    for bit the difference form's scan, NaN scores never a minimum."""
+    rng = np.random.default_rng(17)
+    src = torch.from_numpy(rng.uniform(-40, 40, (4, 3000, 3)).astype(
+        np.float32)).to(cuda_device)
+    dst = torch.from_numpy(rng.uniform(-40, 40, (2, 5000, 3)).astype(
+        np.float32)).to(cuda_device)
+    if case == "nan_row":
+        src[1, 77, 0] = float("nan")
+    elif case == "huge_row":
+        src[2, 1500] = torch.tensor([1e30, -1e30, 0.0])
+    elif case == "inf_target":
+        dst[0, 4321, 2] = float("inf")
+    else:
+        dst[1, 10, 1] = float("nan")
+    idx, d2 = nn_cuda.nn_bruteforce(src, dst)
+    ref = nn_cuda.difference_scan(src, dst)
+    assert torch.equal(idx, ref[0]) and torch.equal(_bits(d2), _bits(ref[1]))
+
+
+def _generator_scans():
+    from tpu_icp_slam_torch import synthetic
+    from tpu_icp_slam_torch.core.pointcloud import voxel_downsample_np
+    from tpu_icp_slam_torch.slam.runner import pad_scans
+
+    scans, _ = synthetic.velodyne_log(n_frames=12, n_rings=48,
+                                      n_azimuth=1024, path_fraction=0.1,
+                                      seed=5)
+    return pad_scans([voxel_downsample_np(s, 0.15) for s in scans], 16384)
+
+
+def test_factored_scan_verification_shape_bit_for_bit(cuda_device):
+    """B = 16, G = 8 at 16,384² on generator scans (a query under eight
+    yaws against two keyframes, padded rows and targets as they come), and
+    again with the query's last 2,000 rows padded: bit for bit the
+    difference form's scan, and most rows rescan one run."""
+    pts, _ = _generator_scans()
+    yaws = np.linspace(-np.pi, np.pi, 8, endpoint=False)
+    c, s = np.cos(yaws), np.sin(yaws)
+    rot = np.zeros((8, 3, 3), np.float32)
+    rot[:, 0, 0], rot[:, 0, 1], rot[:, 1, 0], rot[:, 1, 1] = c, -s, s, c
+    rot[:, 2, 2] = 1.0
+    q = np.einsum("yij,mj->ymi", rot, pts[-1]).astype(np.float32)
+    src = torch.from_numpy(np.concatenate([q, q])).to(cuda_device)
+    dst = torch.from_numpy(np.stack([pts[0], pts[4]])).to(cuda_device)
+    for padded in (False, True):
+        if padded:
+            src[:, -2000:] = 1.0e6
+        nn_cuda.reset_scan_counts()
+        idx, d2 = nn_cuda.nn_bruteforce(src, dst)
+        ref = nn_cuda.difference_scan(src, dst)
+        assert torch.equal(idx, ref[0]), (padded,
+                                          int((idx != ref[0]).sum()))
+        assert torch.equal(_bits(d2), _bits(ref[1]))
+        counts = nn_cuda.scan_counts()
+        filtered = (counts["rows"] - counts["fallback_rows"]
+                    - counts["shared_rows"])
+        assert counts["runs_rescanned"] <= 1.1 * filtered, counts
+        if padded:
+            assert counts["shared_rows"] > 0, counts
+
+
+def test_align_batched_same_with_either_scan(cuda_device, monkeypatch):
+    """align_batched (the graphed trip, verification's coarse ICP) gives
+    T, rmse, iters and n_inliers bit for bit whether its batched NN is the
+    factored scan or the difference form's."""
+    from tpu_icp_slam_torch.core.pointcloud import PointCloud
+    from tpu_icp_slam_torch.icp import loop
+    from tpu_icp_slam_torch.kernels import nn as nn_dispatch
+
+    pts, msk = _generator_scans()
+    cfg = ICPConfig(method="point_to_point", max_iters=12,
+                    max_corr_dist=2.0, nn_precision="highest")
+    yaws = torch.tensor(np.linspace(-0.4, 0.4, 8), dtype=torch.float32)
+    T0 = torch.eye(4).repeat(16, 1, 1)
+    T0[:, 0, 0], T0[:, 0, 1] = torch.cos(yaws.repeat(2)), -torch.sin(
+        yaws.repeat(2))
+    T0[:, 1, 0], T0[:, 1, 1] = torch.sin(yaws.repeat(2)), torch.cos(
+        yaws.repeat(2))
+    src = PointCloud(points=torch.from_numpy(pts[6]).to(cuda_device),
+                     mask=torch.from_numpy(msk[6]).to(cuda_device))
+    dst = torch.from_numpy(np.stack([pts[2], pts[9]])).to(cuda_device)
+    dmask = torch.from_numpy(np.stack([msk[2], msk[9]])).to(cuda_device)
+    runs = []
+    for scan in (None, nn_cuda.difference_scan):
+        loop._graphs.clear()
+        if scan is not None:
+            monkeypatch.setattr(nn_dispatch, "nn_bruteforce", scan)
+        res = loop.align_batched(src, dst, dmask, T0.to(cuda_device), cfg)
+        runs.append([t.clone() for t in (res.T, res.rmse, res.iters,
+                                         res.n_inliers)])
+    loop._graphs.clear()
+    for new, old in zip(*runs):
+        assert torch.equal(new, old)
+
+
 def _packed(s, d):
     sc, dc = nn_bf16.recentre(s, d)
     return nn_bf16.pack_source(sc), nn_bf16.pack_target(dc)
