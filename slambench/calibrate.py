@@ -4,16 +4,16 @@ from, on the card (not run by the benchmark's own runs):
     python3 slambench/calibrate.py readings --workload <cell>
         --seeds 1 2 ... [--control-seeds 1 2 3] [--out FILE]
 
-runs the cell's timed path (slambench/harness.Program) once over each
-distinct sequence of each seed, then the plain reference on the same
-scans (the sound readings) and, on the control seeds, the reference
+runs the cell's timed path (its drive's Program, slambench/drives) once
+over each distinct sequence of each seed, then the plain reference on the
+same inputs (the sound readings) and, on the control seeds, the reference
 computed in TF32 in the program's place (the control, which has to come
 out as not correct); one JSON line a seed. With `--faults`, on each of
-the `--fault-seeds`, the program runs again with each fault planted
-(slambench/faults.py: a program that inserts into its map never, a verification that
-returns no closure, a pose graph left unsolved), judged by the sound
-reference: the readings that the numbers those faults move are held
-against.
+the `--fault-seeds`, the program runs again with each named fault of the
+drive's FAULTS planted (for the lidar drives: a program that inserts into
+its map never, a verification that returns no closure, every verified
+closure kept, a pose graph left unsolved), judged by the sound reference:
+the readings that the numbers those faults move are held against.
 
     python3 slambench/calibrate.py kernels --workload <cell> --seed N
 
@@ -34,16 +34,36 @@ import time
 _CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [_CHECKOUT, os.path.join(_CHECKOUT, "src")]
 
-from slambench import check, gen, harness  # noqa: E402
-from slambench.faults import FAULTS  # noqa: E402
+from slambench import harness  # noqa: E402
 
 
 def _setup(cell: str, seed: int):
     w = harness.cell_of(harness.benchmark(), cell)
     cfg, mix = harness.config(w["config"]), harness.traffic(w["traffic"])
-    p = cfg["pipeline"]
-    return cfg, mix, gen.sequences(mix, p["downsample_voxel"],
-                                   p["scan_capacity"], seed)
+    drv = harness.drive(mix["drive"])
+    return cfg, mix, drv, [drv.sequence(*job)
+                           for job in drv.jobs(cfg, mix, seed)]
+
+
+def _summaries(drv, row: dict, side: str, recs: list) -> None:
+    """The drive's counts of each record or reference, where it has any."""
+    summary = getattr(drv, "summary", None)
+    if summary is None:
+        return
+    counts = [summary(r) for r in recs]
+    for k in counts[0]:
+        row[f"{side}_{k}"] = [c[k] for c in counts]
+
+
+def _readings(drv, cfg: dict, mix: dict, seqs: list, recs: list,
+              precision: str = "float32", device: str = "cuda"):
+    """The worst of each number over the seed's sequences, and the
+    references."""
+    got, refs = [], []
+    for rec, (inputs, gt) in zip(recs, seqs):
+        refs.append(drv.reference(cfg, mix, inputs, rec, device, precision))
+        got.append(drv.numbers(rec, refs[-1], gt))
+    return {k: max(g[k] for g in got) for k in got[0]}, refs
 
 
 def readings(args) -> None:
@@ -53,14 +73,18 @@ def readings(args) -> None:
     prog = None
     out = open(args.out, "a") if args.out else None
     for seed in args.seeds:
-        cfg, mix, seqs = _setup(args.workload, seed)
+        cfg, mix, drv, seqs = _setup(args.workload, seed)
+        unknown = set(args.faults) - set(drv.FAULTS)
+        if unknown:
+            raise SystemExit(f"calibrate: no fault {sorted(unknown)} in "
+                             f"drive {mix['drive']} ({sorted(drv.FAULTS)})")
         if prog is None:
-            prog = harness.Program(cfg, mix["drive"], "cuda", spans=False)
-            prog.run(seqs[0][0], seqs[0][1])
+            prog = drv.Program(cfg, "cuda", spans=False)
+            prog.run(*seqs[0][0])
         t0 = time.perf_counter()
         recs = []
-        for k, (pts, msk, _) in enumerate(seqs):
-            rec = prog.run(pts, msk)
+        for k, (inputs, _) in enumerate(seqs):
+            rec = prog.run(*inputs)
             rec["seq"] = k
             recs.append(rec)
         torch.cuda.synchronize()
@@ -70,26 +94,17 @@ def readings(args) -> None:
             if precision == "tf32" and seed not in args.control_seeds:
                 continue
             t0 = time.perf_counter()
-            got, refs = [], []
-            for rec, (pts, msk, gt) in zip(recs, seqs):
-                refs.append(check.reference(cfg, mix, pts, msk, rec, "cuda",
-                                            precision))
-                got.append(check.numbers(rec, refs[-1], gt))
             name = "sound" if precision == "float32" else "control"
-            row[name] = {k: max(g[k] for g in got) for k in got[0]}
+            row[name], refs = _readings(drv, cfg, mix, seqs, recs,
+                                        precision)
             row[f"{name}_s"] = time.perf_counter() - t0
-            if mix["drive"] == "slam":
-                row[f"{name}_closures"] = [len(r["closures"]) for r in refs]
-                row[f"{name}_verify_iters"] = [r["verify_iters"]
-                                               for r in refs]
-        if mix["drive"] == "slam":
-            row["program_closures"] = [len(r["closures"]) for r in recs]
-            row["program_verified"] = [len(r["verified"]) for r in recs]
-            row["program_verify_iters"] = [r["verify_iters"] for r in recs]
+            _summaries(drv, row, name, refs)
+        _summaries(drv, row, "program", recs)
         row["icp_iters"] = [r["icp_iters"] for r in recs]
         if seed in args.fault_seeds:
             for name in args.faults:
-                row[f"fault_{name}"] = _fault_reading(name, cfg, mix, seqs)
+                row[f"fault_{name}"] = _fault_reading(name, cfg, mix, drv,
+                                                      seqs)
         text = json.dumps(row)
         print(text, flush=True)
         if out:
@@ -97,25 +112,21 @@ def readings(args) -> None:
             out.flush()
 
 
-def _fault_reading(name: str, cfg: dict, mix: dict, seqs: list,
+def _fault_reading(name: str, cfg: dict, mix: dict, drv, seqs: list,
                    device: str = "cuda") -> dict:
     """The numbers of the program with the fault planted, against the
     sound reference (each the worst over the seed's sequences)."""
     import torch
 
-    prog_cfg, patch = FAULTS[name](cfg)
-    got = []
+    prog_cfg, patch = drv.FAULTS[name](cfg)
     with patch:
-        prog = harness.Program(prog_cfg, mix["drive"], device, spans=False)
-        recs = [dict(prog.run(pts, msk), seq=k)
-                for k, (pts, msk, _) in enumerate(seqs)]
+        prog = drv.Program(prog_cfg, device, spans=False)
+        recs = [dict(prog.run(*inputs), seq=k)
+                for k, (inputs, _) in enumerate(seqs)]
     del prog
     if device == "cuda":
         torch.cuda.synchronize()
-    for rec, (pts, msk, gt) in zip(recs, seqs):
-        ref = check.reference(cfg, mix, pts, msk, rec, device)
-        got.append(check.numbers(rec, ref, gt))
-    return {k: max(g[k] for g in got) for k in got[0]}
+    return _readings(drv, cfg, mix, seqs, recs, device=device)[0]
 
 
 def kernels(args) -> None:
@@ -125,16 +136,15 @@ def kernels(args) -> None:
     from slambench import trace
 
     harness.require_card(1)
-    cfg, mix, seqs = _setup(args.workload, args.seed)
-    prog = harness.Program(cfg, mix["drive"], "cuda", spans=True)
-    prog.run(seqs[0][0], seqs[0][1])
+    cfg, mix, drv, seqs = _setup(args.workload, args.seed)
+    prog = drv.Program(cfg, "cuda", spans=True)
+    prog.run(*seqs[0][0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("slambench.block"):
             for i in range(mix["profile_sequences"]):
-                pts, msk, _ = seqs[i % len(seqs)]
-                prog.run(pts, msk)
+                prog.run(*seqs[i % len(seqs)][0])
             torch.cuda.synchronize()
     tr = trace.reduce(prof)
     fams = harness.families()
@@ -159,7 +169,8 @@ def main() -> None:
     r.add_argument("--workload", required=True)
     r.add_argument("--seeds", type=int, nargs="+", required=True)
     r.add_argument("--control-seeds", type=int, nargs="*", default=[])
-    r.add_argument("--faults", nargs="*", default=[], choices=sorted(FAULTS))
+    r.add_argument("--faults", nargs="*", default=[],
+                   help="names in the cell's drive's FAULTS")
     r.add_argument("--fault-seeds", type=int, nargs="*", default=[])
     r.add_argument("--out")
     k = sub.add_parser("kernels")

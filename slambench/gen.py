@@ -13,7 +13,8 @@ the same scans as the port's copies.
 
 `sequences(traffic, voxel, capacity, seed)` reads a traffic mix's generator
 parameters (slambench/traffic/<mix>.json) and makes its distinct
-sequences.
+sequences: `sequence(*job)` for each of `jobs(...)`, which the lidar drives
+(slambench/drives) hand to `Prefetch`.
 """
 
 from __future__ import annotations
@@ -259,8 +260,8 @@ def sequence_seeds(seed: int, n: int) -> list[int]:
     return [int(s) for s in ss.generate_state(n, dtype=np.uint32)]
 
 
-def _sequence(traffic: dict, world: int, seed: int, voxel: float,
-              capacity: int):
+def sequence(traffic: dict, world: int, seed: int, voxel: float,
+             capacity: int):
     scans, gt = velodyne_log(
         n_frames=traffic["frames"], seed=seed, n_rings=traffic["rings"],
         n_azimuth=traffic["azimuth"], path_fraction=traffic["path_fraction"],
@@ -271,7 +272,7 @@ def _sequence(traffic: dict, world: int, seed: int, voxel: float,
     return pts, msk, gt
 
 
-def _jobs(traffic: dict, voxel: float, capacity: int, seed: int) -> list:
+def jobs(traffic: dict, voxel: float, capacity: int, seed: int) -> list:
     worlds = traffic["worlds"]
     return [(traffic, world, s, voxel, capacity)
             for world, s in zip(worlds, sequence_seeds(seed, len(worlds)))]
@@ -283,24 +284,23 @@ def sequences(traffic: dict, voxel: float, capacity: int, seed: int):
     for each of the mix's fixed worlds (`worlds`: the seeds that place the
     clutter), the range noise drawn from the run's seed, so that every
     seed gets the same streets and the same work."""
-    return [_sequence(*job) for job in _jobs(traffic, voxel, capacity, seed)]
+    return [sequence(*job) for job in jobs(traffic, voxel, capacity, seed)]
 
 
 class Prefetch:
-    """`sequences(...)`, made in worker processes, one a world (four at
-    most), while the caller goes on: a run starts it before it imports
-    torch and the program (the workers are forked then, and load neither).
-    `result()` waits for the sequences and ends the workers; `close()`
-    ends them, done or not."""
+    """`[fn(*job) for job in jobs]`, made in worker processes, one a job
+    (four at most), while the caller goes on: a run starts it before it
+    imports torch and the program (the workers are forked then, and load
+    neither; `fn` is sent by its module's name, which the workers hold).
+    `result()` waits for the results and ends the workers; `close()` ends
+    them, done or not."""
 
-    def __init__(self, traffic: dict, voxel: float, capacity: int,
-                 seed: int):
+    def __init__(self, fn, jobs: list):
         import multiprocessing
 
-        jobs = _jobs(traffic, voxel, capacity, seed)
         ctx = multiprocessing.get_context("fork")
         self._pool = ctx.Pool(min(len(jobs), 4))
-        self._async = self._pool.starmap_async(_sequence, jobs, chunksize=1)
+        self._async = self._pool.starmap_async(fn, jobs, chunksize=1)
 
     def result(self) -> list:
         try:

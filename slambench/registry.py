@@ -1,15 +1,18 @@
 """The benchmark's registry: every piece found by its name in
 BENCHMARK.json, as a file of its own under slambench/ (configs/<config>.json,
 traffic/<mix>.json, limits/<cell>.json, metrics/<metric>.py, the union of
-kernels/<family>*.json). It imports neither torch nor the program, so that
-a run can read its cell before either is loaded.
+kernels/<family>*.json, and drives/<drive>.py by a traffic mix's `drive`
+key). It imports neither torch nor the program, so that a run can read its
+cell, and start making its inputs, before either is loaded.
 """
 
 from __future__ import annotations
 
 import glob
+import hashlib
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent  # slambench/
@@ -46,6 +49,34 @@ def reader(metric: str, root: Path = ROOT):
         raise FileNotFoundError(f"no reader for metric {metric}: {path}")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+def drive(name: str, root: Path = ROOT):
+    """The module of slambench/drives/<name>.py: how a kind of input is
+    made, fed to the program and judged (the contract is
+    slambench/drives/__init__.py's docstring).
+    Loaded once a file and kept in sys.modules, so that its functions
+    reach forked workers by name; a drive of another root than this
+    checkout's gets a name of its own."""
+    path = (root / "drives" / f"{name}.py").resolve()
+    if not path.exists():
+        raise FileNotFoundError(f"no drive {name}: {path}")
+    module_name = f"slambench.drives.{name}"
+    if root.resolve() != ROOT:
+        tag = hashlib.sha256(str(path).encode()).hexdigest()[:12]
+        module_name += f"_{tag}"
+    module = sys.modules.get(module_name)
+    if module is not None and Path(module.__file__).resolve() == path:
+        return module
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[module_name] = module
+    try:
+        spec.loader.exec_module(module)
+    except BaseException:
+        del sys.modules[module_name]
+        raise
     return module
 
 

@@ -6,7 +6,7 @@ CUDA card and print its result as the last line of standard output:
 
 from the root of a checkout (see slambench/harness.py). It has no CPU
 mode: without a CUDA device it exits with an error and prints no result.
-The cell's scans are made in worker processes while torch and the program
+The cell's inputs are made in worker processes while torch and the program
 load.
 """
 
@@ -25,9 +25,9 @@ from slambench import gen, registry  # noqa: E402
 
 
 def prefetch(argv):
-    """The sequences of the cell and seed that `argv` names, under way in
-    worker processes; None where it names none (the harness then says
-    why)."""
+    """The inputs of the cell and seed that `argv` names, under way in
+    worker processes (its drive's `sequence` over its `jobs`); None where
+    it names none (the harness then says why)."""
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--workload")
     ap.add_argument("--seed", type=int)
@@ -38,14 +38,13 @@ def prefetch(argv):
         return None
     if args.seed is None:
         return None
-    cfg = registry.config(w["config"])["pipeline"]
-    return gen.Prefetch(registry.traffic(w["traffic"]),
-                        cfg["downsample_voxel"], cfg["scan_capacity"],
-                        args.seed)
+    cfg, mix = registry.config(w["config"]), registry.traffic(w["traffic"])
+    drive = registry.drive(mix["drive"])
+    return gen.Prefetch(drive.sequence, drive.jobs(cfg, mix, args.seed))
 
 
 if __name__ == "__main__":
-    scans = prefetch(sys.argv[1:])
+    inputs = prefetch(sys.argv[1:])
     from slambench import harness
 
-    sys.exit(harness.main(t_start=T_START, scans=scans))
+    sys.exit(harness.main(t_start=T_START, prefetch=inputs))

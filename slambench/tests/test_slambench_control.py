@@ -18,10 +18,10 @@ spread passes the medians, and is held by the 90th percentiles where it
 touches a tenth of the frames or more, see PERF.md); the pose altered by
 2 cm on the frames that insert into the map alone. The cells run on one
 chip, so there is no exchange between chips to leave out. And the faults
-of slambench/faults.py, planted in the program alone: a map never
-inserted into (its info rows saying so), a loop verification that
-returns no closure, every verified closure kept (no PCM, no residual
-gate), Slam3D's pose graph left unsolved.
+of the cell's drive (slambench/drives/<drive>.py, FAULTS), planted in the
+program alone: a map never inserted into (its info rows saying so), a loop
+verification that returns no closure, every verified closure kept (no PCM,
+no residual gate), Slam3D's pose graph left unsolved.
 """
 
 import contextlib
@@ -32,8 +32,7 @@ import pytest
 import torch
 
 from conftest import small_config, small_traffic
-from slambench import check, gen, harness
-from slambench.faults import FAULTS
+from slambench import check, harness
 
 
 def _real_geometry(cfg):
@@ -52,11 +51,12 @@ def test_control_is_not_correct():
     cfg = _real_geometry(harness.config("kitti-odom"))
     mix = dict(harness.traffic("replay"), frames=5, worlds=[0],
                path_fraction=5 / 110)
-    seqs = gen.sequences(mix, 0.15, 8192, 2**31 + 5)
-    prog = harness.Program(cfg, "replay", "cpu", spans=False)
-    rec = dict(prog.run(seqs[0][0], seqs[0][1]), seq=0)
-    sound = check.judge(cfg, mix, seqs, [rec], _limits(cell), "cpu")
-    control = check.judge(cfg, mix, seqs, [rec], _limits(cell), "cpu",
+    drive = harness.drive(mix["drive"])
+    seqs = [drive.sequence(*job) for job in drive.jobs(cfg, mix, 2**31 + 5)]
+    prog = drive.Program(cfg, "cpu", spans=False)
+    rec = dict(prog.run(*seqs[0][0]), seq=0)
+    sound = check.judge(drive, cfg, mix, seqs, [rec], _limits(cell), "cpu")
+    control = check.judge(drive, cfg, mix, seqs, [rec], _limits(cell), "cpu",
                           precision="tf32")
     assert sound["correct"], sound["lines"]
     assert not control["correct"], control["lines"]
@@ -164,10 +164,12 @@ def _longer(mix):
 def test_planted_fault_is_not_correct(cell, fault):
     import time
 
+    w = harness.cell_of(harness.benchmark(), cell)
+    drive = harness.drive(harness.traffic(w["traffic"])["drive"])
     with contextlib.ExitStack() as patches:
-        class Faulted(harness.Program):
+        class Faulted(drive.Program):
             def __init__(self, cfg, *a, **kw):
-                cfg, patch = FAULTS[fault](cfg)
+                cfg, patch = drive.FAULTS[fault](cfg)
                 patches.enter_context(patch)
                 super().__init__(cfg, *a, **kw)
 

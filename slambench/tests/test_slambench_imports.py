@@ -55,6 +55,24 @@ def test_the_reference_loads_nothing_of_the_program():
     assert not loaded & {"tpu_icp_slam_torch", "tpu_icp_slam", "jax"}
 
 
+def test_drives_load_neither_torch_nor_the_program():
+    """A drive's jobs and sequences run in workers forked before torch
+    loads: importing a drive module loads neither torch nor the port."""
+    code = (f"import sys; sys.path[:0] = [{CHECKOUT!r}]\n"
+            "from slambench import registry\n"
+            "names = sorted(p.stem for p in (registry.ROOT / 'drives')"
+            ".glob('*.py') if not p.stem.startswith('_'))\n"
+            "mods = [registry.drive(n) for n in names]\n"
+            "print(names)\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    lines = _run(code)
+    assert {"replay", "online", "slam"} <= set(eval(lines[-2]))
+    loaded = set(eval(lines[-1]))
+    assert "slambench" in loaded and "numpy" in loaded
+    assert not loaded & {"torch", "tpu_icp_slam_torch", "tpu_icp_slam",
+                         "jax"}
+
+
 def test_forbidden_names_are_compared_whole(monkeypatch):
     from slambench import harness
 

@@ -1,16 +1,18 @@
 """The plain reference on tiny logs, on the CPU, against the port's eager
 path: run free it reproduces the front end bit for bit; following the
 port's own poses every gap is 0; full SLAM's closures and poses agree.
-And the copied generator gives the port's scans."""
+And the copied generator gives the port's scans, and the lidar drives the
+sequences that the harness made before it had drives."""
 
+import hashlib
 import json
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import small_config
-from slambench import check, gen, harness
+from conftest import small_config, small_traffic
+from slambench import gen, harness
 from slambench.reference import odometry, slam
 
 GROUPS = harness.GROUPS
@@ -81,16 +83,49 @@ def test_world_seed_fixes_the_streets_and_not_the_noise():
 def test_prefetch_makes_the_same_sequences_and_ends_its_workers():
     import multiprocessing
 
+    drive = harness.drive("slam")
+    cfg = {"pipeline": {"downsample_voxel": 0.3, "scan_capacity": 512}}
     mix = {"route": "loop", "worlds": [0, 1, 2], "frames": 2, "rings": 4,
            "azimuth": 64, "path_fraction": 1.0}
-    want = gen.sequences(mix, 0.3, 512, 2**31 + 78)
-    got = gen.Prefetch(mix, 0.3, 512, 2**31 + 78).result()
+    jobs = drive.jobs(cfg, mix, 2**31 + 78)
+    want = [drive.sequence(*job) for job in jobs]
+    got = gen.Prefetch(drive.sequence, jobs).result()
     assert len(got) == 3
-    for a, b in zip(want, got):
-        assert all(np.array_equal(x, y) for x, y in zip(a, b))
-    unused = gen.Prefetch(mix, 0.3, 512, 5)
+    for (a, a_gt), (b, b_gt) in zip(want, got):
+        assert all(np.array_equal(x, y) for x, y in zip(a + (a_gt,),
+                                                        b + (b_gt,)))
+    unused = gen.Prefetch(drive.sequence, drive.jobs(cfg, mix, 5))
     unused.close()
     assert multiprocessing.active_children() == []
+
+
+# SHA-256 of every array (points, mask, ground truth) of every sequence,
+# in order, at the tests' small size and seed 5, as gen.sequences made them
+# before the harness had drives
+SEQUENCES_SHA256 = {
+    "kitti-odom.replay":
+        "2c227f32233e6b334e1134c12c7482da28452dacf67f39cd8499c6dc1b08e1a9",
+    "kitti-slam.loop":
+        "8ab2616c0105aea285e17b9f6c95d3b114d03eb9c2b8c25550f52123af5994a5",
+    "kitti-odom.online":
+        "2c227f32233e6b334e1134c12c7482da28452dacf67f39cd8499c6dc1b08e1a9",
+    "kitti-slam.noloop":
+        "bca43f9f07c2eed8ee292f7ada0affa14f030294e9c839088862318ecaf5c828",
+}
+
+
+@pytest.mark.parametrize("cell", sorted(SEQUENCES_SHA256))
+def test_lidar_sequences_are_the_parents(cell):
+    w = harness.cell_of(harness.benchmark(), cell)
+    cfg = small_config(harness.config(w["config"]))
+    mix = small_traffic(harness.traffic(w["traffic"]))
+    drive = harness.drive(mix["drive"])
+    h = hashlib.sha256()
+    for inputs, gt in (drive.sequence(*job)
+                       for job in drive.jobs(cfg, mix, 5)):
+        for a in inputs + (gt,):
+            h.update(a.tobytes())
+    assert h.hexdigest() == SEQUENCES_SHA256[cell]
 
 
 def test_odometry_reference_reproduces_the_port(odom_cfg):
@@ -113,7 +148,8 @@ def test_odometry_reference_reproduces_the_port(odom_cfg):
     rec = {"poses": infos["pose"].numpy(), "rmse": infos["rmse"].numpy()}
     rec.update(is_keyframe=infos["is_keyframe"].numpy(),
                map_inserted=infos["map_inserted"].numpy())
-    got = check.numbers(rec, dict(forced, frame_poses=forced["pose"]))
+    got = harness.drive("replay").numbers(
+        rec, dict(forced, frame_poses=forced["pose"]))
     assert got["frame_gap_max_m"] == 0.0 and got["rmse_gap_max"] == 0.0
     assert got["decisions_differ"] == 0.0
 

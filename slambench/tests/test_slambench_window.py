@@ -81,7 +81,7 @@ class _StallingProgram:
     """A program of 5-frame sequences that takes 10 ms a sequence, 300 ms
     in its third."""
 
-    def __init__(self, cfg, drive, device, spans):
+    def __init__(self, cfg, device, spans):
         self.n = 0
 
     def run(self, pts, msk):
