@@ -18,11 +18,16 @@ equal bit for bit.
 
 As in the reference, the projective lookup gets no source normals, so
 icp.normal_gate_cos (0.5 in configs/rgbd.json) never gates a pair.
+
+The span upload (obs/profile.py) goes around the copy of a depth input to
+the card in `init_state`, `step` and `run_fused`, where the input is not
+already there; a whole log's stack is copied at once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 
 import torch
 
@@ -35,6 +40,7 @@ from tpu_icp_slam_torch.icp.projective import (
     projective_correspondence,
 )
 from tpu_icp_slam_torch.mapping.normals import normals_from_depth
+from tpu_icp_slam_torch.obs.profile import span
 from tpu_icp_slam_torch.slam import frame_graphs
 from tpu_icp_slam_torch.slam.frame_graphs import motion_init, odom_info
 
@@ -60,7 +66,14 @@ class RGBDOdometry:
         self.device = torch.device(device)
 
     def _depth(self, depth) -> torch.Tensor:
-        return torch.as_tensor(depth, dtype=torch.float32, device=self.device)
+        """The depth input as float32 on the device; its copy from the host
+        to a card is the span upload."""
+        copied = self.device.type != "cpu" and not (
+            isinstance(depth, torch.Tensor)
+            and depth.device.type == self.device.type)
+        with span("upload") if copied else nullcontext():
+            return torch.as_tensor(depth, dtype=torch.float32,
+                                   device=self.device)
 
     def init_state(self, first_depth) -> RGBDState:
         vmap, nmap, valid = _maps(self._depth(first_depth), self.K)
